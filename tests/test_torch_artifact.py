@@ -1,0 +1,118 @@
+"""PyTorch port: the trained tiny.en int8 artifact end to end on the CPU.
+
+The port's greedy tokens must equal the JAX package's ``transcribe_tokens``
+on the same mel, and ``WhisperSession(device="cpu")`` must transcribe all
+four bundled utterances exactly as ``artifacts/expected.json`` says.
+"""
+
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from whisper_trtllm_tpu.audio import log_mel_spectrogram as jax_log_mel
+from whisper_trtllm_tpu.config import GenerationConfig as JaxGenerationConfig
+from whisper_trtllm_tpu.runtime.generation import (
+    transcribe_tokens as jax_transcribe_tokens,
+)
+from whisper_trtllm_tpu.utils.checkpoint import load_checkpoint as jax_load
+from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
+from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
+from whisper_trtllm_tpu_torch.runtime.generation import transcribe_tokens
+from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ART = os.path.join(ROOT, "artifacts", "tiny_en_synth_int8")
+GEN = GenerationConfig(max_new_tokens=32)
+
+
+@pytest.fixture(scope="module")
+def audio():
+    return np.stack([pad_or_trim(read_wav(os.path.join(
+        ROOT, "artifacts", "eval", f"utt{i:02d}.wav"))) for i in range(4)])
+
+
+@pytest.fixture(scope="module")
+def expected():
+    with open(os.path.join(ROOT, "artifacts", "expected.json")) as f:
+        return json.load(f)["texts"]
+
+
+@pytest.fixture(scope="module")
+def artifact():
+    return load_checkpoint(ART, device="cpu")
+
+
+def test_greedy_tokens_equal_jax_on_the_artifact(audio, artifact):
+    """utt00 and utt02 in one batch: lanes that finish at different steps."""
+    batch = audio[[0, 2]]
+    mel = np.asarray(jax_log_mel(batch))
+    ref_params, ref_cfg = jax_load(ART)
+    ref_toks, ref_lens = jax_transcribe_tokens(
+        ref_params, ref_cfg, jnp.asarray(mel),
+        JaxGenerationConfig(max_new_tokens=32))
+    params, cfg = artifact
+    toks, lens = transcribe_tokens(params, cfg, mel, GEN, device="cpu")
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(ref_toks))
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(ref_lens))
+    assert lens[0] != lens[1]
+
+
+def test_session_transcribes_all_four_utterances_exactly(audio, expected,
+                                                         artifact):
+    params, cfg = artifact
+    session = WhisperSession(params, cfg, GEN, device="cpu")
+    toks, lens = session.transcribe(audio)
+    texts = [ids_to_text(toks[i, :lens[i]]) for i in range(len(expected))]
+    assert texts == expected
+    mel = session.frontend(audio[:1])
+    t1, l1 = session.transcribe_features(mel)
+    np.testing.assert_array_equal(t1, toks[:1])
+    np.testing.assert_array_equal(l1, lens[:1])
+    assert tuple(session.encode(mel).shape) == (1, 1500, cfg.d_model)
+    assert session.memory_stats() == {"bytes_in_use": None,
+                                      "peak_bytes_in_use": None,
+                                      "bytes_limit": None}
+
+
+def test_session_bf16_compute_keeps_int8_weights(artifact):
+    params, cfg = artifact
+    session = WhisperSession(params, cfg, GEN,
+                             RuntimeConfig(compute_dtype="bfloat16"),
+                             device="cpu")
+    layers = session.params["encoder"]["layers"]
+    assert layers["fc1"]["kernel_q"].dtype == torch.int8
+    assert layers["fc1"]["scale"].dtype == torch.bfloat16
+    session.warmup(batch=1)
+
+
+@pytest.mark.parametrize("option", [
+    dict(runtime=RuntimeConfig(fuse_qkv=True)),
+    dict(runtime=RuntimeConfig(weight_dtype="int8")),
+    dict(runtime=RuntimeConfig(weight_dtype="int4")),
+    dict(runtime=RuntimeConfig(weight_dtype="fp8")),
+    dict(runtime=RuntimeConfig(quantize_vocab=True)),
+    dict(runtime=RuntimeConfig(compute_dtype="float16")),
+    dict(runtime=RuntimeConfig(persistent_cache_dir="cache")),
+    dict(generation=GenerationConfig(num_beams=2)),
+    dict(generation=GenerationConfig(kv_cache_dtype="int8")),
+    dict(mesh=object()),
+], ids=["fuse_qkv", "weight_int8", "weight_int4", "weight_fp8",
+        "quantize_vocab", "float16", "persistent_cache", "beams", "kv_int8",
+        "mesh"])
+def test_session_refuses_options_of_later_slices(artifact, option):
+    params, cfg = artifact
+    with pytest.raises(NotImplementedError):
+        WhisperSession(params, cfg, device="cpu", **option)
+
+
+def test_session_refuses_engine_export(artifact):
+    params, cfg = artifact
+    session = WhisperSession(params, cfg, GEN, device="cpu")
+    with pytest.raises(NotImplementedError):
+        session.export_engine("engine.bin")

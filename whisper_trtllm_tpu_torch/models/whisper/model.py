@@ -1,0 +1,185 @@
+"""Whisper encoder/decoder (counterpart of
+``whisper_trtllm_tpu/models/whisper/model.py``, the functions the greedy
+path runs).
+
+Parameters are the JAX package's tree as tensors: layers stacked on a
+leading L axis, walked here by a Python loop where the JAX package scans.
+Decoding runs against static caches: the self-attention cache is
+preallocated at ``max_len`` and written in place at ``pos``; cross-attention
+K/V are computed once per utterance.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from whisper_trtllm_tpu_torch.config import WhisperConfig
+from whisper_trtllm_tpu_torch.layers.transformer import (
+    attention_qkv,
+    merge_heads,
+    mlp_block,
+    split_heads,
+)
+from whisper_trtllm_tpu_torch.ops.attention import (
+    mha,
+    mha_decode_step,
+    update_kv_cache,
+)
+from whisper_trtllm_tpu_torch.ops.functional import (
+    conv1d,
+    dense,
+    embedding,
+    gelu,
+    layer_norm,
+)
+
+# cross-attention caches are padded along T to a multiple of this (1500 →
+# 1504); the padding is masked by the true encoder length
+CROSS_PAD = 8
+
+
+def layer(tree, i: int):
+    """Layer ``i`` of a stacked (L, ...) parameter tree, as views."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _vocab_logits(dec: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied vocab head, fp32 logits. The dot runs in fp32 whatever x's
+    dtype; with the int8 table the per-row scale is applied after it."""
+    table = dec["embed_tokens"]
+    if isinstance(table, dict):
+        logits = torch.matmul(x.float(), table["table_q"].float().t())
+        return logits * table["scale"].float()
+    return torch.matmul(x.float(), table.float().t())
+
+
+def cast_params(params, dtype: torch.dtype):
+    """Cast floating leaves wider than one byte to the compute dtype; int8
+    kernels and tables stay int8 (LayerNorm statistics stay fp32 inside
+    ``layer_norm``)."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    if params.is_floating_point() and params.element_size() > 1:
+        return params.to(dtype)
+    return params
+
+
+# --------------------------------------------------------------------------
+# encoder
+# --------------------------------------------------------------------------
+
+def _encoder_layer(lp: dict, x: torch.Tensor, heads: int) -> torch.Tensor:
+    """Pre-LN block: self attention + GELU MLP."""
+    h = layer_norm(lp["self_attn_layer_norm"], x)
+    q, k, v = attention_qkv(lp["self_attn"], h, None, heads)
+    a = merge_heads(mha(q, k, v, causal=False))
+    x = x + dense(lp["self_attn"]["out"], a)
+    h = layer_norm(lp["final_layer_norm"], x)
+    return x + mlp_block(lp, h)
+
+
+def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
+    """mel (B, 3000, n_mels) → encoder states (B, 1500, d): conv1d+GELU
+    stem, + sinusoid positions, the layers, final LN."""
+    enc = params["encoder"]
+    x = gelu(conv1d(enc["conv1"], mel, stride=1, padding=1))
+    x = gelu(conv1d(enc["conv2"], x, stride=2, padding=1))
+    x = x + enc["embed_positions"].to(x.dtype)[None]
+    heads = cfg.encoder_attention_heads
+    for i in range(cfg.encoder_layers):
+        x = _encoder_layer(layer(enc["layers"], i), x, heads)
+    return layer_norm(enc["layer_norm"], x)
+
+
+# --------------------------------------------------------------------------
+# decoder — incremental decode with static caches
+# --------------------------------------------------------------------------
+
+def cross_attention_q(lp: dict, h: torch.Tensor, heads: int) -> torch.Tensor:
+    """Cross-attention query projection with the (d/heads)**-0.5 scale."""
+    d = h.shape[-1]
+    return split_heads(
+        dense(lp["encoder_attn"]["q"], h) * (d // heads) ** -0.5, heads)
+
+
+def compute_cross_kv(params: dict, cfg: WhisperConfig,
+                     enc_states: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V for all layers, once per utterance:
+    (L, B, H, Tp, dh) ×2 with T padded to a multiple of 8 (1500 → 1504);
+    the padding rows are zero and masked by the true length."""
+    heads = cfg.decoder_attention_heads
+    layers = params["decoder"]["layers"]
+    b, t, d = enc_states.shape
+    tp = -(-t // CROSS_PAD) * CROSS_PAD
+    shape = (cfg.decoder_layers, b, heads, tp, d // heads)
+    ks = enc_states.new_zeros(shape)
+    vs = enc_states.new_zeros(shape)
+    for i in range(cfg.decoder_layers):
+        ca = layer(layers, i)["encoder_attn"]
+        ks[i, :, :, :t] = split_heads(dense(ca["k"], enc_states), heads)
+        vs[i, :, :, :t] = split_heads(dense(ca["v"], enc_states), heads)
+    return ks, vs
+
+
+def init_self_kv(cfg: WhisperConfig, batch: int, max_len: Optional[int] = None,
+                 dtype=torch.float32, device="cpu"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Static self-attention KV cache (L, B, H, max_len, dh) ×2."""
+    max_len = max_len or cfg.max_target_positions
+    shape = (cfg.decoder_layers, batch, cfg.decoder_attention_heads, max_len,
+             cfg.decoder_head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def decode_step_kv(
+    params: dict,
+    cfg: WhisperConfig,
+    tokens: torch.Tensor,
+    pos,
+    self_kv: Tuple[torch.Tensor, ...],
+    cross_kv: Tuple[torch.Tensor, ...],
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One decode step, float caches: tokens (B,) at position ``pos`` (an
+    int or a 0-d tensor) → (logits (B, V) fp32, self_kv).
+
+    The self-attention caches are updated IN PLACE and returned; the JAX
+    version returns new arrays. Quantized (4-tuple) caches are a later
+    slice."""
+    if len(self_kv) != 2 or len(cross_kv) != 2:
+        raise NotImplementedError("quantized KV caches are not ported yet")
+    dec = params["decoder"]
+    heads = cfg.decoder_attention_heads
+    dev = tokens.device
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    self_len = pos + 1
+    enc_len = torch.full((), cfg.max_source_positions, dtype=torch.int32,
+                         device=dev)
+    self_k, self_v = self_kv
+    cross_k, cross_v = cross_kv
+
+    x = embedding(dec["embed_tokens"], tokens[:, None])
+    x = x + dec["embed_positions"].index_select(0, pos.long().reshape(1)).to(
+        x.dtype)[None]
+    for i in range(cfg.decoder_layers):
+        lp = layer(dec["layers"], i)
+        # self attention with the cache append at `pos`
+        h = layer_norm(lp["self_attn_layer_norm"], x)
+        q, k_new, v_new = attention_qkv(lp["self_attn"], h, None, heads)
+        sk, sv = update_kv_cache(self_k[i], self_v[i], k_new, v_new, pos)
+        a = mha_decode_step(q, sk, sv, self_len)
+        x = x + dense(lp["self_attn"]["out"], merge_heads(a))
+        # cross attention; the true encoder length masks the padding rows
+        h = layer_norm(lp["encoder_attn_layer_norm"], x)
+        qc = cross_attention_q(lp, h, heads)
+        a = mha_decode_step(qc, cross_k[i], cross_v[i], enc_len)
+        x = x + dense(lp["encoder_attn"]["out"], merge_heads(a))
+        h = layer_norm(lp["final_layer_norm"], x)
+        x = x + mlp_block(lp, h)
+    x = layer_norm(dec["layer_norm"], x)
+    return _vocab_logits(dec, x)[:, 0], (self_k, self_v)

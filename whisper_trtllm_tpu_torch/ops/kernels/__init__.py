@@ -1,0 +1,28 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version (counterparts of ``whisper_trtllm_tpu/ops/pallas``):
+
+- ``flash_attention.flash_fwd`` — K1, encoder self-attention
+  (≙ ``flash_attention.py::flash_mha``, forward);
+- ``decode_attention.decode_attn`` — K2, the decode step's self and cross
+  attention (≙ ``decode_attention.py::decode_mha``).
+
+A wrapper takes its plain version only for CPU tensors; for a CUDA tensor
+it launches its kernel or raises. Sources live in ``csrc/`` and build at
+first use (``_build``).
+"""
+
+from whisper_trtllm_tpu_torch.ops.kernels.decode_attention import (  # noqa: F401
+    decode_attention_reference,
+    decode_attn,
+)
+from whisper_trtllm_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
+    attention_reference,
+    flash_fwd,
+)
+
+KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

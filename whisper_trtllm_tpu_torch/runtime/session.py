@@ -1,0 +1,129 @@
+"""Serving session: device-resident weights, audio or mel in, token ids and
+lengths out (counterpart of ``whisper_trtllm_tpu/runtime/session.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from whisper_trtllm_tpu_torch.audio.features import LogMelSpectrogram, pad_or_trim
+from whisper_trtllm_tpu_torch.config import (
+    GenerationConfig,
+    RuntimeConfig,
+    WhisperConfig,
+)
+from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+from whisper_trtllm_tpu_torch.utils.checkpoint import params_from_numpy
+from whisper_trtllm_tpu_torch.utils.device import (
+    resolve_device,
+    set_fp32_precision,
+    to_tensor,
+)
+
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _check_runtime(rt: RuntimeConfig) -> None:
+    """Refuse every RuntimeConfig option the port does not implement yet,
+    so none is silently ignored."""
+    unported = {
+        "compute_dtype": rt.compute_dtype not in _COMPUTE_DTYPES,
+        "weight_dtype": rt.weight_dtype != "native",
+        "quantize_vocab": rt.quantize_vocab,
+        "fuse_qkv": rt.fuse_qkv,
+        "fp32_attention_softmax": not rt.fp32_attention_softmax,
+        "fp32_logits": not rt.fp32_logits,
+        "use_pallas": rt.use_pallas is False,
+        "donate_caches": not rt.donate_caches,
+        "persistent_cache_dir": rt.persistent_cache_dir is not None,
+    }
+    bad = [name for name, hit in unported.items() if hit]
+    if bad:
+        raise NotImplementedError(
+            f"RuntimeConfig options not ported yet: {', '.join(bad)}")
+
+
+class WhisperSession:
+    """End-to-end ASR serving on one device: audio/mel in, token ids
+    (+ lengths) out. ``device`` defaults to the CUDA card."""
+
+    def __init__(
+        self,
+        params: dict,
+        cfg: WhisperConfig,
+        generation: Optional[GenerationConfig] = None,
+        runtime: Optional[RuntimeConfig] = None,
+        mesh=None,
+        device=None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError("sharded sessions are not ported yet")
+        self.device = resolve_device(device)
+        set_fp32_precision()
+        self.cfg = cfg
+        self.generation = generation or GenerationConfig()
+        self.runtime = runtime or RuntimeConfig()
+        _check_runtime(self.runtime)
+        gen_rt.check_greedy_config(self.generation)
+        self._dtype = _COMPUTE_DTYPES[self.runtime.compute_dtype]
+        self.params = self._prepare_params(params)
+        self.frontend = LogMelSpectrogram(cfg.num_mel_bins, dtype=self._dtype,
+                                          device=self.device)
+
+    def _prepare_params(self, params: dict) -> dict:
+        """Load-time transform: place the tree on the session's device and
+        cast it to the compute dtype (``weight_dtype="native"``: int8
+        kernels stay int8 and dequantize in ``dense``)."""
+        return wmodel.cast_params(params_from_numpy(params, self.device),
+                                  self._dtype)
+
+    @torch.inference_mode()
+    def _run(self, mel: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+        enc = wmodel.encode(self.params, self.cfg, mel.to(self._dtype))
+        tokens, lengths = gen_rt.greedy_decode(self.params, self.cfg, enc,
+                                               self.generation)
+        return tokens.cpu().numpy(), lengths.cpu().numpy()
+
+    # -- public API -----------------------------------------------------------
+    def transcribe_features(self, mel) -> Tuple[np.ndarray, np.ndarray]:
+        """mel (B, 3000, n_mels) → (tokens (B, max_len), lengths (B,))."""
+        return self._run(to_tensor(mel, self.device))
+
+    def transcribe(self, audio) -> Tuple[np.ndarray, np.ndarray]:
+        """Raw 16 kHz audio (B, n_samples) → (tokens, lengths); pads or
+        trims to 30 s and runs the frontend on the device."""
+        audio = np.atleast_2d(np.asarray(audio, np.float32))
+        with torch.inference_mode():
+            mel = self.frontend(pad_or_trim(audio))
+        return self._run(mel)
+
+    @torch.inference_mode()
+    def encode(self, mel) -> torch.Tensor:
+        mel = to_tensor(mel, self.device, self._dtype)
+        return wmodel.encode(self.params, self.cfg, mel)
+
+    def memory_stats(self) -> dict:
+        """Device memory in use, its peak, and the card's size (None for
+        each on the CPU)."""
+        if self.device.type != "cuda":
+            return {"bytes_in_use": None, "peak_bytes_in_use": None,
+                    "bytes_limit": None}
+        stats = torch.cuda.memory_stats(self.device)
+        return {
+            "bytes_in_use": stats.get("allocated_bytes.all.current"),
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak"),
+            "bytes_limit": torch.cuda.get_device_properties(
+                self.device).total_memory,
+        }
+
+    def warmup(self, batch: int = 1) -> None:
+        """Build the kernels and run the pipeline once at this batch size."""
+        mel = torch.zeros((batch, 2 * self.cfg.max_source_positions,
+                           self.cfg.num_mel_bins), device=self.device)
+        self._run(mel)
+
+    def export_engine(self, path: str, batch: int = 1) -> int:
+        raise NotImplementedError("engine export is not ported yet")

@@ -1,0 +1,87 @@
+"""Checkpoint loading: ``config.json`` + flax ``params.msgpack``, read with
+plain ``msgpack`` (counterpart of ``whisper_trtllm_tpu/utils/checkpoint.py``).
+
+flax serializes each array as a msgpack extension of type 1 whose payload
+is itself msgpack: ``(shape, dtype_name, raw_bytes)``, C order. Nested
+dicts keep the JAX parameter tree's keys; kernels are ``(in, out)`` with a
+stacked leading layer axis, which is also the port's layout.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import msgpack
+import numpy as np
+import torch
+
+from whisper_trtllm_tpu_torch.config import WhisperConfig
+from whisper_trtllm_tpu_torch.utils.device import resolve_device
+
+_EXT_NDARRAY = 1
+_CHUNKED_MARKER = "__msgpack_chunked_array__"
+
+
+def _ext_hook(code: int, data: bytes):
+    if code == _EXT_NDARRAY:
+        shape, dtype_name, buf = msgpack.unpackb(data)
+        return np.frombuffer(buf, dtype=np.dtype(dtype_name)).reshape(shape)
+    raise ValueError(f"unsupported msgpack extension type {code}")
+
+
+def _check_tree(tree, path="") -> None:
+    if isinstance(tree, dict):
+        if _CHUNKED_MARKER in tree:
+            raise NotImplementedError(
+                f"chunked array at {path or '/'} (arrays over 1 GiB) is not "
+                "supported")
+        for k, v in tree.items():
+            _check_tree(v, f"{path}/{k}")
+
+
+def read_msgpack(path: str) -> dict:
+    """flax ``params.msgpack`` → nested dict of numpy arrays."""
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False,
+                               strict_map_key=False)
+    _check_tree(tree)
+    return tree
+
+
+def _is_float(t: torch.Tensor) -> bool:
+    return t.is_floating_point() and t.element_size() > 1
+
+
+def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
+    """The weight carry: a JAX-package parameter tree (numpy arrays, or
+    anything ``np.asarray`` takes) → the port's tree of tensors on
+    ``device``, same keys, same ``(in, out)`` kernel layout.
+
+    ``dtype`` casts floating leaves wider than one byte, like
+    ``models.whisper.model.cast_params``; int8 kernels and tables stay int8.
+    """
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        t = tree
+    else:
+        # np.array copies: frombuffer arrays are read-only, torch wants
+        # writable memory
+        t = torch.from_numpy(np.array(tree))
+    t = t.to(device)
+    if dtype is not None and _is_float(t):
+        t = t.to(dtype)
+    return t
+
+
+def load_checkpoint(path: str, device=None,
+                    dtype: Optional[torch.dtype] = None
+                    ) -> Tuple[dict, WhisperConfig]:
+    """``<path>/params.msgpack`` + ``<path>/config.json`` → (tensor tree on
+    ``device``, config). ``device`` defaults to the CUDA card."""
+    dev = resolve_device(device)
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = WhisperConfig.from_json(f.read())
+    tree = read_msgpack(os.path.join(path, "params.msgpack"))
+    return params_from_numpy(tree, dev, dtype), cfg

@@ -1,0 +1,84 @@
+"""Where one transcribe's time goes on the card.
+
+    python -m whisper_trtllm_tpu_torch.utils.profile_transcribe
+        [--trace transcribe_trace.json]
+
+Loads the trained tiny.en artifact, transcribes the four bundled
+utterances as one batch once to warm up, then once more under
+``torch.profiler`` and prints: the traced wall time, the device's busy
+time (the sum of kernel, copy and fill times on the card; one stream, so
+they do not overlap; the profiler's own buffer requests are left out) and
+idle share, the number of device operations, and the top device
+operations by total time. Needs a CUDA card; the profiler's own
+overhead is included in the traced wall time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
+from whisper_trtllm_tpu_torch.config import GenerationConfig
+from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", default=None,
+                    help="write a chrome trace of the profiled call here")
+    args = ap.parse_args(argv)
+
+    audio = np.stack([pad_or_trim(read_wav(os.path.join(
+        ROOT, "artifacts", "eval", f"utt{i:02d}.wav"))) for i in range(4)])
+    params, cfg = load_checkpoint(
+        os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"))
+    session = WhisperSession(params, cfg, GenerationConfig(max_new_tokens=32))
+    session.transcribe(audio)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, lengths = session.transcribe(audio)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies, fills): the CPU-side op
+    # that launched a kernel reports the same time again
+    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("Activity Buffer")]
+    rows = [r for r in rows if r[2] > 0]
+    busy_ms = sum(r[2] for r in rows) / 1e3
+    n_ops = sum(r[1] for r in rows)
+    steps = int(lengths.max()) - 1
+    print(f"profile: batch {len(audio)}, {steps} decode steps, traced wall "
+          f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, {n_ops} device operations "
+          f"({n_ops / max(steps, 1):.1f} per decode step, encode included)")
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:15]:
+        print(f"profile: {us / 1e3:9.3f} ms {count:6d} x {us / count:9.2f} us  "
+              f"{key[:100]}")
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()
