@@ -80,6 +80,30 @@ def test_session_transcribes_all_four_utterances_exactly(audio, expected,
                                       "bytes_limit": None}
 
 
+# the serving-precision configurations: B is the JAX package's serving
+# precision (bf16 compute, int8 KV, T-minor cross cache by "auto")
+SERVING = {
+    "B_bf16_int8_auto": ("bfloat16", "int8", "auto"),
+    "C_fp32_int8_bhtd": ("float32", "int8", "bhtd"),
+    "D_bf16_fp8_auto": ("bfloat16", "fp8", "auto"),
+}
+
+
+@pytest.mark.parametrize("config", sorted(SERVING))
+def test_session_transcribes_exactly_at_serving_precision(audio, expected,
+                                                          artifact, config):
+    compute, kv, layout = SERVING[config]
+    params, cfg = artifact
+    gen = GenerationConfig(max_new_tokens=32, kv_cache_dtype=kv,
+                           cross_kv_layout=layout)
+    session = WhisperSession(params, cfg, gen,
+                             RuntimeConfig(compute_dtype=compute),
+                             device="cpu")
+    toks, lens = session.transcribe(audio)
+    texts = [ids_to_text(toks[i, :lens[i]]) for i in range(len(expected))]
+    assert texts == expected
+
+
 def test_session_bf16_compute_keeps_int8_weights(artifact):
     params, cfg = artifact
     session = WhisperSession(params, cfg, GEN,
@@ -100,11 +124,9 @@ def test_session_bf16_compute_keeps_int8_weights(artifact):
     dict(runtime=RuntimeConfig(compute_dtype="float16")),
     dict(runtime=RuntimeConfig(persistent_cache_dir="cache")),
     dict(generation=GenerationConfig(num_beams=2)),
-    dict(generation=GenerationConfig(kv_cache_dtype="int8")),
     dict(mesh=object()),
 ], ids=["fuse_qkv", "weight_int8", "weight_int4", "weight_fp8",
-        "quantize_vocab", "float16", "persistent_cache", "beams", "kv_int8",
-        "mesh"])
+        "quantize_vocab", "float16", "persistent_cache", "beams", "mesh"])
 def test_session_refuses_options_of_later_slices(artifact, option):
     params, cfg = artifact
     with pytest.raises(NotImplementedError):

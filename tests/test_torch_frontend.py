@@ -17,7 +17,8 @@ def test_mel_constants_equal_jax():
     np.testing.assert_array_equal(mel.hann_window(400), jax_mel.hann_window(400))
     for ours, ref in zip(mel.dft_matrices(400), jax_mel.dft_matrices(400)):
         np.testing.assert_array_equal(ours, ref)
-    fe, jfe = features.LogMelSpectrogram(80), jax_features.LogMelSpectrogram(80)
+    fe = features.LogMelSpectrogram(80, device="cpu")
+    jfe = jax_features.LogMelSpectrogram(80)
     np.testing.assert_array_equal(fe.dft_basis.numpy(), np.asarray(jfe.dft_basis))
 
 
@@ -36,7 +37,7 @@ def test_log_mel_matches_jax_at_batch_2(bins):
     audio = (0.1 * rng.standard_normal((2, features.N_SAMPLES))).astype(np.float32)
     audio[1, 200000:] = 0.0  # a silent tail exercises the per-utterance clamp
     ref = np.asarray(jax_features.LogMelSpectrogram(bins)(audio))
-    out = features.LogMelSpectrogram(bins)(torch.from_numpy(audio))
+    out = features.LogMelSpectrogram(bins, device="cpu")(torch.from_numpy(audio))
     assert out.shape == (2, features.N_FRAMES, bins)
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=0)
@@ -53,5 +54,6 @@ def test_log_mel_spectrogram_one_shot_on_cpu():
 
 def test_frontend_casts_to_its_dtype():
     audio = torch.zeros(1, features.N_SAMPLES)
-    out = features.LogMelSpectrogram(80, dtype=torch.bfloat16)(audio)
+    out = features.LogMelSpectrogram(80, dtype=torch.bfloat16,
+                                      device="cpu")(audio)
     assert out.dtype == torch.bfloat16

@@ -190,7 +190,7 @@ def test_update_kv_cache_refuses_per_lane_positions():
 
 
 def test_init_kv_cache_shapes_and_zeros():
-    k, v = att.init_kv_cache(2, 3, 16, 8, dtype=torch.bfloat16)
+    k, v = att.init_kv_cache(2, 3, 16, 8, dtype=torch.bfloat16, device="cpu")
     jk, _ = jax_att.init_kv_cache(2, 3, 16, 8)
     assert tuple(k.shape) == jk.shape and k.dtype == torch.bfloat16
     assert not k.any() and not v.any()

@@ -8,8 +8,12 @@ on a machine that has only PyTorch:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
 Tolerances: 1e-5 max-abs in fp32 (the kernels reorder sums: online
-softmax, lane-group dot products), 2e-2 in bf16 (the plain version rounds
-the softmax weights to bf16 before P·V).
+softmax, lane-group dot products, warp-shuffle reductions), 2e-2 in bf16
+(the plain decode attention rounds the softmax weights to bf16 before P·V
+and the kernel does not; LayerNorm's bf16 outputs may round one way in one
+and the other in the other, one bf16 step: 2e-2 of max(|plain|, 1)), and
+2e-4 on the log10-mel values of K3 (the JAX package's own STFT tolerance:
+fp32 DFT sums in another order, which log10 amplifies near the floor).
 """
 
 import json
@@ -19,13 +23,18 @@ import numpy as np
 import pytest
 import torch
 
+from whisper_trtllm_tpu_torch.ops.attention import quantize_kv
 from whisper_trtllm_tpu_torch.ops.kernels import (
     KERNELS,
     attention_reference,
     decode_attention_reference,
     decode_attn,
     flash_fwd,
+    layer_norm,
+    layer_norm_reference,
     reset_launch_counts,
+    stft_log_mel,
+    stft_log_mel_reference,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -83,6 +92,76 @@ def test_decode_kernel_matches_plain(cuda, dtype, tol, t, valid_len, dh):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+_QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("t_major", [False, True], ids=["bhtd", "bhdt"])
+@pytest.mark.parametrize("kind", ["int8", "fp8", "float"])
+@pytest.mark.parametrize("t,valid_len", [(33, [0, 5, 33, 17]),
+                                         (1504, [1500]), (64, [64])])
+def test_decode_kernel_cache_kinds_match_plain(cuda, dtype, tol, t_major,
+                                               kind, t, valid_len):
+    """Quantized caches, the T-minor layout, and per-lane valid_len."""
+    rng = np.random.default_rng(t + len(valid_len))
+    q = _normal(rng, (4, 6, 1, 64), 0.125, cuda, dtype)
+    ck = _normal(rng, (4, 6, t, 64), 1.0, cuda, torch.float32)
+    cv = _normal(rng, (4, 6, t, 64), 1.0, cuda, torch.float32)
+    scales = {}
+    if kind == "float":
+        ck, cv = ck.to(dtype), cv.to(dtype)
+    else:
+        ck, ks = quantize_kv(ck, _QUANT[kind])
+        cv, vs = quantize_kv(cv, _QUANT[kind])
+        scales = dict(k_scale=ks, v_scale=vs)
+    if t_major:
+        ck = ck.transpose(-1, -2).contiguous()
+        cv = cv.transpose(-1, -2).contiguous()
+    vl = torch.tensor(valid_len if len(valid_len) > 1 else valid_len[0],
+                      dtype=torch.int32, device=cuda)
+    before = decode_attn.launches
+    out = decode_attn(q, ck, cv, vl, t_major=t_major, **scales)
+    assert decode_attn.launches == before + 1
+    ref = decode_attention_reference(q, ck, cv, vl, t_major=t_major, **scales)
+    assert out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_stft_kernel_matches_plain(cuda, n_mels):
+    from whisper_trtllm_tpu_torch.audio.features import LogMelSpectrogram
+
+    fe = LogMelSpectrogram(n_mels, device=cuda)
+    rng = np.random.default_rng(n_mels)
+    blocks = _normal(rng, (2, 3003, 160), 0.1, cuda, torch.float32)
+    blocks[1, 1500:] = 0.0  # silence: power at the 1e-10 floor
+    basis = fe.dft_basis[:400]
+    before = stft_log_mel.launches
+    out = stft_log_mel(blocks, basis, fe.mel_fb)
+    assert stft_log_mel.launches == before + 1
+    ref = stft_log_mel_reference(blocks, basis, fe.mel_fb)
+    assert out.shape == (2, 3001, n_mels)
+    assert (out - ref).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("shape", [(4, 1500, 384), (4, 1, 384), (3, 7, 1280),
+                                   (5, 40)])
+def test_layer_norm_kernel_matches_plain(cuda, dtype, tol, with_bias, shape):
+    rng = np.random.default_rng(shape[-1])
+    x = _normal(rng, shape, 2.0, cuda, dtype) + 0.5
+    scale = _normal(rng, shape[-1:], 1.0, cuda, dtype)
+    bias = _normal(rng, shape[-1:], 1.0, cuda, dtype) if with_bias else None
+    before = layer_norm.launches
+    out = layer_norm(x, scale, bias)
+    assert layer_norm.launches == before + 1
+    ref = layer_norm_reference(x, scale, bias)
+    assert out.dtype == dtype and out.shape == x.shape
+    err = (out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1)
+    assert err.max().item() <= tol
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros(1, 2, 16, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -93,11 +172,37 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         flash_fwd(x.half(), x.half(), x.half())
     with pytest.raises(TypeError, match="valid_len"):
         decode_attn(torch.zeros(1, 2, 1, 64, device=cuda), x, x, 3)
+    q1 = torch.zeros(1, 2, 1, 64, device=cuda)
+    vl = torch.tensor(3, dtype=torch.int32, device=cuda)
+    xq = x.to(torch.int8)
+    with pytest.raises(TypeError, match="scales"):
+        decode_attn(q1, xq, xq, vl)
+    with pytest.raises(TypeError, match="float cache"):
+        decode_attn(q1, x.bfloat16(), x.bfloat16(), vl)
+    with pytest.raises(ValueError, match="scales"):
+        s = torch.ones(1, 2, 16, 1, device=cuda)
+        decode_attn(q1, xq, xq, vl, s, s.bfloat16())
+    with pytest.raises(TypeError, match="float32"):
+        stft_log_mel(torch.zeros(1, 5, 4, device=cuda).bfloat16(),
+                     torch.zeros(12, 6, device=cuda),
+                     torch.zeros(3, 2, device=cuda))
+    with pytest.raises(ValueError, match="n_taps"):
+        stft_log_mel(torch.zeros(1, 5, 4, device=cuda),
+                     torch.zeros(13, 6, device=cuda),
+                     torch.zeros(3, 2, device=cuda))
+    with pytest.raises(TypeError):
+        layer_norm(x.half(), torch.ones(64, device=cuda).half())
+    with pytest.raises(ValueError, match="contiguous"):
+        layer_norm(x.transpose(2, 3), torch.ones(16, device=cuda))
 
 
-def test_artifact_transcribes_exactly_through_the_kernels(cuda):
+@pytest.mark.parametrize("compute,kv", [("float32", "auto"),
+                                        ("bfloat16", "int8")])
+def test_artifact_transcribes_exactly_through_the_kernels(cuda, compute, kv):
+    """fp32 with float KV, and the serving precision: bf16 compute with an
+    int8 KV cache, the cross cache T-minor ("auto")."""
     from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
-    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
     from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
     from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
     from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
@@ -110,7 +215,9 @@ def test_artifact_transcribes_exactly_through_the_kernels(cuda):
         expected = json.load(f)["texts"]
     params, cfg = load_checkpoint(
         os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"))
-    session = WhisperSession(params, cfg, GenerationConfig(max_new_tokens=32))
+    session = WhisperSession(
+        params, cfg, GenerationConfig(max_new_tokens=32, kv_cache_dtype=kv),
+        RuntimeConfig(compute_dtype=compute))
     reset_launch_counts()
     toks, lens = session.transcribe(np.stack([read(i) for i in range(4)]))
     texts = [ids_to_text(toks[i, :lens[i]]) for i in range(4)]
@@ -118,4 +225,7 @@ def test_artifact_transcribes_exactly_through_the_kernels(cuda):
     steps = int(lens.max()) - 1
     assert {n: f.launches for n, f in KERNELS.items()} == {
         "flash_fwd": cfg.encoder_layers,
-        "decode_attn": 2 * cfg.decoder_layers * steps}
+        "decode_attn": 2 * cfg.decoder_layers * steps,
+        "stft_log_mel": 1,
+        "layer_norm": (2 * cfg.encoder_layers + 1
+                       + (3 * cfg.decoder_layers + 1) * steps)}

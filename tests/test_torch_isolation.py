@@ -20,8 +20,13 @@ import pytest
 import torch
 
 import whisper_trtllm_tpu_torch
-from whisper_trtllm_tpu_torch.audio import log_mel_spectrogram
+from whisper_trtllm_tpu_torch.audio import LogMelSpectrogram, log_mel_spectrogram
 from whisper_trtllm_tpu_torch.config import WhisperConfig
+from whisper_trtllm_tpu_torch.models.whisper.model import (
+    init_self_kv,
+    init_self_kv_quant,
+)
+from whisper_trtllm_tpu_torch.ops.attention import init_kv_cache
 from whisper_trtllm_tpu_torch.runtime.generation import transcribe_tokens
 from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
 from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
@@ -93,6 +98,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
         transcribe_tokens(params, cfg, mel)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         log_mel_spectrogram(np.zeros(16000, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LogMelSpectrogram()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_self_kv(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_self_kv_quant(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_kv_cache(1, 2, 4, 8)
 
 
 def test_transcribe_tokens_refuses_params_on_another_device():

@@ -90,7 +90,7 @@ def test_decode_step_kv_matches_jax_for_three_steps(int8):
     ref_cross = jax_model.compute_cross_kv(ref_p, jcfg, jnp.asarray(enc))
     ref_self = jax_model.init_self_kv(jcfg, b, max_len)
     cross = model.compute_cross_kv(p, cfg, torch.from_numpy(enc))
-    self_kv = model.init_self_kv(cfg, b, max_len)
+    self_kv = model.init_self_kv(cfg, b, max_len, device="cpu")
     toks = np.random.default_rng(8).integers(0, jcfg.vocab_size, (3, b))
     for pos in range(3):
         ref_logits, ref_self = jax_model.decode_step_kv(
@@ -103,6 +103,80 @@ def test_decode_step_kv_matches_jax_for_three_steps(int8):
                                    atol=1e-4, rtol=0)
         for got, ref in zip(self_kv, ref_self):
             np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+_KV = {"int8": (jnp.int8, torch.int8),
+       "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
+
+
+@pytest.mark.parametrize("t_major", [False, True], ids=["bhtd", "bhdt"])
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_quantized_decode_step_kv_matches_jax_for_three_steps(kind, t_major):
+    """Quantized self and cross caches, the cross cache in either layout:
+    logits 1e-4, cache values exact, scales 1e-6 (sums in another order
+    may move a value across a rounding boundary only where logits differ
+    by ~1e-7)."""
+    jcfg, cfg = _configs(max_source_positions=20)
+    ref_p, p = _params(jcfg, seed=14, int8=True)
+    b, max_len = 2, 8
+    jdt, tdt = _KV[kind]
+    enc = np.random.default_rng(15).standard_normal((b, 20, jcfg.d_model)
+                                                   ).astype(np.float32)
+    ref_cross = jax_model.quantize_cross_kv(
+        *jax_model.compute_cross_kv(ref_p, jcfg, jnp.asarray(enc)), jdt)
+    cross = model.quantize_cross_kv(
+        *model.compute_cross_kv(p, cfg, torch.from_numpy(enc)), tdt)
+    if t_major:
+        ref_cross = jax_model.transpose_cross_kv(ref_cross)
+        cross = model.transpose_cross_kv(cross)
+        assert cross[0].is_contiguous()
+    assert model.cross_kv_t_major(cfg, cross) == t_major
+    ref_self = jax_model.init_self_kv_quant(jcfg, b, max_len, jdt)
+    self_kv = model.init_self_kv_quant(cfg, b, max_len, tdt, device="cpu")
+    toks = np.random.default_rng(16).integers(0, jcfg.vocab_size, (3, b))
+    for pos in range(3):
+        ref_logits, ref_self = jax_model.decode_step_kv(
+            ref_p, jcfg, jnp.asarray(toks[pos], jnp.int32), jnp.int32(pos),
+            ref_self, ref_cross)
+        logits, self_kv = model.decode_step_kv(
+            p, cfg, torch.from_numpy(toks[pos]), pos, self_kv, cross)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
+                                   atol=1e-4, rtol=0)
+    for got, ref in zip(self_kv, ref_self):
+        assert got.dtype == (tdt if got.shape[-1] != 1 else torch.float32)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   atol=1e-6, rtol=1e-6)
+
+
+def test_init_self_kv_int8_and_layout_refusals():
+    _, cfg = _configs(max_source_positions=20)
+    kq, ks, vq, vs = model.init_self_kv_int8(cfg, 2, 8, device="cpu")
+    assert kq.dtype == vq.dtype == torch.int8 and (ks == 1).all()
+    assert tuple(ks.shape) == (cfg.decoder_layers, 2, 4, 8, 1)
+    square = (torch.zeros(2, 1, 4, 8, 8),) * 2
+    assert generation.apply_cross_layout(square + square, "auto") is not None
+    with pytest.raises(ValueError, match="head_dim"):
+        generation.apply_cross_layout(square, "bhdt")
+    with pytest.raises(ValueError):
+        generation.apply_cross_layout(square, "btd")
+    with pytest.raises(ValueError):
+        generation.kv_quant_dtype("int4")
+
+
+@pytest.mark.parametrize("kv,layout", [("int8", "auto"), ("fp8", "auto"),
+                                       ("int8", "bhtd"), ("auto", "bhdt")])
+def test_greedy_tokens_equal_jax_with_kv_cache_options(kv, layout):
+    jcfg, cfg = _configs()
+    ref_p, p = _params(jcfg, seed=17, int8=True)
+    mel = _mel(jcfg, 3, seed=18)
+    kw = dict(max_new_tokens=10, kv_cache_dtype=kv, cross_kv_layout=layout)
+    ref_toks, ref_lens = jax_gen.transcribe_tokens(
+        ref_p, jcfg, jnp.asarray(mel), jax_config.GenerationConfig(**kw))
+    toks, lens = generation.transcribe_tokens(
+        p, cfg, mel, torch_config.GenerationConfig(**kw), device="cpu")
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(ref_toks))
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(ref_lens))
 
 
 def test_vocab_logits_int8_table_matches_jax():
@@ -161,8 +235,7 @@ def test_greedy_stops_at_eos_and_pads_like_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("num_beams", 2), ("return_timestamps", True), ("kv_cache_dtype", "int8"),
-    ("cross_kv_layout", "bhdt"), ("presence_penalty", 0.5),
+    ("num_beams", 2), ("return_timestamps", True), ("presence_penalty", 0.5),
     ("min_new_tokens", 2), ("bad_words", ((5,),)), ("stop_words", ((5,),)),
     ("temperature", 0.7), ("top_k", 5), ("top_p", 0.9),
     ("repetition_penalty", 1.2),

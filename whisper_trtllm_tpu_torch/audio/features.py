@@ -1,11 +1,12 @@
 """Log-mel spectrogram frontend (counterpart of
-``whisper_trtllm_tpu/audio/features.py``, its default matmul path).
+``whisper_trtllm_tpu/audio/features.py``).
 
-The audio is cut into hop-sized (160) blocks and each 400-sample analysis
-frame is three consecutive blocks (480 samples, window zero-padded), so the
-windowed DFT is one ``(frames, 480) @ (480, 402)`` matmul followed by the
-mel-filterbank matmul. Both run in full fp32 (``torch.matmul`` with TF32
-off): log10 amplifies any rounding in the power spectrum.
+The audio is center-padded and cut into hop-sized (160) blocks; analysis
+frame f is the 400 samples from block f on. The windowed DFT (the window
+folded into a (400, 402) real-then-imaginary basis), power, mel projection
+and log10 run in kernel K3 (``ops/kernels/stft.py``) on the card and in its
+plain version, two fp32 matmuls, on the CPU. Both stay full fp32: log10
+amplifies any rounding in the power spectrum.
 
 Semantics: hann(400, periodic) window, hop 160, reflect center-pad 200,
 power spectrum, slaney mel (80 or 128 bins), log10 with a 1e-10 floor, drop
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from whisper_trtllm_tpu_torch.audio import mel as _mel
+from whisper_trtllm_tpu_torch.ops.kernels.stft import stft_log_mel
 from whisper_trtllm_tpu_torch.utils.device import resolve_device, to_tensor
 
 SAMPLE_RATE = 16000
@@ -54,12 +56,13 @@ def pad_or_trim(audio: np.ndarray, length: int = N_SAMPLES) -> np.ndarray:
 
 
 class LogMelSpectrogram:
-    """Holds the window/DFT/mel constants on ``device``; ``__call__`` maps
-    audio ``(B, N_SAMPLES)`` to ``(B, N_FRAMES, num_mel_bins)``, time-major,
-    as the encoder's conv stem takes it."""
+    """Holds the window/DFT/mel constants on ``device`` (the CUDA card by
+    default); ``__call__`` maps audio ``(B, N_SAMPLES)`` to
+    ``(B, N_FRAMES, num_mel_bins)``, time-major, as the encoder's conv stem
+    takes it, computed in fp32 and cast to ``dtype`` at the end."""
 
     def __init__(self, num_mel_bins: int = 80, dtype=torch.float32,
-                 device="cpu"):
+                 device=None):
         window = _mel.hann_window(N_FFT, periodic=True)          # (400,)
         cos_m, sin_m = _mel.dft_matrices(N_FFT)                  # (400, 201)
         # the window folded into the bases, the 400-tap analysis zero-padded
@@ -67,7 +70,7 @@ class LogMelSpectrogram:
         basis = np.zeros((3 * HOP_LENGTH, 2 * N_FREQ_BINS), np.float32)
         basis[:N_FFT, :N_FREQ_BINS] = window[:, None] * cos_m
         basis[:N_FFT, N_FREQ_BINS:] = window[:, None] * sin_m
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dft_basis = torch.from_numpy(basis).to(self.device)  # (480, 402)
         self.mel_fb = torch.from_numpy(
             _mel.mel_filter_bank(N_FREQ_BINS, num_mel_bins)).to(self.device)
@@ -82,21 +85,15 @@ class LogMelSpectrogram:
         # center=True reflect padding of n_fft//2 on both sides
         padded = F.pad(audio[:, None], (N_FFT // 2, N_FFT // 2),
                        mode="reflect")[:, 0]
-        # frame f covers samples [160f, 160f+480): three consecutive hop
-        # blocks. Tail-pad so block f+2 exists for the last frame.
+        # frame f covers samples [160f, 160f+400) within three consecutive
+        # hop blocks. Tail-pad so block f+2 exists for the last frame.
         n_frames_full = N_FRAMES + 1                              # 3001
         total = (n_frames_full + 2) * HOP_LENGTH
         padded = F.pad(padded, (0, total - padded.shape[1]))
         blocks = padded.reshape(b, n_frames_full + 2, HOP_LENGTH)
-        frames = torch.cat(
-            [blocks[:, :-2], blocks[:, 1:-1], blocks[:, 2:]], dim=-1
-        )                                                         # (B, 3001, 480)
-        spec = torch.matmul(frames, self.dft_basis)               # (B, 3001, 402)
-        real = spec[..., :N_FREQ_BINS]
-        imag = spec[..., N_FREQ_BINS:]
-        power = real * real + imag * imag                         # (B, 3001, 201)
-        melspec = torch.matmul(power, self.mel_fb)
-        log_spec = torch.log10(torch.clamp(melspec, min=1e-10))
+        # the basis' rows past N_FFT are zero taps
+        log_spec = stft_log_mel(blocks, self.dft_basis[:N_FFT],
+                                self.mel_fb)                      # (B, 3001, M)
         log_spec = log_spec[:, :-1, :]                            # (B, 3000, M)
         gmax = log_spec.reshape(b, -1).amax(dim=-1)               # per utterance
         log_spec = torch.maximum(log_spec, gmax[:, None, None] - 8.0)
@@ -108,4 +105,4 @@ def log_mel_spectrogram(audio, num_mel_bins: int = 80,
                         device=None) -> torch.Tensor:
     """One-shot API: audio ``(B, 480000)`` or ``(480000,)`` (numpy or
     tensor) → ``(B, 3000, M)`` on ``device`` (the CUDA card by default)."""
-    return LogMelSpectrogram(num_mel_bins, device=resolve_device(device))(audio)
+    return LogMelSpectrogram(num_mel_bins, device=device)(audio)

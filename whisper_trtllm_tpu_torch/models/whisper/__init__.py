@@ -1,7 +1,12 @@
 from whisper_trtllm_tpu_torch.models.whisper.model import (  # noqa: F401
     cast_params,
     compute_cross_kv,
+    cross_kv_t_major,
     decode_step_kv,
     encode,
     init_self_kv,
+    init_self_kv_int8,
+    init_self_kv_quant,
+    quantize_cross_kv,
+    transpose_cross_kv,
 )

@@ -6,7 +6,9 @@ Parameters are the JAX package's tree as tensors: layers stacked on a
 leading L axis, walked here by a Python loop where the JAX package scans.
 Decoding runs against static caches: the self-attention cache is
 preallocated at ``max_len`` and written in place at ``pos``; cross-attention
-K/V are computed once per utterance.
+K/V are computed once per utterance. Caches are float 2-tuples (k, v) or
+quantized 4-tuples (k values, k scales, v values, v scales), and the cross
+cache may be stored T-minor (``transpose_cross_kv``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from whisper_trtllm_tpu_torch.layers.transformer import (
 from whisper_trtllm_tpu_torch.ops.attention import (
     mha,
     mha_decode_step,
+    quantize_kv,
     update_kv_cache,
 )
 from whisper_trtllm_tpu_torch.ops.functional import (
@@ -34,6 +37,7 @@ from whisper_trtllm_tpu_torch.ops.functional import (
     gelu,
     layer_norm,
 )
+from whisper_trtllm_tpu_torch.utils.device import resolve_device
 
 # cross-attention caches are padded along T to a multiple of this (1500 →
 # 1504); the padding is masked by the true encoder length
@@ -127,14 +131,74 @@ def compute_cross_kv(params: dict, cfg: WhisperConfig,
 
 
 def init_self_kv(cfg: WhisperConfig, batch: int, max_len: Optional[int] = None,
-                 dtype=torch.float32, device="cpu"
+                 dtype=torch.float32, device=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Static self-attention KV cache (L, B, H, max_len, dh) ×2."""
+    """Static self-attention KV cache (L, B, H, max_len, dh) ×2 on
+    ``device`` (the CUDA card by default)."""
     max_len = max_len or cfg.max_target_positions
+    device = resolve_device(device)
     shape = (cfg.decoder_layers, batch, cfg.decoder_attention_heads, max_len,
              cfg.decoder_head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def quantize_cross_kv(cross_k: torch.Tensor, cross_v: torch.Tensor,
+                      dtype=torch.int8) -> Tuple[torch.Tensor, ...]:
+    """Float cross K/V → the quantized 4-tuple (kq, ks, vq, vs), per-token
+    scales (L, B, H, Tc, 1) fp32."""
+    kq, ks = quantize_kv(cross_k, dtype)
+    vq, vs = quantize_kv(cross_v, dtype)
+    return kq, ks, vq, vs
+
+
+def transpose_cross_kv(cross_kv: Tuple[torch.Tensor, ...]
+                       ) -> Tuple[torch.Tensor, ...]:
+    """(L, B, H, Tc, dh) cross-KV tuple → T-minor (L, B, H, dh, Tc), as
+    contiguous tensors (it runs once per utterance); scales of a quantized
+    4-tuple keep their (L, B, H, Tc, 1) shape. ``decode_step_kv`` reads the
+    layout from the shapes."""
+    def t(x):
+        return x.transpose(-1, -2).contiguous()
+
+    if len(cross_kv) == 4:
+        kq, ks, vq, vs = cross_kv
+        return t(kq), ks, t(vq), vs
+    k, v = cross_kv
+    return t(k), t(v)
+
+
+def cross_kv_t_major(cfg: WhisperConfig, cross_kv: Tuple[torch.Tensor, ...]
+                     ) -> bool:
+    """True iff the cross-KV tuple is stored T-minor ((..., dh, Tc)), read
+    from the shapes: unambiguous whenever the padded encoder length differs
+    from head_dim (``apply_cross_layout`` refuses to transpose square
+    caches)."""
+    dh = cfg.decoder_head_dim
+    k = cross_kv[0]
+    return k.shape[-2] == dh and k.shape[-1] != dh
+
+
+def init_self_kv_quant(cfg: WhisperConfig, batch: int,
+                       max_len: Optional[int] = None, dtype=torch.int8,
+                       device=None) -> Tuple[torch.Tensor, ...]:
+    """Quantized self-KV cache (values int8/fp8 zeros, fp32 scales ones)
+    ×2, leading L axis, on ``device`` (the CUDA card by default)."""
+    max_len = max_len or cfg.max_target_positions
+    device = resolve_device(device)
+    shape = (cfg.decoder_layers, batch, cfg.decoder_attention_heads, max_len,
+             cfg.decoder_head_dim)
+    sshape = shape[:-1] + (1,)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.ones(sshape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.ones(sshape, dtype=torch.float32, device=device))
+
+
+def init_self_kv_int8(cfg: WhisperConfig, batch: int,
+                      max_len: Optional[int] = None, device=None
+                      ) -> Tuple[torch.Tensor, ...]:
+    return init_self_kv_quant(cfg, batch, max_len, torch.int8, device)
 
 
 def decode_step_kv(
@@ -145,41 +209,55 @@ def decode_step_kv(
     self_kv: Tuple[torch.Tensor, ...],
     cross_kv: Tuple[torch.Tensor, ...],
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """One decode step, float caches: tokens (B,) at position ``pos`` (an
-    int or a 0-d tensor) → (logits (B, V) fp32, self_kv).
+    """One decode step: tokens (B,) at position ``pos`` (an int or a 0-d
+    tensor) → (logits (B, V) fp32, self_kv). Each cache tuple is float
+    (k, v) or quantized (kq, ks, vq, vs); the cross tuple may be T-minor.
 
-    The self-attention caches are updated IN PLACE and returned; the JAX
-    version returns new arrays. Quantized (4-tuple) caches are a later
-    slice."""
-    if len(self_kv) != 2 or len(cross_kv) != 2:
-        raise NotImplementedError("quantized KV caches are not ported yet")
+    The self-attention caches, values and scales, are updated IN PLACE and
+    returned; the JAX version returns new arrays."""
     dec = params["decoder"]
     heads = cfg.decoder_attention_heads
+    quant_self = len(self_kv) == 4
+    quant_cross = len(cross_kv) == 4
+    t_major = cross_kv_t_major(cfg, cross_kv)
     dev = tokens.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
     self_len = pos + 1
     enc_len = torch.full((), cfg.max_source_positions, dtype=torch.int32,
                          device=dev)
-    self_k, self_v = self_kv
-    cross_k, cross_v = cross_kv
 
     x = embedding(dec["embed_tokens"], tokens[:, None])
     x = x + dec["embed_positions"].index_select(0, pos.long().reshape(1)).to(
         x.dtype)[None]
     for i in range(cfg.decoder_layers):
         lp = layer(dec["layers"], i)
+        s = [cache[i] for cache in self_kv]
+        c = [cache[i] for cache in cross_kv]
         # self attention with the cache append at `pos`
         h = layer_norm(lp["self_attn_layer_norm"], x)
         q, k_new, v_new = attention_qkv(lp["self_attn"], h, None, heads)
-        sk, sv = update_kv_cache(self_k[i], self_v[i], k_new, v_new, pos)
-        a = mha_decode_step(q, sk, sv, self_len)
+        if quant_self:
+            skq, sks, svq, svs = s
+            k_q, k_s = quantize_kv(k_new, skq.dtype)
+            v_q, v_s = quantize_kv(v_new, svq.dtype)
+            update_kv_cache(skq, svq, k_q, v_q, pos)
+            update_kv_cache(sks, svs, k_s, v_s, pos)
+            a = mha_decode_step(q, skq, svq, self_len, k_scale=sks,
+                                v_scale=svs)
+        else:
+            sk, sv = update_kv_cache(s[0], s[1], k_new, v_new, pos)
+            a = mha_decode_step(q, sk, sv, self_len)
         x = x + dense(lp["self_attn"]["out"], merge_heads(a))
         # cross attention; the true encoder length masks the padding rows
         h = layer_norm(lp["encoder_attn_layer_norm"], x)
         qc = cross_attention_q(lp, h, heads)
-        a = mha_decode_step(qc, cross_k[i], cross_v[i], enc_len)
+        if quant_cross:
+            a = mha_decode_step(qc, c[0], c[2], enc_len, k_scale=c[1],
+                                v_scale=c[3], t_major=t_major)
+        else:
+            a = mha_decode_step(qc, c[0], c[1], enc_len, t_major=t_major)
         x = x + dense(lp["encoder_attn"]["out"], merge_heads(a))
         h = layer_norm(lp["final_layer_norm"], x)
         x = x + mlp_block(lp, h)
     x = layer_norm(dec["layer_norm"], x)
-    return _vocab_logits(dec, x)[:, 0], (self_k, self_v)
+    return _vocab_logits(dec, x)[:, 0], self_kv

@@ -21,6 +21,7 @@ from whisper_trtllm_tpu_torch.ops.kernels.flash_attention import (
     attention_reference,
     flash_fwd,
 )
+from whisper_trtllm_tpu_torch.utils.device import resolve_device
 
 
 def mha(
@@ -52,9 +53,11 @@ def mha(
 
 
 def init_kv_cache(batch: int, heads: int, max_len: int, head_dim: int,
-                  dtype=torch.float32, device="cpu"
+                  dtype=torch.float32, device=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Preallocated static KV cache (B, H, max_len, dh) ×2."""
+    """Preallocated static KV cache (B, H, max_len, dh) ×2 on ``device``
+    (the CUDA card by default)."""
+    device = resolve_device(device)
     shape = (batch, heads, max_len, head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
@@ -78,9 +81,39 @@ def update_kv_cache(
     if idx.dim() != 0:
         raise NotImplementedError("per-lane cache positions are not ported yet")
     idx = idx.long().reshape(1)
-    cache_k.index_copy_(2, idx, k_new.to(cache_k.dtype))
-    cache_v.index_copy_(2, idx, v_new.to(cache_v.dtype))
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        new = new.to(cache.dtype)
+        if cache.dtype == torch.float8_e4m3fn:
+            # index_copy_ has no fp8 kernel; the bytes are copied unchanged
+            cache, new = cache.view(torch.uint8), new.view(torch.uint8)
+        cache.index_copy_(2, idx, new)
     return cache_k, cache_v
+
+
+def quantize_kv(x: torch.Tensor, dtype=torch.int8
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token-per-head symmetric quantization of K/V states, reduced over
+    head_dim, to int8 (amax / 127, round half to even, clip to ±127) or
+    float8_e4m3fn (amax / 448). Returns (values, fp32 scales with a
+    trailing keepdim); ``values.float() * scale`` recovers the states."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if dtype == torch.int8:
+        scale = amax.clamp(min=1e-8) / 127.0
+        return torch.clamp(torch.round(xf / scale), -127, 127).to(dtype), scale
+    if dtype == torch.float8_e4m3fn:
+        # 448 is e4m3fn's largest finite value: scaling amax onto it keeps
+        # the cast in range
+        scale = amax.clamp(min=1e-8) / 448.0
+        return (xf / scale).to(dtype), scale
+    raise TypeError(f"quantize_kv: int8 or float8_e4m3fn, got {dtype}")
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Quantized cache values → ``dtype`` (tests and inspection; the decode
+    step folds the scales into the attention instead)."""
+    return q.to(dtype) * scale.to(dtype)
 
 
 def mha_decode_step(
@@ -95,25 +128,26 @@ def mha_decode_step(
     t_major: bool = False,
 ) -> torch.Tensor:
     """Single-token attention against a static cache: q (B, H, 1, dh);
-    cache (B, H, Tmax, dh); ``valid_len`` a scalar count of valid rows
-    (pos + 1 for self attention, the encoder length for cross attention).
+    cache (B, H, Tmax, dh), or (B, H, dh, Tmax) when ``t_major`` (the
+    T-minor cross layout; scales keep (B, H, Tmax, 1)); ``valid_len`` the
+    number of valid rows, a scalar or one per lane (B,).
 
-    The float dh-minor path with fp32 softmax goes to kernel K2. int8/fp8
-    caches (``k_scale``/``v_scale``), the T-minor layout, per-lane
-    ``valid_len`` and ``bias`` are later slices and raise."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("quantized KV caches are not ported yet")
-    if t_major:
-        raise NotImplementedError("the T-minor cache layout is not ported yet")
+    int8/fp8 caches come with ``k_scale``/``v_scale``: the scales fold into
+    the scores and the weights, the softmax is fp32 whatever
+    ``fp32_softmax`` says, and no dequantized cache is formed. Every case
+    with an fp32 softmax goes to kernel K2; ``bias`` is a later slice and
+    raises."""
     if bias is not None:
         raise NotImplementedError("attention bias is not ported yet")
     valid_len = torch.as_tensor(valid_len, dtype=torch.int32, device=q.device)
-    if valid_len.dim() != 0:
-        raise NotImplementedError("per-lane valid_len is not ported yet")
-    if fp32_softmax:
-        return decode_attn(q, cache_k, cache_v, valid_len)
+    if valid_len.dim() > 1:
+        raise ValueError(f"valid_len must be a scalar or (B,), got shape "
+                         f"{tuple(valid_len.shape)}")
+    if fp32_softmax or k_scale is not None:
+        return decode_attn(q, cache_k, cache_v, valid_len, k_scale, v_scale,
+                           t_major)
     if q.is_cuda:
         raise NotImplementedError(
             "decode attention on CUDA takes its softmax in fp32 only")
     return decode_attention_reference(q, cache_k, cache_v, valid_len,
-                                      fp32_softmax=False)
+                                      fp32_softmax=False, t_major=t_major)

@@ -14,6 +14,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import (
+    layer_norm as layer_norm_kernel,
+)
+
 _UNPORTED_KERNELS = ("kernel_sq", "kernel_q4", "kernel_f8")
 
 
@@ -47,16 +51,10 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm with fp32 statistics whatever the compute dtype."""
-    dtype = x.dtype
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * params["scale"].float()
-    if params.get("bias") is not None:
-        y = y + params["bias"].float()
-    return y.to(dtype)
+    """LayerNorm with fp32 statistics whatever the compute dtype; kernel K5
+    on the card."""
+    return layer_norm_kernel(x.contiguous(), params["scale"],
+                             params.get("bias"), eps)
 
 
 def embedding(table, ids: torch.Tensor, dtype=None) -> torch.Tensor:

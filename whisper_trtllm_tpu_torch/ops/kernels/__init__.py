@@ -4,7 +4,13 @@ version (counterparts of ``whisper_trtllm_tpu/ops/pallas``):
 - ``flash_attention.flash_fwd`` — K1, encoder self-attention
   (≙ ``flash_attention.py::flash_mha``, forward);
 - ``decode_attention.decode_attn`` — K2, the decode step's self and cross
-  attention (≙ ``decode_attention.py::decode_mha``).
+  attention, float or int8/fp8 caches, dh- or T-minor
+  (≙ ``decode_attention.py::decode_mha`` and ``attention.py::
+  mha_decode_step``);
+- ``stft.stft_log_mel`` — K3, the log-mel frontend
+  (≙ ``stft.py::stft_log_mel``);
+- ``layer_norm.layer_norm`` — K5, every LayerNorm of the model
+  (≙ ``layer_norm.py::layer_norm_fused``).
 
 A wrapper takes its plain version only for CPU tensors; for a CUDA tensor
 it launches its kernel or raises. Sources live in ``csrc/`` and build at
@@ -19,8 +25,17 @@ from whisper_trtllm_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
     attention_reference,
     flash_fwd,
 )
+from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import (  # noqa: F401
+    layer_norm,
+    layer_norm_reference,
+)
+from whisper_trtllm_tpu_torch.ops.kernels.stft import (  # noqa: F401
+    stft_log_mel,
+    stft_log_mel_reference,
+)
 
-KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn}
+KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
+           "stft_log_mel": stft_log_mel, "layer_norm": layer_norm}
 
 
 def reset_launch_counts() -> None:

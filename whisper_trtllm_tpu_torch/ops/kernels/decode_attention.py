@@ -2,13 +2,18 @@
 wrapper of ``csrc/decode_attention.cu`` and its plain PyTorch version.
 
 Counterpart of ``whisper_trtllm_tpu/ops/pallas/decode_attention.py::
-decode_mha``. The wrapper takes the plain version only for CPU tensors;
-for a CUDA tensor it launches the kernel or raises.
+decode_mha``, extended to everything ``ops/attention.py::mha_decode_step``
+computes around it in the JAX package: int8 and fp8 (e4m3fn) caches with
+per-token fp32 scales folded into the scores and the weights, the T-minor
+``(B, H, dh, T)`` layout, and a per-lane ``(B,)`` ``valid_len``. The
+wrapper takes the plain version only for CPU tensors; for a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -17,9 +22,14 @@ from whisper_trtllm_tpu_torch.ops.kernels import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "decode_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "decode_attn": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                    _I, _P],
 }
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                 torch.float8_e4m3fn: 3}
+QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
+MAX_T = 53248  # scores of one (batch, head) live in shared memory
 MASK_VALUE = -1e9
 
 
@@ -29,68 +39,133 @@ def decode_attention_reference(
     cache_v: torch.Tensor,
     valid_len,
     fp32_softmax: bool = True,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    t_major: bool = False,
 ) -> torch.Tensor:
-    """Plain single-token attention (``mha_decode_step``'s float dh-minor
-    formula): q (B, H, 1, dh) pre-scaled, cache (B, H, T, dh), rows at or
-    after the scalar ``valid_len`` masked with -1e9."""
-    scores = torch.matmul(q.float(), cache_k.float().transpose(-1, -2))
-    t = cache_k.shape[2]
-    pos = torch.arange(t, device=q.device)
+    """Plain single-token attention, ``mha_decode_step``'s formulas: q
+    (B, H, 1, dh) pre-scaled; cache (B, H, T, dh), or (B, H, dh, T) when
+    ``t_major``; rows at or after ``valid_len`` (a scalar or one count per
+    lane) masked with -1e9. With scales (B, H, T, 1) the cache holds
+    int8/fp8 values: ``k_scale`` multiplies the fp32 scores, the softmax is
+    fp32, and ``v_scale`` multiplies the weights, which are cast to q's
+    dtype before P·V; no dequantized cache is formed."""
+    # int8 and e4m3 values are exact in bf16 and fp32, so widening the
+    # cache straight to fp32 equals the JAX package's cast to q's dtype
+    kf = cache_k.float()
+    scores = torch.matmul(q.float(), kf if t_major else kf.transpose(-1, -2))
+    if k_scale is not None:
+        scores = scores * k_scale[..., 0][:, :, None, :]
+    t = scores.shape[-1]
     vl = torch.as_tensor(valid_len, device=q.device)
-    scores = scores.masked_fill(pos >= vl, MASK_VALUE)
-    if fp32_softmax:
-        weights = torch.softmax(scores, dim=-1).to(q.dtype)
+    if vl.dim() == 1:
+        vl = vl[:, None, None, None]
+    scores = scores.masked_fill(torch.arange(t, device=q.device) >= vl,
+                                MASK_VALUE)
+    if fp32_softmax or k_scale is not None:
+        weights = torch.softmax(scores, dim=-1)
     else:
         weights = torch.softmax(scores.to(q.dtype), dim=-1)
-    return torch.matmul(weights, cache_v)
+    if v_scale is not None:
+        weights = weights * v_scale[..., 0][:, :, None, :]
+        cache_v = cache_v.to(q.dtype)
+    weights = weights.to(q.dtype)
+    return torch.matmul(weights,
+                        cache_v.transpose(-1, -2) if t_major else cache_v)
 
 
-def _check(q, k, v, valid_len):
-    if not (q.device == k.device == v.device):
-        raise ValueError("decode_attn: q and the cache must lie on one device")
-    if (q.dim() != 4 or q.shape[2] != 1 or k.dim() != 4 or k.shape != v.shape
-            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]):
+def _check(q, k, v, valid_len, k_scale, v_scale, t_major):
+    tensors = [q, k, v, valid_len] + [s for s in (k_scale, v_scale)
+                                      if s is not None]
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("decode_attn: q, the cache, its scales and "
+                         "valid_len must lie on one device")
+    if q.dim() != 4 or q.shape[2] != 1 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
-            f"decode_attn: q (B,H,1,dh), cache (B,H,T,dh); got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+            f"decode_attn: q (B,H,1,dh), cache (B,H,T,dh) or (B,H,dh,T); "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, _, dh = q.shape
+    t = k.shape[3] if t_major else k.shape[2]
+    if k.shape[:2] != q.shape[:2] or k.shape[2 if t_major else 3] != dh:
+        raise ValueError(
+            f"decode_attn: cache {tuple(k.shape)} does not fit q "
+            f"{tuple(q.shape)} (t_major={t_major})")
+    if q.dtype not in _Q_DTYPES or k.dtype != v.dtype:
+        raise TypeError(f"decode_attn: float32 or bfloat16 q and one cache "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.dtype in QUANT_DTYPES:
+        if k_scale is None:
+            raise TypeError(f"decode_attn: a {k.dtype} cache needs scales")
+        for s in (k_scale, v_scale):
+            if (s.dtype != torch.float32 or tuple(s.shape) != (b, h, t, 1)
+                    or not s.is_contiguous()):
+                raise ValueError(
+                    f"decode_attn: scales must be contiguous float32 "
+                    f"(B,H,T,1) = {(b, h, t, 1)}, got {s.dtype} "
+                    f"{tuple(s.shape)}")
+    elif k.dtype != q.dtype or k_scale is not None:
         raise TypeError(
-            f"decode_attn: float32 or bfloat16 q/cache of one dtype, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}")
-    dh = q.shape[3]
+            f"decode_attn: a float cache has q's dtype and no scales; got q "
+            f"{q.dtype}, cache {k.dtype}, scales {k_scale is not None}")
     if dh % 8 or dh > 128:
         raise ValueError(f"decode_attn: head_dim must be a multiple of 8 up "
                          f"to 128, got {dh}")
-    if k.shape[2] > 53248:
-        raise ValueError(f"decode_attn: cache length {k.shape[2]} exceeds "
-                         f"the shared-memory score buffer (53248)")
+    if t > MAX_T:
+        raise ValueError(f"decode_attn: cache length {t} exceeds the "
+                         f"shared-memory score buffer ({MAX_T})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attn: q and the cache must be contiguous")
-    if (not isinstance(valid_len, torch.Tensor) or valid_len.numel() != 1
-            or valid_len.dtype != torch.int32 or valid_len.device != q.device):
-        raise TypeError("decode_attn: valid_len must be one int32 on q's "
-                        "device")
+    # the dh-minor kernel reads each row in 8- or 16-byte pieces, the T-minor
+    # one in runs of 4 elements when T % 4 == 0
+    if t_major:
+        align = k.element_size() * (4 if t % 4 == 0 else 1)
+    else:
+        align = 8 if k.element_size() == 1 else 16
+    if k.data_ptr() % align or v.data_ptr() % align:
+        raise ValueError(f"decode_attn: cache rows must be {align}-byte "
+                         f"aligned")
+    if (valid_len.dtype != torch.int32 or valid_len.dim() > 1
+            or valid_len.numel() not in (1, b)):
+        raise TypeError("decode_attn: valid_len must be one int32 or one per "
+                        "lane (B,) on q's device")
 
 
 def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                valid_len: torch.Tensor) -> torch.Tensor:
-    """q (B, H, 1, dh) pre-scaled; cache (B, H, T, dh); ``valid_len`` one
-    int32 on the device, read by the kernel (no host sync). Returns
-    (B, H, 1, dh) in q's dtype. Counts its kernel launches in
-    ``decode_attn.launches``."""
+                valid_len: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+                v_scale: Optional[torch.Tensor] = None,
+                t_major: bool = False) -> torch.Tensor:
+    """q (B, H, 1, dh) pre-scaled; cache (B, H, T, dh), or (B, H, dh, T)
+    when ``t_major``, in q's dtype, or int8/fp8 with fp32 scales
+    (B, H, T, 1) for each; ``valid_len`` an int32 tensor on the device,
+    one count or one per lane, read by the kernel (no host sync). fp32
+    softmax. Returns (B, H, 1, dh) in q's dtype. Counts its kernel launches
+    in ``decode_attn.launches``."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("decode_attn: give both k_scale and v_scale or "
+                         "neither")
     if q.device.type == "cpu":
-        return decode_attention_reference(q, cache_k, cache_v, valid_len)
-    _check(q, cache_k, cache_v, valid_len)
+        return decode_attention_reference(q, cache_k, cache_v, valid_len,
+                                          k_scale=k_scale, v_scale=v_scale,
+                                          t_major=t_major)
+    if not isinstance(valid_len, torch.Tensor):
+        raise TypeError("decode_attn: valid_len must be an int32 tensor on "
+                        "q's device")
+    _check(q, cache_k, cache_v, valid_len, k_scale, v_scale, t_major)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn: unsupported device {q.device}")
     lib = _build.load("decode_attention", _SIGNATURES)
-    b, h, t, dh = cache_k.shape
+    b, h, _, dh = q.shape
+    t = cache_k.shape[3] if t_major else cache_k.shape[2]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.decode_attn(
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-            valid_len.data_ptr(), out.data_ptr(), b, h, t, dh,
-            _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+            None if k_scale is None else k_scale.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(),
+            valid_len.data_ptr(), int(valid_len.dim() == 1),
+            out.data_ptr(), b, h, t, dh, _Q_DTYPES[q.dtype],
+            _CACHE_DTYPES[cache_k.dtype], int(t_major),
+            torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "decode_attn")
     decode_attn.launches += 1
     return out

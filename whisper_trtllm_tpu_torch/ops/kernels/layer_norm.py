@@ -1,0 +1,89 @@
+"""K5: LayerNorm with fp32 statistics — the wrapper of
+``csrc/layer_norm.cu`` and its plain PyTorch version.
+
+Counterpart of ``whisper_trtllm_tpu/ops/pallas/layer_norm.py::
+layer_norm_fused``. The wrapper takes the plain version only for CPU
+tensors; for a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from whisper_trtllm_tpu_torch.ops.kernels import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "layer_norm": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P],
+}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_D = 2048
+
+
+def layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """Plain version: two-pass fp32 mean and variance over the last axis,
+    ``(x - mean) * rsqrt(var + eps) * scale (+ bias)``, in x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def _check(x, scale, bias):
+    params = [scale] + ([] if bias is None else [bias])
+    if any(p.device != x.device for p in params):
+        raise ValueError("layer_norm: x and its parameters must lie on one "
+                         "device")
+    d = x.shape[-1]
+    if any(p.dim() != 1 or p.shape[0] != d for p in params):
+        raise ValueError(f"layer_norm: scale and bias must be ({d},), got "
+                         f"{[tuple(p.shape) for p in params]}")
+    if d > MAX_D:
+        raise ValueError(f"layer_norm: the last axis is at most {MAX_D}, got "
+                         f"{d}")
+    if (x.dtype not in _DTYPES or scale.dtype not in _DTYPES
+            or any(p.dtype != scale.dtype for p in params)):
+        raise TypeError(f"layer_norm: float32 or bfloat16 x and one float32 "
+                        f"or bfloat16 dtype for scale and bias, got "
+                        f"{x.dtype}, {[p.dtype for p in params]}")
+    if not (x.is_contiguous() and all(p.is_contiguous() for p in params)):
+        raise ValueError("layer_norm: x, scale and bias must be contiguous")
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor] = None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm of x (..., d) over d with fp32 statistics; returns x's
+    shape and dtype. Counts its kernel launches in
+    ``layer_norm.launches``."""
+    if x.device.type == "cpu":
+        return layer_norm_reference(x, scale, bias, eps)
+    _check(x, scale, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm: unsupported device {x.device}")
+    lib = _build.load("layer_norm", _SIGNATURES)
+    d = x.shape[-1]
+    rows = x.numel() // d
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.layer_norm(
+            x.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), rows,
+            d, eps, _DTYPES[x.dtype], _DTYPES[scale.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, err, "layer_norm")
+    layer_norm.launches += 1
+    return out
+
+
+layer_norm.launches = 0

@@ -27,14 +27,45 @@ from whisper_trtllm_tpu_torch.utils.device import (
 )
 
 
+def kv_quant_dtype(kv_cache_dtype: str):
+    """GenerationConfig.kv_cache_dtype → storage dtype of the quantized KV
+    caches, or None for float caches ("auto")."""
+    table = {"auto": None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+    if kv_cache_dtype not in table:
+        raise ValueError(f"kv_cache_dtype must be one of {sorted(table)}, "
+                         f"got {kv_cache_dtype!r}")
+    return table[kv_cache_dtype]
+
+
+def apply_cross_layout(cross_kv, layout: str):
+    """Resolve GenerationConfig.cross_kv_layout: transpose the cross-KV
+    tuple to T-minor for "bhdt", and for "auto" when the cache is
+    quantized; float "auto" stays dh-minor. Square caches (padded encoder
+    length == head_dim) keep dh-minor under "auto" and are refused under
+    "bhdt": ``cross_kv_t_major`` could not tell the layouts apart."""
+    if layout not in ("auto", "bhtd", "bhdt"):
+        raise ValueError(
+            f"cross_kv_layout must be auto|bhtd|bhdt, got {layout!r}")
+    quantized = len(cross_kv) == 4
+    if layout == "bhdt" or (layout == "auto" and quantized):
+        k = cross_kv[0]
+        if k.shape[-2] == k.shape[-1]:
+            if layout == "bhdt":
+                raise ValueError(
+                    "cross_kv_layout='bhdt' is unsupported when the padded "
+                    f"encoder length equals head_dim ({k.shape[-2]}): the "
+                    "T-minor layout would be undetectable from shapes")
+            return cross_kv
+        return wmodel.transpose_cross_kv(cross_kv)
+    return cross_kv
+
+
 def check_greedy_config(gen: GenerationConfig) -> None:
-    """Refuse every GenerationConfig field the greedy float path does not
+    """Refuse every GenerationConfig field the greedy path does not
     implement yet, so none is silently ignored."""
     unported = {
         "num_beams": gen.num_beams != 1,
         "return_timestamps": gen.return_timestamps,
-        "kv_cache_dtype": gen.kv_cache_dtype != "auto",
-        "cross_kv_layout": gen.cross_kv_layout not in ("auto", "bhtd"),
         "presence_penalty": gen.presence_penalty != 0.0,
         "min_new_tokens": gen.min_new_tokens > 0,
         "bad_words": bool(gen.bad_words),
@@ -54,7 +85,9 @@ def greedy_decode(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched greedy search: enc_states (B, 1500, d) → (tokens (B, max_len)
     int32, lengths (B,) int32), with ``max_len = min(max_target_positions,
-    max_new_tokens + 1)``. Caches take ``enc_states``' dtype."""
+    max_new_tokens + 1)``. Float caches take ``enc_states``' dtype;
+    ``gen.kv_cache_dtype`` "int8"/"fp8" quantizes both caches, and
+    ``gen.cross_kv_layout`` sets the cross cache's layout."""
     gen = gen or GenerationConfig()
     check_greedy_config(gen)
     max_len = min(cfg.max_target_positions, gen.max_new_tokens + 1)
@@ -65,9 +98,17 @@ def greedy_decode(
     begin_suppress = torch.from_numpy(lp.build_begin_suppress_mask(cfg)).to(dev)
     forced_map, begin_index = lp.build_forced_map(cfg, max_len)
 
-    cross_kv = wmodel.compute_cross_kv(params, cfg, enc_states)
-    self_kv = wmodel.init_self_kv(cfg, batch, max_len, dtype=enc_states.dtype,
-                                  device=dev)
+    kv_qdtype = kv_quant_dtype(gen.kv_cache_dtype)
+    cross_k, cross_v = wmodel.compute_cross_kv(params, cfg, enc_states)
+    if kv_qdtype is not None:
+        cross_kv = wmodel.quantize_cross_kv(cross_k, cross_v, kv_qdtype)
+        self_kv = wmodel.init_self_kv_quant(cfg, batch, max_len, kv_qdtype,
+                                            device=dev)
+    else:
+        cross_kv = (cross_k, cross_v)
+        self_kv = wmodel.init_self_kv(cfg, batch, max_len,
+                                      dtype=enc_states.dtype, device=dev)
+    cross_kv = apply_cross_layout(cross_kv, gen.cross_kv_layout)
     positions = torch.arange(max_len, dtype=torch.int32, device=dev)
     tokens = torch.full((batch, max_len), cfg.pad_token_id, dtype=torch.int32,
                         device=dev)

@@ -1,6 +1,7 @@
 """Where one transcribe's time goes on the card.
 
     python -m whisper_trtllm_tpu_torch.utils.profile_transcribe
+        [--compute-dtype float32|bfloat16] [--kv-cache-dtype auto|int8|fp8]
         [--trace transcribe_trace.json]
 
 Loads the trained tiny.en artifact, transcribes the four bundled
@@ -25,7 +26,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
-from whisper_trtllm_tpu_torch.config import GenerationConfig
+from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
 from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
 from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -44,13 +45,20 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled call here")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--kv-cache-dtype", default="auto",
+                    choices=["auto", "int8", "fp8"])
     args = ap.parse_args(argv)
 
     audio = np.stack([pad_or_trim(read_wav(os.path.join(
         ROOT, "artifacts", "eval", f"utt{i:02d}.wav"))) for i in range(4)])
     params, cfg = load_checkpoint(
         os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"))
-    session = WhisperSession(params, cfg, GenerationConfig(max_new_tokens=32))
+    session = WhisperSession(
+        params, cfg,
+        GenerationConfig(max_new_tokens=32, kv_cache_dtype=args.kv_cache_dtype),
+        RuntimeConfig(compute_dtype=args.compute_dtype))
     session.transcribe(audio)
     torch.cuda.synchronize()
 
@@ -68,7 +76,8 @@ def main(argv=None) -> None:
     busy_ms = sum(r[2] for r in rows) / 1e3
     n_ops = sum(r[1] for r in rows)
     steps = int(lengths.max()) - 1
-    print(f"profile: batch {len(audio)}, {steps} decode steps, traced wall "
+    print(f"profile: {args.compute_dtype} compute, kv {args.kv_cache_dtype}, "
+          f"batch {len(audio)}, {steps} decode steps, traced wall "
           f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {n_ops} device operations "
           f"({n_ops / max(steps, 1):.1f} per decode step, encode included)")
