@@ -7,25 +7,31 @@ CUDA card.
 Three phases; any failure raises and the script exits non-zero:
 
 1. build — compiles every kernel of the main path from ``csrc/`` with
-   ``nvcc`` for sm_90a (one ``nvcc`` per source, all at once) and prints
-   the build time, ``nvcc``'s register/spill report and the card's name
-   and power limit;
+   ``nvcc`` for sm_90a (one ``nvcc`` per source, all at once: five
+   sources) and prints the build time, ``nvcc``'s register/spill report and
+   the card's name and power limit;
 2. kernels — holds each kernel against its plain PyTorch version on the
    card at the main path's shapes, in fp32 and bf16 (decode attention also
    with int8 and fp8 caches, both cache layouts and per-lane valid
-   lengths), and times the kernel, the plain version and, where one
-   exists, one PyTorch library call computing the same function (the
-   yardstick; the port never calls it);
+   lengths; the fused decoder-layer step over a sweep of positions), and
+   times the kernel, the plain version and, where one exists, one PyTorch
+   library call computing the same function (the yardstick; the port never
+   calls it);
 3. end to end — loads the trained tiny.en artifact and transcribes the
    four bundled utterances as one batch through
-   ``WhisperSession.transcribe`` in four configurations: A fp32 with float
+   ``WhisperSession.transcribe`` in seven configurations: A fp32 with float
    KV caches; B bf16 with int8 KV, cross cache T-minor ("auto"), the
    serving precision; C fp32 with int8 KV, cross cache dh-minor ("bhtd");
-   D bf16 with fp8 KV ("auto"). Each must give the exact texts of
-   ``artifacts/expected.json`` and the expected launch count of every
-   kernel, counted from zero over that one transcribe; A and C must give
-   the same tokens as the plain path on the CPU. A and B are timed stage
-   by stage.
+   D bf16 with fp8 KV ("auto"); and on the float tree (the artifact
+   dequantized in memory): E fp32 and F bf16 with float KV, whose decode
+   steps run the fused decoder-layer kernel, and G, the float tree through
+   the session's load-time chain (bf16, int8 weights, int8 vocab table,
+   fused q/k/v, int8 KV), whose int8 tensors must be bit-equal to the
+   artifact's. Each must give the exact texts of ``artifacts/expected.json``
+   and the expected launch count of every kernel, counted from zero over
+   that one transcribe; A, C and E must give the same tokens as the plain
+   path on the CPU. A, B and E are timed stage by stage, and for E the
+   host time a decode step spends in K6's gate and wrapper.
 
 The line before the last is one JSON object with every ported kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -61,8 +67,15 @@ TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
 # log10-mel values: the JAX package's STFT tolerance (fp32 DFT sums in
 # another order, amplified by log10 near the floor)
 STFT_TOLERANCE = 2e-4
-SOURCES = ["flash_attention", "decode_attention", "stft", "layer_norm"]
+SOURCES = ["flash_attention", "decode_attention", "stft", "layer_norm",
+           "fused_decoder_step"]
+# the fused decoder-layer step: fp32 sums over up to 1536 terms in another
+# order (atol and rtol); bf16 relative to max(|plain|, 1), one bf16 step
+FUSED_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 L2_BYTES = 50e6
+# a spin of the card (torch.cuda._sleep) that the host queues timed work
+# behind: 2e8 cycles, about 0.1 s at a 2 GHz clock
+SPIN_CYCLES = 200_000_000
 
 
 def fail(msg: str) -> None:
@@ -86,20 +99,32 @@ def bound(nbytes: float, flops: float, dtype_name: str):
 
 
 def time_ms(torch, fn, arg_sets, iters: int) -> float:
-    """Mean device ms of ``fn`` over ``iters`` launches, cycling through
+    """Mean device ms of ``fn`` over ``iters`` calls, cycling through
     ``arg_sets`` so that the inputs of one launch are not in L2 from the
-    last, as in the decode loop where other layers' caches pass between."""
+    last, as in the decode loop where other layers' caches pass between.
+
+    The calls are queued behind a spin of the card, so the events time the
+    card's work and not the host's: a wrapper's host time can exceed a
+    short kernel's, and then a loop's pace is the host's. Where the host
+    cannot queue them all before the spin ends (a plain version of many
+    small ops fills the launch queue), the calls are halved until it
+    can."""
     for args in arg_sets:
         fn(*args)
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*arg_sets[i % len(arg_sets)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        end.record()
+        queued = not start.query()  # the spin outlasted the queueing
+        torch.cuda.synchronize()
+        if queued or iters == 1:
+            return start.elapsed_time(end) / iters
+        iters //= 2
 
 
 def n_sets(set_bytes: float) -> int:
@@ -403,18 +428,217 @@ def check_layer_norm(torch, rng, card):
     return headline
 
 
+def check_fused(torch, rng, card):
+    """K6 at tiny.en's decoder-layer shapes, batch 4: self cache of 33 rows
+    at positions 0, 16 and 32, cross cache of 1504 rows of which 1500 are
+    valid. No single PyTorch call computes it: no library time."""
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        fused_decoder_layer_step,
+        fused_decoder_layer_step_reference,
+    )
+    from whisper_trtllm_tpu_torch.ops.kernels.fused_decoder_step import PHASES
+
+    b, d, h, ffn, ts, tc, enc_len = 4, 384, 6, 1536, 33, 1504, 1500
+    dh = d // h
+    positions = (0, 16, 32)
+    headline = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        item = torch.tensor([], dtype=dtype).element_size()
+        weights = 4 * d * d + 2 * d * ffn
+        params = 2 * (5 * d + ffn)  # biases and LayerNorm scales, biases
+        set_bytes = (weights + params + 2 * b * h * (ts + tc) * dh) * item
+
+        def tensor(shape, scale):
+            x = rng.standard_normal(shape, dtype="float32") * scale
+            return torch.from_numpy(x).to(DEVICE, dtype)
+
+        def dense(din, dout):
+            return {"kernel": tensor((din, dout), din ** -0.5),
+                    "bias": tensor((dout,), 0.1)}
+
+        def norm():
+            return {"scale": 1 + tensor((d,), 0.1), "bias": tensor((d,), 0.1)}
+
+        sets = []
+        for _ in range(n_sets(set_bytes)):
+            lp = {"self_attn": {"q": dense(d, d), "out": dense(d, d)},
+                  "encoder_attn": {"q": dense(d, d), "out": dense(d, d)},
+                  "encoder_attn_layer_norm": norm(),
+                  "final_layer_norm": norm(),
+                  "fc1": dense(d, ffn), "fc2": dense(ffn, d)}
+            caches = [tensor((b, h, t, dh), s)
+                      for t, s in ((ts, 0.3), (ts, 1.0), (tc, 0.3), (tc, 1.0))]
+            sets.append((tensor((b, d), 1.0), tensor((b, d), 1.0), lp, caches))
+        el = torch.tensor(enc_len, dtype=torch.int32, device=DEVICE)
+        tol = FUSED_TOLERANCE[dn]
+        x, h1, lp, caches = sets[0]
+        err = 0.0
+        for pos in positions:
+            pt = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
+            out = fused_decoder_layer_step(x, h1, pt, lp, *caches, el)
+            ref = fused_decoder_layer_step_reference(x, h1, pt, lp, *caches, el)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            if dtype == torch.float32:
+                bad = (diff > tol + tol * ref.float().abs()).any().item()
+            else:
+                bad = (diff / ref.float().abs().clamp(min=1)).max().item() > tol
+            e = diff.max().item()
+            if not math.isfinite(e) or bad:
+                fail(f"fused_decoder_layer_step {dn} pos={pos}: max |kernel - "
+                     f"plain| = {e} beyond its tolerance {tol}")
+            err = max(err, e)
+        pos = positions[-1]
+        pt = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
+        ms = time_ms(torch, lambda x, h1, lp, c: fused_decoder_layer_step(
+            x, h1, pt, lp, *c, el), sets, 200)
+        plain = time_ms(torch, lambda x, h1, lp, c:
+                        fused_decoder_layer_step_reference(
+                            x, h1, pt, lp, *c, el), sets, 50)
+        # where a launch's time goes: the boundaries of its phases on the
+        # card's global timer, as the first block sees them, mean of 50
+        timeline = torch.zeros(len(PHASES) + 1, dtype=torch.int64,
+                               device=DEVICE)
+        marks = []
+        for i in range(50):
+            x, h1, lp, c = sets[i % len(sets)]
+            fused_decoder_layer_step(x, h1, pt, lp, *c, el, timeline=timeline)
+            marks.append(timeline.diff().double().cpu())
+        phase_us = (torch.stack(marks).mean(0) / 1e3).tolist()
+        print(f"kernel fused_decoder_layer_step {dn} phases (us, mean of 50, "
+              f"{len(PHASES) - 1} grid barriers) [{card}]: "
+              + ", ".join(f"{n} {t:.2f}" for n, t in zip(PHASES, phase_us)))
+        # this run's work: the self rows t <= pos and the cross rows
+        # t < enc_len are read, the rest of the caches is not
+        rows = pos + 1 + enc_len
+        nbytes = (weights + params + 2 * b * h * rows * dh + 3 * b * d) * item + 8
+        flops = 2.0 * b * weights + 4.0 * b * h * rows * dh
+        # the arithmetic is fp32 FMAs whatever the storage dtype
+        b_ms, b_by = bound(nbytes, flops, "float32")
+        print(f"kernel fused_decoder_layer_step {dn} B={b} d={d} H={h} dh={dh} "
+              f"ffn={ffn} Ts={ts} Tc={tc} enc_len={enc_len} pos="
+              f"{','.join(map(str, positions))}: max_abs_err={err:.3e} (tol "
+              f"{tol}) at pos={pos}: ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms=none bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+        if dtype == torch.float32:
+            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return headline
+
+
 # --------------------------------------------------------------------------
 # phase 3: end to end
 # --------------------------------------------------------------------------
 
-# name: (compute dtype, kv_cache_dtype, cross_kv_layout, held to the CPU
-# tokens, timed by stage)
+# name: (weights, compute dtype, kv_cache_dtype, cross_kv_layout, held to
+# the CPU tokens, timed by stage). "int8" is the artifact as committed;
+# "float" the artifact dequantized in memory; "chain" the float tree through
+# the session's load-time chain (int8 weights, int8 vocab table, fused q/k/v)
 CONFIGS = {
-    "A": ("float32", "auto", "auto", True, True),
-    "B": ("bfloat16", "int8", "auto", False, True),
-    "C": ("float32", "int8", "bhtd", True, False),
-    "D": ("bfloat16", "fp8", "auto", False, False),
+    "A": ("int8", "float32", "auto", "auto", True, True),
+    "B": ("int8", "bfloat16", "int8", "auto", False, True),
+    "C": ("int8", "float32", "int8", "bhtd", True, False),
+    "D": ("int8", "bfloat16", "fp8", "auto", False, False),
+    "E": ("float", "float32", "auto", "auto", True, True),
+    "F": ("float", "bfloat16", "auto", "auto", False, False),
+    "G": ("chain", "bfloat16", "int8", "auto", False, False),
 }
+
+
+def float_tree(params):
+    """The artifact's weights dequantized in memory with the port's
+    ``dequantize_kernel``: kernel = kernel_q · scale, table = table_q ·
+    scale[:, None], fp32. Quantizing it again gives the artifact back bit
+    for bit; no float checkpoint exists on disk."""
+    from whisper_trtllm_tpu_torch.quantization import dequantize_params
+
+    return dequantize_params(params)
+
+
+def check_int8_equal(torch, got, want, tag):
+    """Every int8 kernel and table of the artifact equals the session's,
+    the fused q/k/v the concatenation of the three projections."""
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}/{k}")
+            else:
+                yield f"{prefix}/{k}", v
+
+    got, n = dict(leaves(got)), 0
+    for path, ref in leaves(want):
+        if not path.endswith(("kernel_q", "table_q")):
+            continue
+        if "/self_attn/" in path and path.split("/")[-2] in ("q", "k", "v"):
+            continue
+        n += 1
+        if path not in got or not torch.equal(got[path], ref):
+            fail(f"{tag}: {path} differs from the artifact's int8 values")
+    for side in ("encoder", "decoder"):
+        sa = want[side]["layers"]["self_attn"]
+        ref = torch.cat([sa[k]["kernel_q"] for k in "qkv"], dim=-1)
+        n += 1
+        if not torch.equal(got[f"/{side}/layers/self_attn/qkv/kernel_q"], ref):
+            fail(f"{tag}: the fused q/k/v int8 kernel of the {side} differs "
+                 f"from the artifact's three")
+    print(f"{tag}: {n} int8 tensors bit-equal to the artifact's")
+
+
+def k6_host_costs(torch, session, cfg, enc, step_ms, card):
+    """The host time a K6 decode step spends choosing and calling K6: the
+    gate (``_fused_decode_ok``) once a step and the wrapper once a layer,
+    its launch checks apart. Each is timed over many calls on the host
+    clock. The wrapper's loop runs behind a spin of the card far longer
+    than its 200 kernels, so a launch that returns at once only queues and
+    the loop's time is the host's; one that waits for the card shows as
+    a loop as long as the spin, and the line says which it was."""
+    from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+    from whisper_trtllm_tpu_torch.ops.kernels import fused_decoder_step as k6
+
+    params = session.params
+    dec = params["decoder"]
+    b, d = enc.shape[0], cfg.d_model
+    cross = wmodel.compute_cross_kv(params, cfg, enc)
+    self_kv = wmodel.init_self_kv(cfg, b, 33, dtype=enc.dtype, device=DEVICE)
+    pos = torch.tensor(16, dtype=torch.int32, device=DEVICE)
+    lp = wmodel.layer(dec["layers"], 0)
+    x = torch.randn(b, d, device=DEVICE, dtype=enc.dtype)
+    enc_len = wmodel._encoder_length(cfg.max_source_positions, x.device)
+    args = (x, x, pos, lp, self_kv[0][0], self_kv[1][0], cross[0][0],
+            cross[1][0], enc_len)
+    caches, blocks = args[4:8], k6._blocks(lp)
+
+    def host_us(fn, n, spin_cycles=0):
+        fn()
+        torch.cuda.synchronize()
+        spun = torch.cuda.Event()
+        if spin_cycles:
+            torch.cuda._sleep(spin_cycles)
+        spun.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) * 1e6 / n
+        # the spin still running: no launch of the loop waited for it
+        queued = not spun.query()
+        torch.cuda.synchronize()
+        return us, queued
+
+    gate, _ = host_us(lambda: wmodel._fused_decode_ok(
+        dec, self_kv[0], cross[0], pos), 2000)
+    checks, _ = host_us(
+        lambda: k6._check(x, x, pos, enc_len, blocks, caches), 2000)
+    call, queued = host_us(lambda: k6.fused_decoder_layer_step(*args), 200,
+                           spin_cycles=SPIN_CYCLES)
+    layers = cfg.decoder_layers
+    per_step = gate + layers * call
+    how = "only queued behind" if queued else "waited for or outlasted"
+    print(f"e2e E host per decode step [{card}]: gate {gate:.2f} us once, "
+          f"K6 wrapper {call:.2f} us a call (launch checks {checks:.2f} us "
+          f"of it; its launches {how} the card's spin) x {layers} layers "
+          f"= {per_step:.2f} us of the {step_ms * 1e3:.2f} us decode step "
+          f"({per_step / step_ms / 10:.2f}%)")
 
 
 def end_to_end(torch, np, card):
@@ -438,6 +662,9 @@ def end_to_end(torch, np, card):
     audio = np.stack([pad_or_trim(w) for w in waves])
     params, cfg = load_checkpoint(ARTIFACT, device=DEVICE)
     params_cpu, _ = load_checkpoint(ARTIFACT, device="cpu")
+    trees = {"int8": (params, params_cpu),
+             "float": (float_tree(params), float_tree(params_cpu))}
+    trees["chain"] = trees["float"]
 
     def timed(fn, reps=5):
         out, times = None, []
@@ -450,12 +677,19 @@ def end_to_end(torch, np, card):
         return out, statistics.median(times), min(times), max(times)
 
     counts = {}
-    for name, (compute, kv, layout, vs_cpu, timing) in CONFIGS.items():
-        tag = f"e2e {name} ({compute}, kv {kv}, cross {layout})"
+    for name, (weights, compute, kv, layout, vs_cpu, timing) in CONFIGS.items():
+        tag = (f"e2e {name} ({weights} weights, {compute}, kv {kv}, cross "
+               f"{layout})")
         gen = GenerationConfig(max_new_tokens=32, kv_cache_dtype=kv,
                                cross_kv_layout=layout)
-        rt = RuntimeConfig(compute_dtype=compute)
-        session = WhisperSession(params, cfg, gen, rt, device=DEVICE)
+        chain = weights == "chain"
+        rt = RuntimeConfig(compute_dtype=compute,
+                           weight_dtype="int8" if chain else "native",
+                           quantize_vocab=chain, fuse_qkv=chain)
+        tree, tree_cpu = trees[weights]
+        session = WhisperSession(tree, cfg, gen, rt, device=DEVICE)
+        if chain:
+            check_int8_equal(torch, session.params, params, tag)
 
         # this path, counted: launches made from here to the read below
         reset_launch_counts()
@@ -472,18 +706,27 @@ def end_to_end(torch, np, card):
             print(f"{tag}: {'ok  ' if got == want else 'BAD '} {got!r}")
         if texts != expected:
             fail(f"{tag}: transcripts differ from artifacts/expected.json")
-        want = {"flash_fwd": cfg.encoder_layers,
-                "decode_attn": 2 * cfg.decoder_layers * steps,
-                "stft_log_mel": 1,
-                "layer_norm": (2 * cfg.encoder_layers + 1
-                               + (3 * cfg.decoder_layers + 1) * steps)}
+        layers = cfg.decoder_layers
+        want = {"flash_fwd": cfg.encoder_layers, "stft_log_mel": 1}
+        if weights == "float":
+            # per step: LN1 of each layer and the final LN; one fused launch
+            # a layer does the rest, attention included
+            want.update(decode_attn=0,
+                        layer_norm=2 * cfg.encoder_layers + 1
+                        + (layers + 1) * steps,
+                        fused_decoder_layer_step=layers * steps)
+        else:
+            want.update(decode_attn=2 * layers * steps,
+                        layer_norm=2 * cfg.encoder_layers + 1
+                        + (3 * layers + 1) * steps,
+                        fused_decoder_layer_step=0)
         if launches != want:
             fail(f"{tag}: kernel launches {launches}, expected {want}")
         counts[name] = launches
 
         if vs_cpu:
             tok_cpu, len_cpu = WhisperSession(
-                params_cpu, cfg, gen, rt, device="cpu").transcribe(audio)
+                tree_cpu, cfg, gen, rt, device="cpu").transcribe(audio)
             if not (np.array_equal(tok_cpu, tokens)
                     and np.array_equal(len_cpu, lengths)):
                 fail(f"{tag}: card tokens differ from the plain path's "
@@ -497,6 +740,8 @@ def end_to_end(torch, np, card):
             enc, en_ms, en_lo, en_hi = timed(lambda: session.encode(mel))
             _, de_ms, de_lo, de_hi = timed(
                 lambda: gen_rt.greedy_decode(session.params, cfg, enc, gen))
+            if name == "E":
+                k6_host_costs(torch, session, cfg, enc, de_ms / steps, card)
         torch.cuda.reset_peak_memory_stats()
         _, tr_ms, tr_lo, tr_hi = timed(lambda: session.transcribe(audio))
         stats = session.memory_stats()
@@ -547,9 +792,11 @@ def main() -> None:
     check_decode_quant(torch, rng, card)
     stft = check_stft(torch, rng, card)
     norm = check_layer_norm(torch, rng, card)
-    # the launches of configuration B, the serving precision, which runs
-    # every kernel of the path
-    launches = end_to_end(torch, np, card)["B"]
+    fused = check_fused(torch, rng, card)
+    # each kernel's launches from a configuration that runs it: B, the
+    # serving precision, for K1, K2, K3 and K5; E, the float-weight path,
+    # for K6
+    counts = end_to_end(torch, np, card)
 
     rows = [
         dict(name="flash_fwd", route="cuda",
@@ -566,9 +813,14 @@ def main() -> None:
         dict(name="layer_norm", route="cuda",
              source="whisper_trtllm_tpu_torch/csrc/layer_norm.cu",
              replaces="whisper_trtllm_tpu/ops/pallas/layer_norm.py:50", **norm),
+        dict(name="fused_decoder_layer_step", route="cuda",
+             source="whisper_trtllm_tpu_torch/csrc/fused_decoder_step.cu",
+             replaces="whisper_trtllm_tpu/ops/pallas/fused_decoder_step.py:259",
+             **fused),
     ]
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        config = "E" if r["name"] == "fused_decoder_layer_step" else "B"
+        r["launches"] = counts[config][r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -21,6 +21,7 @@ from whisper_trtllm_tpu.runtime.generation import (
 from whisper_trtllm_tpu.utils.checkpoint import load_checkpoint as jax_load
 from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
 from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
+from whisper_trtllm_tpu_torch.quantization import dequantize_params
 from whisper_trtllm_tpu_torch.runtime.generation import transcribe_tokens
 from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
 from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
@@ -115,18 +116,67 @@ def test_session_bf16_compute_keeps_int8_weights(artifact):
     session.warmup(batch=1)
 
 
+@pytest.fixture(scope="module")
+def float_tree(artifact):
+    """The artifact's weights dequantized in memory: each kernel = kernel_q
+    · scale and the vocab table = table_q · scale[:, None], in fp32."""
+    return dequantize_params(artifact[0])
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", v
+
+
+@pytest.mark.parametrize("option", ["fuse_qkv", "weight_int8",
+                                    "quantize_vocab"])
+def test_session_load_time_option_on_the_float_tree(audio, expected, artifact,
+                                                    float_tree, option):
+    """Each option of the load-time chain on the float tree: the exact
+    texts; int8 weights or the int8 table bit-equal to the artifact's; the
+    fused q/k/v kernel the concatenation of the three."""
+    params, cfg = artifact
+    rt = {"fuse_qkv": RuntimeConfig(fuse_qkv=True),
+          "weight_int8": RuntimeConfig(weight_dtype="int8"),
+          "quantize_vocab": RuntimeConfig(quantize_vocab=True)}[option]
+    session = WhisperSession(float_tree, cfg, GEN, rt, device="cpu")
+    toks, lens = session.transcribe(audio)
+    texts = [ids_to_text(toks[i, :lens[i]]) for i in range(len(expected))]
+    assert texts == expected
+    if option == "weight_int8":
+        got = {k: v for k, v in _leaves(session.params)
+               if "embed_tokens" not in k}
+        want = {k: v for k, v in _leaves(params) if "embed_tokens" not in k}
+        assert got.keys() == want.keys()
+        assert sum(k.endswith("kernel_q") for k in got) == 16
+        for k in got:
+            assert got[k].dtype == want[k].dtype
+            assert torch.equal(got[k], want[k]), k
+    elif option == "quantize_vocab":
+        table = session.params["decoder"]["embed_tokens"]
+        for key in ("table_q", "scale"):
+            assert torch.equal(table[key],
+                               params["decoder"]["embed_tokens"][key])
+    else:
+        layers = session.params["decoder"]["layers"]["self_attn"]
+        assert set(layers) == {"qkv", "out"}
+        ref = float_tree["decoder"]["layers"]["self_attn"]
+        assert torch.equal(layers["qkv"]["kernel"], torch.cat(
+            [ref[n]["kernel"] for n in ("q", "k", "v")], dim=-1))
+
+
 @pytest.mark.parametrize("option", [
-    dict(runtime=RuntimeConfig(fuse_qkv=True)),
-    dict(runtime=RuntimeConfig(weight_dtype="int8")),
     dict(runtime=RuntimeConfig(weight_dtype="int4")),
     dict(runtime=RuntimeConfig(weight_dtype="fp8")),
-    dict(runtime=RuntimeConfig(quantize_vocab=True)),
     dict(runtime=RuntimeConfig(compute_dtype="float16")),
     dict(runtime=RuntimeConfig(persistent_cache_dir="cache")),
     dict(generation=GenerationConfig(num_beams=2)),
     dict(mesh=object()),
-], ids=["fuse_qkv", "weight_int8", "weight_int4", "weight_fp8",
-        "quantize_vocab", "float16", "persistent_cache", "beams", "mesh"])
+], ids=["weight_int4", "weight_fp8", "float16", "persistent_cache", "beams",
+        "mesh"])
 def test_session_refuses_options_of_later_slices(artifact, option):
     params, cfg = artifact
     with pytest.raises(NotImplementedError):

@@ -148,8 +148,23 @@ def test_attention_qkv_matches_jax(cross, int8):
 
 
 def test_attention_qkv_refuses_fused_qkv():
-    with pytest.raises(NotImplementedError):
-        tf.attention_qkv({"qkv": {}}, torch.zeros(1, 2, 8), None, 2)
+    """A fused ``qkv`` tree serves self attention only, as in the JAX
+    package: with ``kv_states`` (cross attention) both refuse it, and in
+    self attention the port computes the JAX fused projection (1e-6)."""
+    rng = _rng(12)
+    p = {"qkv": _dense_params(rng, 16, 48), "out": _dense_params(rng, 16, 16)}
+    x = rng.standard_normal((2, 3, 16)).astype(np.float32)
+    kv = rng.standard_normal((2, 5, 16)).astype(np.float32)
+    with pytest.raises(KeyError):
+        jax_tf.attention_qkv(p, jnp.asarray(x), jnp.asarray(kv), 2)
+    with pytest.raises(KeyError):
+        tf.attention_qkv(params_from_numpy(p, "cpu"), torch.from_numpy(x),
+                         torch.from_numpy(kv), 2)
+    ref = jax_tf.attention_qkv(p, jnp.asarray(x), None, 2)
+    out = tf.attention_qkv(params_from_numpy(p, "cpu"), torch.from_numpy(x),
+                           None, 2)
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), _np(r), atol=1e-6)
 
 
 @pytest.mark.parametrize("int8", [False, True])

@@ -1,5 +1,6 @@
 """PyTorch port on a CUDA card: each kernel against its plain version, and
-the trained artifact end to end through the kernels.
+the trained artifact end to end through the kernels (configuration E, the
+artifact dequantized in memory, through the fused decoder-layer kernel K6).
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is False. The file imports no JAX, so it runs
@@ -13,7 +14,9 @@ softmax, lane-group dot products, warp-shuffle reductions), 2e-2 in bf16
 and the kernel does not; LayerNorm's bf16 outputs may round one way in one
 and the other in the other, one bf16 step: 2e-2 of max(|plain|, 1)), and
 2e-4 on the log10-mel values of K3 (the JAX package's own STFT tolerance:
-fp32 DFT sums in another order, which log10 amplifies near the floor).
+fp32 DFT sums in another order, which log10 amplifies near the floor), and
+atol 1e-4 + rtol 1e-4 in fp32 for K6 (its projections sum up to 1536
+products in another order).
 """
 
 import json
@@ -30,6 +33,8 @@ from whisper_trtllm_tpu_torch.ops.kernels import (
     decode_attention_reference,
     decode_attn,
     flash_fwd,
+    fused_decoder_layer_step,
+    fused_decoder_layer_step_reference,
     layer_norm,
     layer_norm_reference,
     reset_launch_counts,
@@ -228,4 +233,128 @@ def test_artifact_transcribes_exactly_through_the_kernels(cuda, compute, kv):
         "decode_attn": 2 * cfg.decoder_layers * steps,
         "stft_log_mel": 1,
         "layer_norm": (2 * cfg.encoder_layers + 1
-                       + (3 * cfg.decoder_layers + 1) * steps)}
+                       + (3 * cfg.decoder_layers + 1) * steps),
+        "fused_decoder_layer_step": 0}
+
+
+def _fused_inputs(rng, dtype, cuda, b=4, d=384, h=6, ffn=1536, ts=33,
+                  tc=1504):
+    """Tiny.en's decoder-layer shapes with non-trivial biases and LayerNorm
+    parameters."""
+    dh = d // h
+
+    def dense(din, dout):
+        return {"kernel": _normal(rng, (din, dout), din ** -0.5, cuda, dtype),
+                "bias": _normal(rng, (dout,), 0.1, cuda, dtype)}
+
+    def norm():
+        return {"scale": 1 + _normal(rng, (d,), 0.1, cuda, dtype),
+                "bias": _normal(rng, (d,), 0.1, cuda, dtype)}
+
+    lp = {"self_attn": {"q": dense(d, d), "out": dense(d, d)},
+          "encoder_attn": {"q": dense(d, d), "out": dense(d, d)},
+          "encoder_attn_layer_norm": norm(), "final_layer_norm": norm(),
+          "fc1": dense(d, ffn), "fc2": dense(ffn, d)}
+    x = _normal(rng, (b, d), 1.0, cuda, dtype)
+    h1 = _normal(rng, (b, d), 1.0, cuda, dtype)
+    caches = [_normal(rng, (b, h, t, dh), s, cuda, dtype)
+              for t, s in ((ts, 0.3), (ts, 1.0), (tc, 0.3), (tc, 1.0))]
+    return x, h1, lp, caches
+
+
+# fp32: atol 1e-4 + rtol 1e-4, sums over up to 1536 terms in another
+# order; bf16: 2e-2 of max(|plain|, 1), one bf16 step of the output
+FUSED_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+@pytest.mark.parametrize("dtype,tol", FUSED_DTYPES)
+@pytest.mark.parametrize("b,enc_len", [(4, 1500), (1, 1504), (9, 700)])
+def test_fused_decoder_step_matches_plain(cuda, dtype, tol, b, enc_len):
+    """K6 at tiny.en's widths over the position sweep of a 33-row self
+    cache, at batch 4 (the main path's), 1 and 9."""
+    rng = np.random.default_rng(b)
+    x, h1, lp, caches = _fused_inputs(rng, dtype, cuda, b=b)
+    el = torch.tensor(enc_len, dtype=torch.int32, device=cuda)
+    for pos in (0, 16, 32):
+        p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        before = fused_decoder_layer_step.launches
+        out = fused_decoder_layer_step(x, h1, p, lp, *caches, el)
+        assert fused_decoder_layer_step.launches == before + 1
+        ref = fused_decoder_layer_step_reference(x, h1, p, lp, *caches, el)
+        assert out.dtype == dtype and out.shape == x.shape
+        diff = (out.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            assert (diff <= tol + tol * ref.abs()).all()
+        else:
+            assert (diff / ref.float().abs().clamp(min=1)).max().item() <= tol
+
+
+def test_fused_decoder_step_refuses_before_and_at_launch(cuda):
+    from whisper_trtllm_tpu_torch.ops.kernels import _build
+    from whisper_trtllm_tpu_torch.ops.kernels import fused_decoder_step as k6
+
+    rng = np.random.default_rng(0)
+    x, h1, lp, caches = _fused_inputs(rng, torch.float32, cuda, b=2, ts=8,
+                                      tc=40)
+    pos = torch.tensor(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="0-d int32"):
+        fused_decoder_layer_step(x, h1, pos.long(), lp, *caches, 40)
+    with pytest.raises(TypeError, match="one dtype"):
+        fused_decoder_layer_step(x.bfloat16(), h1, pos, lp, *caches, 40)
+    # beyond the kernel's limits (batch 17): the kernel refuses the launch
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_decoder_layer_step(*(torch.zeros(17, 384, device=cuda),) * 2,
+                                 pos, lp, *(c[:1].expand(17, -1, -1, -1)
+                                            .contiguous() for c in caches), 40)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_decoder_layer_step(x, h1, pos, lp, caches[0],
+                                 caches[1].transpose(2, 3).contiguous()
+                                 .transpose(2, 3), *caches[2:], 40)
+    # a launch the kernel refuses (here: too small a workspace) raises
+    lib = _build.load("fused_decoder_step", k6._SIGNATURES)
+    blocks = [t.data_ptr() for pair in k6._blocks(lp) for t in pair]
+    enc_len = torch.tensor(40, dtype=torch.int32, device=cuda)
+    out = torch.empty_like(x)
+    ws = torch.empty(16, device=cuda)
+    err = lib.fused_decoder_step(
+        x.data_ptr(), h1.data_ptr(), pos.data_ptr(), enc_len.data_ptr(),
+        *blocks, *(c.data_ptr() for c in caches), out.data_ptr(),
+        ws.data_ptr(), None, 2, 6, 8, 64, 40, 384, 1536, 0, 16,
+        torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.check_launch(lib, err, "fused_decoder_layer_step")
+    # the phase timeline: one stamp at the start and one per phase, in order
+    timeline = torch.zeros(len(k6.PHASES) + 1, dtype=torch.int64, device=cuda)
+    out = fused_decoder_layer_step(x, h1, pos, lp, *caches, 40,
+                                   timeline=timeline)
+    assert (timeline.diff() >= 0).all() and timeline[-1] > timeline[0]
+    assert torch.equal(out, fused_decoder_layer_step(x, h1, pos, lp, *caches,
+                                                     40))
+
+
+def test_float_tree_transcribes_exactly_through_k6(cuda):
+    """Configuration E: the artifact dequantized in memory, fp32, float KV:
+    every decoder layer of every step is one K6 launch, no decode_attn."""
+    from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.quantization import dequantize_params
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+    from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
+
+    with open(os.path.join(ROOT, "artifacts", "expected.json")) as f:
+        expected = json.load(f)["texts"]
+    params, cfg = load_checkpoint(
+        os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"))
+    session = WhisperSession(dequantize_params(params), cfg,
+                             GenerationConfig(max_new_tokens=32))
+    audio = np.stack([pad_or_trim(read_wav(os.path.join(
+        ROOT, "artifacts", "eval", f"utt{i:02d}.wav"))) for i in range(4)])
+    reset_launch_counts()
+    toks, lens = session.transcribe(audio)
+    assert [ids_to_text(toks[i, :lens[i]]) for i in range(4)] == expected
+    steps = int(lens.max()) - 1
+    assert {n: f.launches for n, f in KERNELS.items()} == {
+        "flash_fwd": cfg.encoder_layers, "decode_attn": 0, "stft_log_mel": 1,
+        "layer_norm": 2 * cfg.encoder_layers + 1 + 5 * steps,
+        "fused_decoder_layer_step": cfg.decoder_layers * steps}

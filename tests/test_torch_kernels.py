@@ -1,6 +1,7 @@
 """PyTorch port: kernels K1 (flash attention forward), K2 (decode
 attention, float and int8/fp8 caches, both layouts), K3 (STFT log-mel) and
-K5 (LayerNorm).
+K5 (LayerNorm); K6 (the fused decoder-layer step) is held to its Pallas
+kernel in tests/test_torch_fused_decode.py.
 
 On the CPU the wrappers take their plain versions, which are held here to
 the Pallas kernels run in interpret mode, at the shapes of
@@ -30,6 +31,7 @@ from whisper_trtllm_tpu_torch.ops.kernels import (
     KERNELS,
     decode_attn,
     flash_fwd,
+    fused_decoder_layer_step,
     layer_norm,
     reset_launch_counts,
     stft_log_mel,
@@ -277,8 +279,19 @@ def test_plain_versions_do_not_count_launches():
                 torch.tensor([3], dtype=torch.int32), ks, ks, t_major=True)
     stft_log_mel(torch.zeros(1, 5, 4), torch.zeros(12, 6), torch.zeros(3, 2))
     layer_norm(q, torch.ones(8))
+    x = torch.zeros(1, 64)
+    dense = {"kernel": torch.zeros(64, 64), "bias": torch.zeros(64)}
+    norm = {"scale": torch.ones(64), "bias": torch.zeros(64)}
+    lp = {"self_attn": {"q": dense, "out": dense},
+          "encoder_attn": {"q": dense, "out": dense},
+          "encoder_attn_layer_norm": norm, "final_layer_norm": norm,
+          "fc1": dense, "fc2": dense}
+    cache = torch.zeros(1, 2, 8, 32)
+    fused_decoder_layer_step(x, x, torch.tensor(3, dtype=torch.int32), lp,
+                             cache, cache, cache, cache, 8)
     assert {n: f.launches for n, f in KERNELS.items()} == {
-        "flash_fwd": 0, "decode_attn": 0, "stft_log_mel": 0, "layer_norm": 0}
+        "flash_fwd": 0, "decode_attn": 0, "stft_log_mel": 0, "layer_norm": 0,
+        "fused_decoder_layer_step": 0}
 
 
 def test_wrappers_never_take_the_plain_version_off_the_cpu():
@@ -300,3 +313,17 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
                      torch.empty(3, 2, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         layer_norm(q, torch.empty(8, device="meta"))
+    x = torch.empty(1, 128, device="meta")
+    dense = {"kernel": torch.empty(128, 128, device="meta"),
+             "bias": torch.empty(128, device="meta")}
+    norm = {"scale": torch.empty(128, device="meta"),
+            "bias": torch.empty(128, device="meta")}
+    lp = {"self_attn": {"q": dense, "out": dense},
+          "encoder_attn": {"q": dense, "out": dense},
+          "encoder_attn_layer_norm": norm, "final_layer_norm": norm,
+          "fc1": dense, "fc2": dense}
+    cache = torch.empty(1, 2, 8, 64, device="meta")
+    scalar = torch.empty((), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_decoder_layer_step(x, x, scalar, lp, cache, cache, cache, cache,
+                                 scalar)

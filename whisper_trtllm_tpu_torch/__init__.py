@@ -1,8 +1,9 @@
 """whisper_trtllm_tpu_torch — the PyTorch/CUDA port of ``whisper_trtllm_tpu``.
 
 The JAX package stays the reference; this package mirrors its layout
-(``config``, ``audio``, ``ops``, ``layers``, ``models.whisper``, ``runtime``,
-``utils``) so each function has an obvious counterpart. Plain tensor code is
+(``config``, ``audio``, ``ops``, ``layers``, ``models.whisper``,
+``quantization``, ``runtime``, ``utils``) so each function has an obvious
+counterpart. Plain tensor code is
 PyTorch; each Pallas kernel on the ported path is a CUDA C++ kernel for
 Hopper (``csrc/``), built with ``nvcc`` at first use and bound with
 ``ctypes`` (``ops/kernels``).

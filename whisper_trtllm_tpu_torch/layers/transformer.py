@@ -29,12 +29,15 @@ def attention_qkv(
     heads: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (scaled by dh**-0.5, the Whisper convention) from ``x``, k/v from
-    ``kv_states`` (self-attention when None); each (B, H, S, dh). The fused
-    ``qkv`` tree is a later slice."""
-    if "qkv" in params:
-        raise NotImplementedError("fused qkv projections are not ported yet")
+    ``kv_states`` (self-attention when None); each (B, H, S, dh). A tree
+    from ``models/whisper/model.py::fuse_qkv_params`` carries one ``qkv``
+    projection: one matmul instead of three in the self-attention case."""
     d = x.shape[-1]
     scale = (d // heads) ** -0.5
+    if "qkv" in params and kv_states is None:
+        q, k, v = dense(params["qkv"], x).split(d, dim=-1)
+        return (split_heads(q * scale, heads), split_heads(k, heads),
+                split_heads(v, heads))
     kv = x if kv_states is None else kv_states
     q = split_heads(dense(params["q"], x) * scale, heads)
     k = split_heads(dense(params["k"], kv), heads)

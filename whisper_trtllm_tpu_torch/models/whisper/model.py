@@ -8,13 +8,17 @@ Decoding runs against static caches: the self-attention cache is
 preallocated at ``max_len`` and written in place at ``pos``; cross-attention
 K/V are computed once per utterance. Caches are float 2-tuples (k, v) or
 quantized 4-tuples (k values, k scales, v values, v scales), and the cross
-cache may be stored T-minor (``transpose_cross_kv``).
+cache may be stored T-minor (``transpose_cross_kv``). On the card, a decode
+step with float weights and float dh-minor caches runs each layer after
+its cache append as one fused launch (kernel K6, ``_decode_step_fused``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from whisper_trtllm_tpu_torch.config import WhisperConfig
@@ -37,7 +41,11 @@ from whisper_trtllm_tpu_torch.ops.functional import (
     gelu,
     layer_norm,
 )
-from whisper_trtllm_tpu_torch.utils.device import resolve_device
+from whisper_trtllm_tpu_torch.ops.kernels.fused_decoder_step import (
+    fused_decoder_layer_step,
+    fused_layer_supported,
+)
+from whisper_trtllm_tpu_torch.utils.device import resolve_device, to_numpy
 
 # cross-attention caches are padded along T to a multiple of this (1500 →
 # 1504); the padding is masked by the true encoder length
@@ -59,6 +67,34 @@ def _vocab_logits(dec: dict, x: torch.Tensor) -> torch.Tensor:
         logits = torch.matmul(x.float(), table["table_q"].float().t())
         return logits * table["scale"].float()
     return torch.matmul(x.float(), table.float().t())
+
+
+def fuse_qkv_params(params: dict) -> dict:
+    """Fuse each self-attention's q/k/v projections into one (d, 3d)
+    kernel with a zero k-bias (Whisper's k projection has none). Exact:
+    the fused product's columns are the three products. Cross attention
+    stays split (its K/V are computed once per utterance). Untouched
+    subtrees are shared; the fused projections are numpy, as in the JAX
+    package, and the session places them."""
+    def fuse(attn: dict) -> dict:
+        q, k, v = (attn[n] for n in ("q", "k", "v"))
+        kernel = np.concatenate([to_numpy(p["kernel"]) for p in (q, k, v)],
+                                axis=-1)
+        d_out = to_numpy(q["kernel"]).shape[-1]
+        zeros_k = np.zeros_like(to_numpy(q.get("bias", np.zeros(d_out))))
+        bias = np.concatenate(
+            [to_numpy(q.get("bias", zeros_k)), zeros_k,
+             to_numpy(v.get("bias", zeros_k))], axis=-1)
+        return {"qkv": {"kernel": kernel, "bias": bias}, "out": attn["out"]}
+
+    out = dict(params)
+    for side in ("encoder", "decoder"):
+        side_tree = dict(out[side])
+        layers = dict(side_tree["layers"])
+        layers["self_attn"] = fuse(layers["self_attn"])
+        side_tree["layers"] = layers
+        out[side] = side_tree
+    return out
 
 
 def cast_params(params, dtype: torch.dtype):
@@ -201,6 +237,77 @@ def init_self_kv_int8(cfg: WhisperConfig, batch: int,
     return init_self_kv_quant(cfg, batch, max_len, torch.int8, device)
 
 
+def fused_decode_enabled(device: torch.device) -> bool:
+    """The fused decoder-layer kernel (K6) is taken on the CUDA card and
+    never on the CPU, by device and with no switch, as the JAX package
+    takes it on the TPU backend only; every CPU run keeps the unfused
+    layer."""
+    return device.type == "cuda"
+
+
+_FUSED_BLOCKS = (("self_attn", "q"), ("self_attn", "k"), ("self_attn", "v"),
+                 ("self_attn", "out"), ("encoder_attn", "q"),
+                 ("encoder_attn", "out"), ("fc1",), ("fc2",))
+
+
+def _fused_decode_ok(dec: dict, self_k: torch.Tensor, cross_k: torch.Tensor,
+                     pos: torch.Tensor) -> bool:
+    """Gate of the fused decode step: the CUDA card, float caches (the
+    caller checks the tuple lengths and the layout), a lockstep 0-d
+    ``pos``, unfused float projections of one dtype with the caches, and
+    the kernel's shape limits (``fused_layer_supported``)."""
+    if not fused_decode_enabled(self_k.device) or pos.dim() != 0:
+        return False
+    lp = dec["layers"]
+    if "qkv" in lp["self_attn"]:
+        return False
+    blocks = []
+    for path in _FUSED_BLOCKS:
+        blk = lp
+        for key in path:
+            blk = blk[key]
+        if "kernel" not in blk:
+            return False
+        blocks.append(blk["kernel"])
+    if any(t.dtype != self_k.dtype for t in blocks + [cross_k]):
+        return False
+    _, b, h, ts, dh = self_k.shape
+    return fused_layer_supported(b, h, ts, dh, cross_k.shape[3], h * dh,
+                                 lp["fc1"]["kernel"].shape[-1],
+                                 self_k.element_size())
+
+
+@functools.lru_cache(maxsize=None)
+def _encoder_length(n: int, device: torch.device) -> torch.Tensor:
+    """The true encoder length as a 0-d int32 tensor on ``device``, made
+    once: the attention kernels read it from device memory, and a decode
+    step then issues no copy for it. Read-only."""
+    return torch.full((), n, dtype=torch.int32, device=device)
+
+
+def _decode_step_fused(dec: dict, cfg: WhisperConfig, x: torch.Tensor,
+                       pos: torch.Tensor, self_kv, cross_kv
+                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """decode_step_kv's layer loop through the fused kernel: per layer,
+    LN1 (K5), the k/v projections and the in-place cache append at
+    ``pos`` (a 0-d int32 tensor), then one K6 launch for everything else;
+    then the final LN and the vocab head. x: (B, 1, d) embedded tokens."""
+    heads = cfg.decoder_attention_heads
+    enc_len = _encoder_length(cfg.max_source_positions, x.device)
+    for i in range(cfg.decoder_layers):
+        lp = layer(dec["layers"], i)
+        sk, sv = self_kv[0][i], self_kv[1][i]
+        h = layer_norm(lp["self_attn_layer_norm"], x)
+        sa = lp["self_attn"]
+        update_kv_cache(sk, sv, split_heads(dense(sa["k"], h), heads),
+                        split_heads(dense(sa["v"], h), heads), pos)
+        x = fused_decoder_layer_step(
+            x[:, 0], h[:, 0], pos, lp, sk, sv, cross_kv[0][i],
+            cross_kv[1][i], enc_len)[:, None]
+    x = layer_norm(dec["layer_norm"], x)
+    return _vocab_logits(dec, x)[:, 0], self_kv
+
+
 def decode_step_kv(
     params: dict,
     cfg: WhisperConfig,
@@ -222,13 +329,15 @@ def decode_step_kv(
     t_major = cross_kv_t_major(cfg, cross_kv)
     dev = tokens.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
-    self_len = pos + 1
-    enc_len = torch.full((), cfg.max_source_positions, dtype=torch.int32,
-                         device=dev)
 
     x = embedding(dec["embed_tokens"], tokens[:, None])
     x = x + dec["embed_positions"].index_select(0, pos.long().reshape(1)).to(
         x.dtype)[None]
+    if not (quant_self or quant_cross or t_major) and _fused_decode_ok(
+            dec, self_kv[0], cross_kv[0], pos):
+        return _decode_step_fused(dec, cfg, x, pos, self_kv, cross_kv)
+    self_len = pos + 1
+    enc_len = _encoder_length(cfg.max_source_positions, dev)
     for i in range(cfg.decoder_layers):
         lp = layer(dec["layers"], i)
         s = [cache[i] for cache in self_kv]

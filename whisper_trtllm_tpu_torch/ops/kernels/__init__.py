@@ -10,7 +10,10 @@ version (counterparts of ``whisper_trtllm_tpu/ops/pallas``):
 - ``stft.stft_log_mel`` — K3, the log-mel frontend
   (≙ ``stft.py::stft_log_mel``);
 - ``layer_norm.layer_norm`` — K5, every LayerNorm of the model
-  (≙ ``layer_norm.py::layer_norm_fused``).
+  (≙ ``layer_norm.py::layer_norm_fused``);
+- ``fused_decoder_step.fused_decoder_layer_step`` — K6, a decoder layer's
+  decode step after the cache append, one launch, on the float-weight path
+  (≙ ``fused_decoder_step.py::fused_decoder_layer_step``).
 
 A wrapper takes its plain version only for CPU tensors; for a CUDA tensor
 it launches its kernel or raises. Sources live in ``csrc/`` and build at
@@ -25,6 +28,11 @@ from whisper_trtllm_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401
     attention_reference,
     flash_fwd,
 )
+from whisper_trtllm_tpu_torch.ops.kernels.fused_decoder_step import (  # noqa: F401
+    fused_decoder_layer_step,
+    fused_decoder_layer_step_reference,
+    fused_layer_supported,
+)
 from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import (  # noqa: F401
     layer_norm,
     layer_norm_reference,
@@ -35,7 +43,8 @@ from whisper_trtllm_tpu_torch.ops.kernels.stft import (  # noqa: F401
 )
 
 KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
-           "stft_log_mel": stft_log_mel, "layer_norm": layer_norm}
+           "stft_log_mel": stft_log_mel, "layer_norm": layer_norm,
+           "fused_decoder_layer_step": fused_decoder_layer_step}
 
 
 def reset_launch_counts() -> None:

@@ -14,6 +14,7 @@ from whisper_trtllm_tpu_torch.config import (
     RuntimeConfig,
     WhisperConfig,
 )
+from whisper_trtllm_tpu_torch import quantization
 from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
 from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
 from whisper_trtllm_tpu_torch.utils.checkpoint import params_from_numpy
@@ -31,9 +32,7 @@ def _check_runtime(rt: RuntimeConfig) -> None:
     so none is silently ignored."""
     unported = {
         "compute_dtype": rt.compute_dtype not in _COMPUTE_DTYPES,
-        "weight_dtype": rt.weight_dtype != "native",
-        "quantize_vocab": rt.quantize_vocab,
-        "fuse_qkv": rt.fuse_qkv,
+        "weight_dtype": rt.weight_dtype not in ("native", "int8"),
         "fp32_attention_softmax": not rt.fp32_attention_softmax,
         "fp32_logits": not rt.fp32_logits,
         "use_pallas": rt.use_pallas is False,
@@ -74,9 +73,19 @@ class WhisperSession:
                                           device=self.device)
 
     def _prepare_params(self, params: dict) -> dict:
-        """Load-time transform: place the tree on the session's device and
-        cast it to the compute dtype (``weight_dtype="native"``: int8
-        kernels stay int8 and dequantize in ``dense``)."""
+        """The load-time chain, shared by ``__init__`` and ``refit``: fuse
+        q/k/v (``fuse_qkv``) → int8 weight-only quantization of the dense
+        projections (``weight_dtype="int8"``) → int8 vocab table
+        (``quantize_vocab``) → placement on the session's device and cast
+        of the float leaves to the compute dtype (int8 kernels and tables
+        stay int8 and dequantize in ``dense``)."""
+        rt = self.runtime
+        if rt.fuse_qkv:
+            params = wmodel.fuse_qkv_params(params)
+        if rt.weight_dtype == "int8":
+            params = quantization.weight_only_quantize(params)
+        if rt.quantize_vocab:
+            params = quantization.quantize_vocab_embedding(params)
         return wmodel.cast_params(params_from_numpy(params, self.device),
                                   self._dtype)
 
@@ -104,6 +113,12 @@ class WhisperSession:
     def encode(self, mel) -> torch.Tensor:
         mel = to_tensor(mel, self.device, self._dtype)
         return wmodel.encode(self.params, self.cfg, mel)
+
+    def refit(self, params: dict) -> None:
+        """Swap in new weights: the tree goes through the same load-time
+        chain (``_prepare_params``), so it has the structure the session
+        runs, then replaces the old weights."""
+        self.params = self._prepare_params(params)
 
     def memory_stats(self) -> dict:
         """Device memory in use, its peak, and the card's size (None for

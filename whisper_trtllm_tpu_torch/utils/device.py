@@ -29,6 +29,16 @@ def set_fp32_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def to_numpy(x) -> np.ndarray:
+    """A numpy array from a tensor on any device or anything ``np.asarray``
+    takes; bfloat16 tensors widen to float32 (exact), since numpy has no
+    bfloat16."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
 def to_tensor(x, device, dtype=None) -> torch.Tensor:
     """A tensor on ``device`` from a tensor or anything ``np.array`` takes
     (numpy, lists, read-only buffers, JAX arrays); numpy input is copied,

@@ -2,9 +2,11 @@
 
     python -m whisper_trtllm_tpu_torch.utils.profile_transcribe
         [--compute-dtype float32|bfloat16] [--kv-cache-dtype auto|int8|fp8]
-        [--trace transcribe_trace.json]
+        [--float-weights] [--trace transcribe_trace.json]
 
-Loads the trained tiny.en artifact, transcribes the four bundled
+Loads the trained tiny.en artifact (with ``--float-weights`` dequantized
+in memory: the float-weight path, whose decode steps run the fused
+decoder-layer kernel with float KV caches), transcribes the four bundled
 utterances as one batch once to warm up, then once more under
 ``torch.profiler`` and prints: the traced wall time, the device's busy
 time (the sum of kernel, copy and fill times on the card; one stream, so
@@ -27,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
 from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
+from whisper_trtllm_tpu_torch.quantization import dequantize_params
 from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
 from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -49,12 +52,16 @@ def main(argv=None) -> None:
                     choices=["float32", "bfloat16"])
     ap.add_argument("--kv-cache-dtype", default="auto",
                     choices=["auto", "int8", "fp8"])
+    ap.add_argument("--float-weights", action="store_true",
+                    help="dequantize the artifact's int8 weights in memory")
     args = ap.parse_args(argv)
 
     audio = np.stack([pad_or_trim(read_wav(os.path.join(
         ROOT, "artifacts", "eval", f"utt{i:02d}.wav"))) for i in range(4)])
     params, cfg = load_checkpoint(
         os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"))
+    if args.float_weights:
+        params = dequantize_params(params)
     session = WhisperSession(
         params, cfg,
         GenerationConfig(max_new_tokens=32, kv_cache_dtype=args.kv_cache_dtype),
@@ -76,7 +83,9 @@ def main(argv=None) -> None:
     busy_ms = sum(r[2] for r in rows) / 1e3
     n_ops = sum(r[1] for r in rows)
     steps = int(lengths.max()) - 1
-    print(f"profile: {args.compute_dtype} compute, kv {args.kv_cache_dtype}, "
+    weights = "float" if args.float_weights else "int8"
+    print(f"profile: {weights} weights, {args.compute_dtype} compute, kv "
+          f"{args.kv_cache_dtype}, "
           f"batch {len(audio)}, {steps} decode steps, traced wall "
           f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {n_ops} device operations "
