@@ -4,19 +4,20 @@ CUDA card.
 
     python3 chip_smoke.py
 
-Three phases; any failure raises and the script exits non-zero:
+Four phases; any failure raises and the script exits non-zero:
 
-1. build — compiles every kernel of the main path from ``csrc/`` with
-   ``nvcc`` for sm_90a (one ``nvcc`` per source, all at once: five
+1. build — compiles every kernel of the main paths from ``csrc/`` with
+   ``nvcc`` for sm_90a (one ``nvcc`` per source, all at once: six
    sources) and prints the build time, ``nvcc``'s register/spill report and
    the card's name and power limit;
 2. kernels — holds each kernel against its plain PyTorch version on the
-   card at the main path's shapes, in fp32 and bf16 (decode attention also
+   card at the main paths' shapes, in fp32 and bf16 (decode attention also
    with int8 and fp8 caches, both cache layouts and per-lane valid
-   lengths; the fused decoder-layer step over a sweep of positions), and
-   times the kernel, the plain version and, where one exists, one PyTorch
-   library call computing the same function (the yardstick; the port never
-   calls it);
+   lengths; the fused decoder-layer step over a sweep of positions; the
+   flash backward at the encoder's, the training cross attention's, a
+   causal and a GQA shape), and times the kernel, the plain version and,
+   where one exists, one PyTorch library call computing the same function
+   (the yardstick; the port never calls it);
 3. end to end — loads the trained tiny.en artifact and transcribes the
    four bundled utterances as one batch through
    ``WhisperSession.transcribe`` in seven configurations: A fp32 with float
@@ -31,7 +32,18 @@ Three phases; any failure raises and the script exits non-zero:
    and the expected launch count of every kernel, counted from zero over
    that one transcribe; A, C and E must give the same tokens as the plain
    path on the CPU. A, B and E are timed stage by stage, and for E the
-   host time a decode step spends in K6's gate and wrapper.
+   host time a decode step spends in K6's gate and wrapper;
+4. training — on the float tree with the bundled batch of 4 and their
+   ground-truth tokens (32 positions): (a) the loss and every leaf's
+   gradient on the card against the CPU's (each nonzero), and one
+   ``make_train_step`` step with exact K1, K4 and K5 launch counts; (b)
+   three steps at lr 1e-4 on the same mels with the transcripts rotated
+   by one utterance (a batch the trained model has not fit: on its own
+   transcripts it sits at the minimum, and Adam's first step moves every
+   weight by ~lr), whose loss must fall, timed, with the peak device
+   memory; (c) ``python -m whisper_trtllm_tpu_torch.cli.finetune``
+   for 3 epochs with ``--remat --guided-attn 1`` on a pickle of the same
+   batch, with exact launch counts, its checkpoint reloaded.
 
 The line before the last is one JSON object with every ported kernel's
 numbers; the last is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -67,8 +79,8 @@ TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
 # log10-mel values: the JAX package's STFT tolerance (fp32 DFT sums in
 # another order, amplified by log10 near the floor)
 STFT_TOLERANCE = 2e-4
-SOURCES = ["flash_attention", "decode_attention", "stft", "layer_norm",
-           "fused_decoder_step"]
+SOURCES = ["flash_attention", "flash_attention_bwd", "decode_attention",
+           "stft", "layer_norm", "fused_decoder_step"]
 # the fused decoder-layer step: fp32 sums over up to 1536 terms in another
 # order (atol and rtol); bf16 relative to max(|plain|, 1), one bf16 step
 FUSED_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -527,6 +539,113 @@ def check_fused(torch, rng, card):
     return headline
 
 
+def check_flash_bwd(torch, rng, card):
+    """K4 against its plain backward, the forward's log-sum-exp from
+    K1. fp32: 1e-5 of max(max|plain|, 1) (sums reordered); bf16: 2e-2
+    of max(|plain|, 1) elementwise (dq rounds to bf16 from sums taken in
+    another order). The library yardstick is the backward of
+    ``F.scaled_dot_product_attention`` through autograd."""
+    import torch.nn.functional as F
+
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        flash_attention_backward_reference,
+        flash_bwd,
+        flash_fwd,
+    )
+
+    cases = [  # (name, B, H, Hkv, S, T, dh, causal)
+        ("encoder", 4, 6, 6, 1500, 1500, 64, False),
+        ("cross", 4, 6, 6, 31, 1500, 64, False),
+        ("causal", 4, 6, 6, 1024, 1024, 64, True),
+        ("gqa", 4, 6, 2, 1500, 1500, 64, False),
+    ]
+    headline = None
+    for name, b, h, hkv, s, t, dh, causal in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            item = torch.tensor([], dtype=dtype).element_size()
+            # read q, k, v, dO and the fp32 lse; write dq, dk, dv
+            nbytes = ((3 * b * h * s * dh + 4 * b * hkv * t * dh) * item
+                      + 4 * b * h * s)
+            sets = []
+            for _ in range(n_sets(nbytes)):
+                q = rng.standard_normal((b, h, s, dh), dtype="float32") / math.sqrt(dh)
+                k = rng.standard_normal((b, hkv, t, dh), dtype="float32")
+                v = rng.standard_normal((b, hkv, t, dh), dtype="float32")
+                do = rng.standard_normal((b, h, s, dh), dtype="float32")
+                q, k, v, do = (torch.from_numpy(x).to(DEVICE, dtype)
+                               for x in (q, k, v, do))
+                _, lse = flash_fwd(q, k, v, causal=causal, with_lse=True)
+                sets.append((q, k, v, lse, do))
+            q, k, v, lse, do = sets[0]
+            got = flash_bwd(q, k, v, lse, do, causal=causal)
+            ref = flash_attention_backward_reference(q, k, v, do,
+                                                     causal=causal)
+            torch.cuda.synchronize()
+            err = 0.0
+            for what, g, r in zip(("dq", "dk", "dv"), got, ref):
+                diff = (g.float() - r.float()).abs()
+                e = diff.max().item()
+                if dtype == torch.float32:
+                    bad = e > TOLERANCE[dn] * max(r.abs().max().item(), 1.0)
+                else:
+                    rel = (diff / r.float().abs().clamp(min=1)).max().item()
+                    bad = rel > TOLERANCE[dn]
+                if not math.isfinite(e) or bad:
+                    fail(f"flash_bwd {name} {dn} {what}: max |kernel - "
+                         f"plain| = {e} beyond its tolerance {TOLERANCE[dn]}")
+                err = max(err, e)
+            iters = 10
+            ms = time_ms(torch, lambda q, k, v, lse, do: flash_bwd(
+                q, k, v, lse, do, causal=causal), sets, iters)
+            plain = time_ms(torch, lambda q, k, v, lse, do:
+                            flash_attention_backward_reference(
+                                q, k, v, do, causal=causal), sets, iters)
+            lib_sets = []
+            for q, k, v, _, do in sets:
+                leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+                o = F.scaled_dot_product_attention(
+                    *leaves, scale=1.0, is_causal=causal,
+                    enable_gqa=hkv != h)
+                lib_sets.append((o, leaves, do))
+            lib = time_ms(torch, lambda o, leaves, do: torch.autograd.grad(
+                o, leaves, do, retain_graph=True), lib_sets, iters)
+            pairs = s * (s + 1) / 2 if causal else s * t
+            # the function: the scores recomputed, then dP, dq, dk, dv
+            flops = 10.0 * b * h * pairs * dh
+            b_ms, b_by = bound(nbytes, flops, dn)
+            print(f"kernel flash_bwd {name} {dn} B={b} H={h} Hkv={hkv} S={s} "
+                  f"T={t} dh={dh} causal={causal}: max_abs_err={err:.3e} "
+                  f"(tol {TOLERANCE[dn]}) ms={ms:.4f} plain_ms={plain:.4f} "
+                  f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"[{card}]")
+            if name == "encoder" and dtype == torch.float32:
+                headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            del sets, lib_sets
+    return headline
+
+
+def unported_bounds(card):
+    """The bounds of the two TPU kernels not yet ported, at their callers'
+    shapes, for PERF.md's table (nothing runs)."""
+    # K7 cross_decode_mha (cli/tpu_check.py:360): fp32 q (B, H*dh), cache
+    # (B, T, H*dh) of which 1500 rows are valid, B 4, H 6, dh 64
+    b, h, dh, valid = 4, 6, 64, 1500
+    nbytes = 4 * (2 * b * h * dh + 2 * b * valid * h * dh)
+    b_ms, b_by = bound(nbytes, 4.0 * b * h * valid * dh, "float32")
+    print(f"bound cross_decode_mha (K7, not ported) B={b} H={h} dh={dh} "
+          f"valid_len={valid} float32: {nbytes} bytes, bound_ms={b_ms:.5f} "
+          f"({b_by}) [{card}]")
+    # K8 fused_bias_gelu (examples/custom_kernel/custom_gelu_kernel.py):
+    # fp32 x (512, 384) + bias (384,), exact GELU (~20 flops an element)
+    rows, d = 512, 384
+    nbytes = 4 * (2 * rows * d + d)
+    b_ms, b_by = bound(nbytes, 20.0 * rows * d, "float32")
+    print(f"bound fused_bias_gelu (K8, not ported) x=({rows}, {d}) float32: "
+          f"{nbytes} bytes, bound_ms={b_ms:.5f} ({b_by}) [{card}]")
+
+
 # --------------------------------------------------------------------------
 # phase 3: end to end
 # --------------------------------------------------------------------------
@@ -707,7 +826,8 @@ def end_to_end(torch, np, card):
         if texts != expected:
             fail(f"{tag}: transcripts differ from artifacts/expected.json")
         layers = cfg.decoder_layers
-        want = {"flash_fwd": cfg.encoder_layers, "stft_log_mel": 1}
+        want = {"flash_fwd": cfg.encoder_layers, "flash_bwd": 0,
+                "stft_log_mel": 1}
         if weights == "float":
             # per step: LN1 of each layer and the final LN; one fused launch
             # a layer does the rest, attention included
@@ -759,6 +879,182 @@ def end_to_end(torch, np, card):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 4: training
+# --------------------------------------------------------------------------
+
+TRAIN_LEN = 32  # max_target_len: the decoder runs 31 positions
+# The card runs the step in full fp32 (no TF32), but its products sum in
+# another order: its logits differ from the CPU's by ~1.4e-5 relative
+# (2.5e-4 of values up to 18.5). The trained model's cross-entropy on its
+# own utterances is ~0.015, and so near zero |dL| / L ~ 2 max|d logit|
+# (8.2e-4 measured) and every gradient, a sum weighted by p - onehot,
+# moves by as much (1.24e-3 of the worst leaf's largest |g|). A cut graph
+# gives zero gradients or ones off by their own size.
+LOSS_TOLERANCE = 2e-3  # relative
+GRAD_TOLERANCE = 5e-3  # of each leaf's largest |g| on the CPU
+
+
+def train_launches(cfg, guided: bool, remat: bool) -> dict:
+    """Kernel launches of one training step on the card. K1 runs each
+    encoder layer's self attention and, without guided attention, each
+    decoder layer's cross attention (S = 31 < 768 keeps the causal self
+    attention plain); K4 once for each K1 of the forward; K5 each of the
+    2 + 3 LayerNorms a layer and the two final ones; remat runs each
+    encoder layer's forward again in the backward."""
+    le, ld = cfg.encoder_layers, cfg.decoder_layers
+    enc_fwd = le * (2 if remat else 1)
+    cross = 0 if guided else ld
+    return {"flash_fwd": enc_fwd + cross, "flash_bwd": le + cross,
+            "decode_attn": 0, "stft_log_mel": 0,
+            "layer_norm": 2 * enc_fwd + 1 + 3 * ld + 1,
+            "fused_decoder_layer_step": 0}
+
+
+def training(torch, np, card):
+    """Returns the launch counts of one step of (a)."""
+    import pickle
+
+    from whisper_trtllm_tpu_torch.audio import (
+        log_mel_spectrogram,
+        pad_or_trim,
+        read_wav,
+    )
+    from whisper_trtllm_tpu_torch.cli.finetune import _pad_tokens
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        KERNELS,
+        reset_launch_counts,
+    )
+    from whisper_trtllm_tpu_torch.training import (
+        loss_and_grads,
+        make_train_step,
+    )
+    from whisper_trtllm_tpu_torch.training.train import tree_leaves, tree_map
+    from whisper_trtllm_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from whisper_trtllm_tpu_torch.utils.vocab import WORD_ID_BASE, WORDS
+
+    with open(os.path.join(ROOT, "artifacts", "expected.json")) as f:
+        texts = json.load(f)["texts"]
+    audio = np.stack([pad_or_trim(read_wav(os.path.join(
+        EVAL_DIR, f"utt{i:02d}.wav"))) for i in range(len(texts))])
+    mel = log_mel_spectrogram(audio, device="cpu").numpy()
+    seqs = [[50257, 50362] + [WORD_ID_BASE + WORDS.index(w)
+                              for w in text.split()] + [50256]
+            for text in texts]
+    params_cpu, cfg = load_checkpoint(ARTIFACT, device="cpu")
+    tokens, mask = _pad_tokens(seqs, cfg.pad_token_id, TRAIN_LEN)
+    tag = f"train (float tree, batch {len(texts)}, {TRAIN_LEN} positions)"
+
+    # (a) the gradients on the card against the CPU's
+    tree_cpu = float_tree(params_cpu)
+    loss_cpu, g_cpu = loss_and_grads(tree_cpu, cfg, mel, tokens, mask)
+    loss_card, g_card = loss_and_grads(float_tree(load_checkpoint(
+        ARTIFACT, device=DEVICE)[0]), cfg, mel, tokens, mask)
+    worst, n_leaves = 0.0, 0
+    for a, b in tree_leaves(tree_map(lambda a, b: (a.cpu(), b), g_card,
+                                     g_cpu)):
+        top, n_leaves = b.abs().max().item(), n_leaves + 1
+        if not a.abs().max().item() > 0:
+            fail(f"{tag}: a leaf {tuple(a.shape)} has a zero gradient on "
+                 f"the card (the graph was cut)")
+        rel = (a - b).abs().max().item() / top
+        if not rel <= GRAD_TOLERANCE:
+            fail(f"{tag}: a leaf {tuple(a.shape)}'s card gradient differs "
+                 f"from the CPU's by {rel:.3e} of its largest |g|")
+        worst = max(worst, rel)
+    print(f"{tag} (a): loss card {float(loss_card):.6f} cpu "
+          f"{float(loss_cpu):.6f}; {n_leaves} leaves, every card gradient "
+          f"nonzero, max |card - cpu| = {worst:.3e} of the leaf's max |g| "
+          f"(tol {GRAD_TOLERANCE})")
+
+    # (a) one make_train_step step (AdamW, lr 1e-4), counted
+    init, step = make_train_step(cfg)
+    params = float_tree(load_checkpoint(ARTIFACT, device=DEVICE)[0])
+    state = init(params)
+    reset_launch_counts()
+    _, _, loss = step(params, state, mel, tokens, mask)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    want = train_launches(cfg, guided=False, remat=False)
+    if launches != want:
+        fail(f"{tag}: one step's kernel launches {launches}, expected {want}")
+    loss_rel = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    if not loss_rel <= LOSS_TOLERANCE:
+        fail(f"{tag}: the step's loss {float(loss)} differs from the CPU's "
+             f"{float(loss_cpu)} by {loss_rel:.3e} relative (tol "
+             f"{LOSS_TOLERANCE})")
+    print(f"{tag} (a) one step's loss {float(loss):.6f} against the CPU's: "
+          f"{loss_rel:.3e} relative (tol {LOSS_TOLERANCE}); launches "
+          f"{launches}")
+
+    # (b) three steps on the transcripts rotated by one utterance
+    rotated, rot_mask = _pad_tokens(seqs[1:] + seqs[:1], cfg.pad_token_id,
+                                    TRAIN_LEN)
+    params = float_tree(load_checkpoint(ARTIFACT, device=DEVICE)[0])
+    state = init(params)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, mel, rotated, rot_mask)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        fail(f"{tag}: losses over three steps {losses} do not fall")
+    print(f"{tag} (b) losses over 3 AdamW steps at lr 1e-4 on the rotated "
+          f"transcripts: {losses}; step ms "
+          f"{', '.join(f'{t:.2f}' for t in times)} (the first includes "
+          f"first-call set-up); peak device memory {peak} bytes, weights "
+          f"and optimizer state included [{card}]")
+
+    # (c) the fine-tuning CLI, 3 epochs with remat and guided attention
+    work = os.path.join(ROOT, "build", "smoke")
+    save_checkpoint(os.path.join(work, "float"), tree_cpu, cfg)
+    with open(os.path.join(work, "train.pkl"), "wb") as f:
+        pickle.dump([(mel[i], seqs[i]) for i in range(len(seqs))], f)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "whisper_trtllm_tpu_torch.cli.finetune",
+         "--checkpoint", os.path.join(work, "float"), "--dataset",
+         os.path.join(work, "train.pkl"), "--output",
+         os.path.join(work, "finetuned"), "--epochs", "3", "--batch",
+         str(len(seqs)), "--lr", "1e-4", "--max-target-len", str(TRAIN_LEN),
+         "--remat", "--guided-attn", "1"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"finetune exited {out.returncode}:\n{out.stderr[-4000:]}")
+    for line in out.stdout.splitlines():
+        print(f"finetune: {line}")
+    got = json.loads(out.stdout.split("kernel launches ")[1].splitlines()[0])
+    want_ft = {k: 3 * n for k, n in train_launches(
+        cfg, guided=True, remat=True).items()}
+    if got != want_ft:
+        fail(f"finetune: kernel launches {got}, expected {want_ft}")
+    tuned, tuned_cfg = load_checkpoint(os.path.join(work, "finetuned"),
+                                       device=DEVICE)
+    moved = 0.0
+    for a, b in tree_leaves(tree_map(lambda a, b: (a.cpu(), b), tuned,
+                                     tree_cpu)):
+        if not bool(torch.isfinite(a).all()):
+            fail("finetune: the checkpoint holds non-finite weights")
+        moved = max(moved, (a - b).abs().max().item())
+    if tuned_cfg != cfg or not moved > 0:
+        fail("finetune: the reloaded checkpoint is not the tuned model")
+    print(f"finetune: 3 epochs (--remat --guided-attn 1) in {wall:.1f} s of "
+          f"wall time (process start and build load included); launches "
+          f"{got} as expected; checkpoint reloaded, largest weight change "
+          f"{moved:.3e} [{card}]")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -793,10 +1089,13 @@ def main() -> None:
     stft = check_stft(torch, rng, card)
     norm = check_layer_norm(torch, rng, card)
     fused = check_fused(torch, rng, card)
-    # each kernel's launches from a configuration that runs it: B, the
+    flash_bwd = check_flash_bwd(torch, rng, card)
+    unported_bounds(card)
+    # each kernel's launches from a path that runs it: configuration B, the
     # serving precision, for K1, K2, K3 and K5; E, the float-weight path,
-    # for K6
+    # for K6; one training step for K4
     counts = end_to_end(torch, np, card)
+    counts["train"] = training(torch, np, card)
 
     rows = [
         dict(name="flash_fwd", route="cuda",
@@ -817,10 +1116,14 @@ def main() -> None:
              source="whisper_trtllm_tpu_torch/csrc/fused_decoder_step.cu",
              replaces="whisper_trtllm_tpu/ops/pallas/fused_decoder_step.py:259",
              **fused),
+        dict(name="flash_bwd", route="cuda",
+             source="whisper_trtllm_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="whisper_trtllm_tpu/ops/pallas/flash_attention.py:181",
+             **flash_bwd),
     ]
+    path = {"fused_decoder_layer_step": "E", "flash_bwd": "train"}
     for r in rows:
-        config = "E" if r["name"] == "fused_decoder_layer_step" else "B"
-        r["launches"] = counts[config][r["name"]]
+        r["launches"] = counts[path.get(r["name"], "B")][r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

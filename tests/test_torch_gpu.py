@@ -1,6 +1,7 @@
-"""PyTorch port on a CUDA card: each kernel against its plain version, and
-the trained artifact end to end through the kernels (configuration E, the
-artifact dequantized in memory, through the fused decoder-layer kernel K6).
+"""PyTorch port on a CUDA card: each kernel against its plain version, the
+trained artifact end to end through the kernels (configuration E, the
+artifact dequantized in memory, through the fused decoder-layer kernel K6),
+and one training step's gradients against the CPU's.
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is False. The file imports no JAX, so it runs
@@ -16,8 +17,17 @@ and the other in the other, one bf16 step: 2e-2 of max(|plain|, 1)), and
 2e-4 on the log10-mel values of K3 (the JAX package's own STFT tolerance:
 fp32 DFT sums in another order, which log10 amplifies near the floor), and
 atol 1e-4 + rtol 1e-4 in fp32 for K6 (its projections sum up to 1536
-products in another order).
+products in another order). K4 (the flash backward): 1e-5 of
+max(max|plain|, 1) in fp32 (sums reordered), 2e-2 of max(|plain|, 1)
+elementwise in bf16 (dq rounds to bf16 from fp32 sums taken in another
+order). K1's
+log-sum-exp 1e-4 (fp32 values up to ~10). A training step's gradients:
+1e-3 of each leaf's largest |g| on the CPU (the card's fp32 products and
+cuDNN's convolutions sum in another order over ~10^5 terms).
 """
+
+import dataclasses
+import importlib
 
 import json
 import os
@@ -29,9 +39,14 @@ import torch
 from whisper_trtllm_tpu_torch.ops.attention import quantize_kv
 from whisper_trtllm_tpu_torch.ops.kernels import (
     KERNELS,
+    _build,
+    attention_lse_reference,
     attention_reference,
     decode_attention_reference,
     decode_attn,
+    flash_attention,
+    flash_attention_backward_reference,
+    flash_bwd,
     flash_fwd,
     fused_decoder_layer_step,
     fused_decoder_layer_step_reference,
@@ -78,6 +93,42 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, hkv, s, dh, causal):
     ref = attention_reference(q, k, v, causal=causal)
     assert out.dtype == dtype and out.shape == q.shape
     assert (out.float() - ref.float()).abs().max().item() <= tol
+    out2, lse = flash_fwd(q, k, v, causal=causal, with_lse=True)
+    assert torch.equal(out, out2) and lse.dtype == torch.float32
+    assert (lse - attention_lse_reference(q, k, causal)).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,hkv,s,t,dh,causal", [
+    (4, 6, 1500, 1500, 64, False),   # the encoder's
+    (4, 6, 31, 1500, 64, False),     # the training cross attention's
+    (1, 6, 1024, 1024, 64, True),    # causal
+    (2, 2, 200, 200, 64, True),      # GQA, causal
+    (2, 3, 77, 130, 40, False),      # GQA, ragged S and T, dh 40
+    (1, 6, 100, 100, 128, False),    # dh 128
+])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, tol, b, hkv, s, t, dh,
+                                        causal):
+    rng = np.random.default_rng(s + t + dh)
+    q = _normal(rng, (b, 6, s, dh), dh ** -0.5, cuda, dtype)
+    k = _normal(rng, (b, hkv, t, dh), 1.0, cuda, dtype)
+    v = _normal(rng, (b, hkv, t, dh), 1.0, cuda, dtype)
+    do = _normal(rng, (b, 6, s, dh), 1.0, cuda, dtype)
+    _, lse = flash_fwd(q, k, v, causal=causal, with_lse=True)
+    before = flash_bwd.launches
+    got = flash_bwd(q, k, v, lse, do, causal=causal)
+    assert flash_bwd.launches == before + 1
+    ref = flash_attention_backward_reference(q, k, v, do, causal=causal)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype == dtype and g.shape == r.shape
+        diff = (g.float() - r.float()).abs()
+        if dtype == torch.float32:
+            assert diff.max().item() <= tol * max(r.abs().max().item(), 1.0)
+        else:
+            assert (diff / r.float().abs().clamp(min=1)).max().item() <= tol
+    # no atomics: the result repeats bit for bit
+    again = flash_bwd(q, k, v, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
@@ -199,6 +250,74 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         layer_norm(x.half(), torch.ones(64, device=cuda).half())
     with pytest.raises(ValueError, match="contiguous"):
         layer_norm(x.transpose(2, 3), torch.ones(16, device=cuda))
+    lse = torch.zeros(1, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        flash_bwd(x, x, x, None, x)
+    with pytest.raises(ValueError, match="lse"):
+        flash_bwd(x, x, x, lse.double(), x)
+    with pytest.raises(ValueError, match="dout"):
+        flash_bwd(x, x, x, lse, x.transpose(2, 3).contiguous()
+                  .transpose(2, 3))
+    # in the JAX package's flash conditions but beyond K1's head_dim
+    from whisper_trtllm_tpu_torch.ops.attention import mha
+    with pytest.raises(ValueError, match="head_dim"):
+        mha(*(torch.zeros(1, 2, 16, 136, device=cuda),) * 3)
+
+
+def test_kernels_without_backward_refuse_inputs_that_require_grad(cuda):
+    """A kernel output filled through ctypes has no grad_fn: handed an
+    input that requires grad, a kernel with no backward raises instead of
+    cutting the graph; under no_grad it runs."""
+    x = torch.zeros(1, 2, 16, 64, device=cuda, requires_grad=True)
+    q1 = torch.zeros(1, 2, 1, 64, device=cuda, requires_grad=True)
+    vl = torch.tensor(3, dtype=torch.int32, device=cuda)
+    w = torch.ones(64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_fwd(x, x, x)
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attn(q1, x.detach(), x.detach(), vl)
+    with pytest.raises(RuntimeError, match="no backward"):
+        layer_norm(x.detach(), w)
+    with pytest.raises(RuntimeError, match="no backward"):
+        stft_log_mel(torch.zeros(1, 5, 4, device=cuda, requires_grad=True),
+                     torch.zeros(12, 6, device=cuda),
+                     torch.zeros(3, 2, device=cuda))
+    with torch.no_grad():
+        flash_fwd(x, x, x)
+        layer_norm(x, w)
+    # the differentiable entries keep the graph
+    out = flash_attention(x, x, x)
+    assert out.grad_fn is not None and out.grad_fn.name().startswith(
+        "FlashAttention")
+    from whisper_trtllm_tpu_torch.ops.functional import layer_norm as ln
+    assert ln({"scale": w}, x).grad_fn.name().startswith("LayerNorm")
+
+
+def test_inference_launches_of_k1_write_no_lse(cuda, monkeypatch):
+    """The inference path (no grad) passes a null log-sum-exp to K1; the
+    training path a buffer."""
+    from whisper_trtllm_tpu_torch.models.whisper.model import encode
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    k1 = importlib.import_module(
+        "whisper_trtllm_tpu_torch.ops.kernels.flash_attention")
+    lib = _build.load("flash_attention", k1._SIGNATURES)
+    real, lse_args = lib.flash_fwd, []
+
+    def spy(*args):
+        lse_args.append(args[4])
+        return real(*args)
+
+    monkeypatch.setattr(lib, "flash_fwd", spy)
+    params, cfg = load_checkpoint(
+        os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"))
+    mel = torch.zeros(1, 3000, cfg.num_mel_bins, device=cuda)
+    with torch.inference_mode():
+        encode(params, cfg, mel)
+    assert lse_args == [None] * cfg.encoder_layers
+    x = torch.randn(1, 2, 16, 64, device=cuda, requires_grad=True)
+    flash_attention(x, x, x)
+    assert lse_args[-1] is not None
 
 
 @pytest.mark.parametrize("compute,kv", [("float32", "auto"),
@@ -229,7 +348,7 @@ def test_artifact_transcribes_exactly_through_the_kernels(cuda, compute, kv):
     assert texts == expected
     steps = int(lens.max()) - 1
     assert {n: f.launches for n, f in KERNELS.items()} == {
-        "flash_fwd": cfg.encoder_layers,
+        "flash_fwd": cfg.encoder_layers, "flash_bwd": 0,
         "decode_attn": 2 * cfg.decoder_layers * steps,
         "stft_log_mel": 1,
         "layer_norm": (2 * cfg.encoder_layers + 1
@@ -355,6 +474,62 @@ def test_float_tree_transcribes_exactly_through_k6(cuda):
     assert [ids_to_text(toks[i, :lens[i]]) for i in range(4)] == expected
     steps = int(lens.max()) - 1
     assert {n: f.launches for n, f in KERNELS.items()} == {
-        "flash_fwd": cfg.encoder_layers, "decode_attn": 0, "stft_log_mel": 1,
+        "flash_fwd": cfg.encoder_layers, "flash_bwd": 0, "decode_attn": 0,
+        "stft_log_mel": 1,
         "layer_norm": 2 * cfg.encoder_layers + 1 + 5 * steps,
         "fused_decoder_layer_step": cfg.decoder_layers * steps}
+
+
+def _cut_float_artifact(device, layers=1):
+    """The artifact dequantized in memory, cut to ``layers`` encoder and
+    decoder layers (widths unchanged)."""
+    from whisper_trtllm_tpu_torch.quantization import dequantize_params
+    from whisper_trtllm_tpu_torch.training.train import tree_map
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    params, cfg = load_checkpoint(
+        os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"), device=device)
+    params = dequantize_params(params)
+    for side in ("encoder", "decoder"):
+        params[side]["layers"] = tree_map(lambda t: t[:layers].clone(),
+                                          params[side]["layers"])
+    return params, dataclasses.replace(cfg, encoder_layers=layers,
+                                       decoder_layers=layers)
+
+
+def test_training_step_gradients_on_the_card_equal_the_cpus(cuda):
+    """One step of the training path: the loss equals the CPU's, and every
+    leaf's gradient is nonzero and equal to the CPU's (a kernel output
+    without grad_fn would leave the leaves before it at zero); one K1 and
+    one K4 launch a layer (encoder self, decoder cross), three K5 per
+    decoder layer, two per encoder layer and two final ones."""
+    from whisper_trtllm_tpu_torch.training import loss_and_grads, make_train_step
+    from whisper_trtllm_tpu_torch.training.train import tree_leaves
+
+    rng = np.random.default_rng(0)
+    mel = rng.standard_normal((2, 3000, 80)).astype(np.float32)
+    tokens = np.array([[50257, 50362, 100, 105, 131, 50256, 50256, 50256],
+                       [50257, 50362, 120, 50256, 50256, 50256, 50256,
+                        50256]], np.int32)
+    mask = np.array([[1] * 5 + [0] * 2, [1] * 3 + [0] * 4], np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        params, cfg = _cut_float_artifact(dev)
+        reset_launch_counts()
+        loss, g = loss_and_grads(params, cfg, mel, tokens, mask)
+        grads[str(dev)] = (float(loss), [t.cpu() for t in tree_leaves(g)])
+    assert {n: f.launches for n, f in KERNELS.items()} == {
+        "flash_fwd": 2, "flash_bwd": 2, "decode_attn": 0, "stft_log_mel": 0,
+        "layer_norm": 7, "fused_decoder_layer_step": 0}
+    (l_cpu, g_cpu), (l_card, g_card) = grads["cpu"], grads["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for a, b in zip(g_card, g_cpu):
+        top = b.abs().max().item()
+        assert a.abs().max().item() > 0
+        assert (a - b).abs().max().item() <= 1e-3 * top
+    init, step = make_train_step(cfg)
+    params, _ = _cut_float_artifact(cuda)
+    state = init(params)
+    losses = [float(step(params, state, mel, tokens, mask)[2])
+              for _ in range(3)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -5,7 +5,8 @@
   or flax fails).
 - No port module calls a fused attention operator, ``torch.compile`` or a
   package of finished kernels.
-- Entry points called without ``device=`` raise when there is no CUDA.
+- Entry points called without ``device=`` raise when there is no CUDA;
+  the fine-tuning CLI without ``--cpu`` too.
 - ``chip_smoke.py`` exits non-zero and prints no result without a card.
 """
 
@@ -65,6 +66,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert "IMPORTED []" in out.stdout, out.stdout
     assert len(_port_modules()) >= 15
+    for name in ("training", "training.train", "cli", "cli.finetune"):
+        assert f"whisper_trtllm_tpu_torch.{name}" in _port_modules()
 
 
 def test_port_sources_call_no_fused_attention_or_compiler():
@@ -106,6 +109,19 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
         init_self_kv_quant(cfg, 1, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_kv_cache(1, 2, 4, 8)
+
+
+def test_finetune_defaults_to_the_card_and_raises_without_one(no_cuda,
+                                                            tmp_path):
+    from whisper_trtllm_tpu_torch.cli import finetune
+
+    args = ["--checkpoint", ART, "--dataset", str(tmp_path / "none.pkl"),
+            "--output", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        finetune.main(args)
+    # with --cpu it gets past the device and reads the dataset
+    with pytest.raises(FileNotFoundError):
+        finetune.main(args + ["--cpu"])
 
 
 def test_transcribe_tokens_refuses_params_on_another_device():

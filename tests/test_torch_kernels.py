@@ -30,6 +30,7 @@ from whisper_trtllm_tpu_torch.ops import attention as att
 from whisper_trtllm_tpu_torch.ops.kernels import (
     KERNELS,
     decode_attn,
+    flash_bwd,
     flash_fwd,
     fused_decoder_layer_step,
     layer_norm,
@@ -273,6 +274,7 @@ def test_plain_versions_do_not_count_launches():
     reset_launch_counts()
     q, k, v = _torch(*_qkv(9, 1, 2, 2, 16, 16, 8))
     flash_fwd(q, k, v)
+    flash_bwd(q, k, v, None, q, causal=True)
     decode_attn(q[:, :, :1], k, v, torch.tensor(3, dtype=torch.int32))
     kq, ks = att.quantize_kv(k)
     decode_attn(q[:, :, :1], kq.transpose(-1, -2), kq.transpose(-1, -2),
@@ -290,8 +292,8 @@ def test_plain_versions_do_not_count_launches():
     fused_decoder_layer_step(x, x, torch.tensor(3, dtype=torch.int32), lp,
                              cache, cache, cache, cache, 8)
     assert {n: f.launches for n, f in KERNELS.items()} == {
-        "flash_fwd": 0, "decode_attn": 0, "stft_log_mel": 0, "layer_norm": 0,
-        "fused_decoder_layer_step": 0}
+        "flash_fwd": 0, "flash_bwd": 0, "decode_attn": 0, "stft_log_mel": 0,
+        "layer_norm": 0, "fused_decoder_layer_step": 0}
 
 
 def test_wrappers_never_take_the_plain_version_off_the_cpu():

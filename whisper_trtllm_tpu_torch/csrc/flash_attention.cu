@@ -26,65 +26,18 @@
 // padded to 64 or 128 inside the block (the zero columns add nothing).
 // wgmma, TMA and warp specialisation are left for later.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // key/value rows per streamed tile
-constexpr int THREADS = 256;     // a 16 x 16 grid of threads
-constexpr int PSTRIDE = BK + 4;  // row stride of the probability tile
-constexpr float MASKED = -1e9f;  // the JAX package's mask value
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned int*>(&lo);
-  raw.y = *reinterpret_cast<unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-// Rows [0, rows) of a (rows_total, dh) tile starting at `src`, written
-// transposed into dst[d * ROWS + r]; rows beyond `valid` and columns
-// beyond dh are zero.
-template <typename T, int ROWS, int DHP>
-__device__ __forceinline__ void load_transposed(float* dst, const T* src,
-                                                int valid, int dh) {
-  const int dh4 = dh / 4;
-  for (int e = threadIdx.x; e < ROWS * (DHP / 4); e += THREADS) {
-    const int r = e % ROWS, c = e / ROWS;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid && c < dh4) x = load4(src + (size_t)r * dh + 4 * c);
-    dst[(4 * c + 0) * ROWS + r] = x.x;
-    dst[(4 * c + 1) * ROWS + r] = x.y;
-    dst[(4 * c + 2) * ROWS + r] = x.z;
-    dst[(4 * c + 3) * ROWS + r] = x.w;
-  }
-}
+using namespace flash;
 
 template <typename T, int DHP>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-                 int S, int T_len, int dh, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int Hkv, int S, int T_len,
+                 int dh, int causal) {
   constexpr int G = DHP / 64;  // float4 output groups per thread
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [DHP][BQ]
@@ -117,30 +70,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous tile is no longer read
     load_transposed<T, BK, DHP>(kt, kh + (size_t)k0 * dh, T_len - k0, dh);
-    for (int e = threadIdx.x; e < BK * (DHP / 4); e += THREADS) {
-      const int c = e % (DHP / 4), r = e / (DHP / 4);
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < T_len && c < dh / 4) x = load4(vh + (size_t)(k0 + r) * dh + 4 * c);
-      *reinterpret_cast<float4*>(vs + r * DHP + 4 * c) = x;
-    }
+    load_rows<T, BK, DHP>(vs, vh + (size_t)k0 * dh, T_len - k0, dh);
     __syncthreads();
 
     float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < dh; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * BQ + 4 * ty);
-      const float4 c = *reinterpret_cast<const float4*>(kt + d * BK + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
+    dot_tile<BQ, BK>(s, qt, kt, dh);
 
     // mask, then the online-softmax update of each of this thread's rows;
     // a row's 64 scores are spread over the 16 lanes sharing its ty
@@ -177,35 +111,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // acc += P V over the tile
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float4 p4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(ps + (4 * ty + i) * PSTRIDE + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float4 w = *reinterpret_cast<const float4*>(vs + (j + jj) * DHP + g * 64 + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = jj == 0 ? p4[i].x : jj == 1 ? p4[i].y : jj == 2 ? p4[i].z : p4[i].w;
-            acc[i][4 * g + 0] = fmaf(p, w.x, acc[i][4 * g + 0]);
-            acc[i][4 * g + 1] = fmaf(p, w.y, acc[i][4 * g + 1]);
-            acc[i][4 * g + 2] = fmaf(p, w.z, acc[i][4 * g + 2]);
-            acc[i][4 * g + 3] = fmaf(p, w.w, acc[i][4 * g + 3]);
-          }
-        }
-      }
-    }
+    accumulate_pv<DHP>(acc, ps, vs);  // acc += P V over the tile
   }
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= S) continue;
+    // the row's log-sum-exp, which the backward (K4) recomputes P from
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)(b * H + h) * S + row] = m[i] + logf(l[i]);
     const float inv = 1.f / l[i];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -220,7 +135,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DHP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int Hkv, int S, int T_len, int dh,
+                   void* lse, int B, int H, int Hkv, int S, int T_len, int dh,
                    int causal, cudaStream_t stream) {
   const size_t smem = (size_t)(DHP * BQ + DHP * BK + BK * DHP + BQ * PSTRIDE) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -229,7 +144,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, DHP><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Hkv, S, T_len, dh, causal);
+      static_cast<T*>(o), static_cast<float*>(lse), H, Hkv, S, T_len, dh, causal);
   return cudaGetLastError();
 }
 
@@ -238,20 +153,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q (B, H, S, dh), k/v (B, Hkv, T, dh), o (B, H, S, dh), all contiguous and
-// of one dtype (is_bf16: 0 float32, 1 bfloat16). Returns a cudaError_t.
-int flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int Hkv, int S, int T_len, int dh, int causal,
+// of one dtype (is_bf16: 0 float32, 1 bfloat16); lse, when not null, an
+// fp32 (B, H, S) that receives each row's log-sum-exp of its masked scores
+// (the inference path passes null). Returns a cudaError_t.
+int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+              int B, int H, int Hkv, int S, int T_len, int dh, int causal,
               int is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       dh <= 0 || dh > 128 || dh % 8 != 0 || (causal && S != T_len))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (dh <= 64) return launch<__nv_bfloat16, 64>(q, k, v, o, B, H, Hkv, S, T_len, dh, causal, st);
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, H, Hkv, S, T_len, dh, causal, st);
+    if (dh <= 64) return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
+    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
   }
-  if (dh <= 64) return launch<float, 64>(q, k, v, o, B, H, Hkv, S, T_len, dh, causal, st);
-  return launch<float, 128>(q, k, v, o, B, H, Hkv, S, T_len, dh, causal, st);
+  if (dh <= 64) return launch<float, 64>(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
+  return launch<float, 128>(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
 }
 
 const char* error_string(int err) {

@@ -2,6 +2,7 @@ from whisper_trtllm_tpu_torch.models.whisper.model import (  # noqa: F401
     cast_params,
     compute_cross_kv,
     cross_kv_t_major,
+    decode_full,
     decode_step_kv,
     encode,
     init_self_kv,

@@ -1,6 +1,6 @@
 """Whisper encoder/decoder (counterpart of
 ``whisper_trtllm_tpu/models/whisper/model.py``, the functions the greedy
-path runs).
+path and the training path run).
 
 Parameters are the JAX package's tree as tensors: layers stacked on a
 leading L axis, walked here by a Python loop where the JAX package scans.
@@ -11,6 +11,8 @@ quantized 4-tuples (k values, k scales, v values, v scales), and the cross
 cache may be stored T-minor (``transpose_cross_kv``). On the card, a decode
 step with float weights and float dh-minor caches runs each layer after
 its cache append as one fused launch (kernel K6, ``_decode_step_fused``).
+The teacher-forced ``decode_full`` and ``encode(remat=True)`` serve
+training (``training/train.py``): every op on them is differentiable.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from whisper_trtllm_tpu_torch.config import WhisperConfig
 from whisper_trtllm_tpu_torch.layers.transformer import (
@@ -122,17 +125,103 @@ def _encoder_layer(lp: dict, x: torch.Tensor, heads: int) -> torch.Tensor:
     return x + mlp_block(lp, h)
 
 
-def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
+def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """mel (B, 3000, n_mels) → encoder states (B, 1500, d): conv1d+GELU
-    stem, + sinusoid positions, the layers, final LN."""
+    stem, + sinusoid positions, the layers, final LN.
+
+    ``remat=True`` rematerializes per layer (``torch.utils.checkpoint``,
+    non-reentrant; ≙ ``jax.checkpoint`` on the scan body): the backward
+    keeps only the (B, 1500, d) layer boundaries and runs each layer's
+    forward again, its K1 and K5 launches included."""
     enc = params["encoder"]
     x = gelu(conv1d(enc["conv1"], mel, stride=1, padding=1))
     x = gelu(conv1d(enc["conv2"], x, stride=2, padding=1))
     x = x + enc["embed_positions"].to(x.dtype)[None]
     heads = cfg.encoder_attention_heads
     for i in range(cfg.encoder_layers):
-        x = _encoder_layer(layer(enc["layers"], i), x, heads)
+        lp = layer(enc["layers"], i)
+        if remat:
+            x = checkpoint(_encoder_layer, lp, x, heads, use_reentrant=False)
+        else:
+            x = _encoder_layer(lp, x, heads)
     return layer_norm(enc["layer_norm"], x)
+
+
+# --------------------------------------------------------------------------
+# decoder — teacher-forced full-sequence (training)
+# --------------------------------------------------------------------------
+
+def _decoder_layer_full(
+    lp: dict, x: torch.Tensor, enc_states: torch.Tensor, heads: int,
+    flash_cross: bool = False,
+    ga_weights: Optional[torch.Tensor] = None,
+    ga_row_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer over the whole sequence: causal self attention,
+    cross attention, MLP. With ``ga_weights`` (S, T) and ``ga_row_mask``
+    (B, S) the cross attention is the plain softmax, and the layer also
+    returns the guided-attention penalty: the mean over heads and masked
+    rows of the attention mass weighted by ``ga_weights``."""
+    h = layer_norm(lp["self_attn_layer_norm"], x)
+    q, k, v = attention_qkv(lp["self_attn"], h, None, heads)
+    a = merge_heads(mha(q, k, v, causal=True))
+    x = x + dense(lp["self_attn"]["out"], a)
+
+    h = layer_norm(lp["encoder_attn_layer_norm"], x)
+    q, k, v = attention_qkv(lp["encoder_attn"], h, enc_states, heads)
+    ga_pen = x.new_zeros((), dtype=torch.float32)
+    if ga_weights is not None:
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        probs = torch.softmax(scores, dim=-1)
+        pen_rows = (probs * ga_weights[None, None]).sum(dim=-1)  # B, H, S
+        rm = ga_row_mask[:, None, :].to(pen_rows.dtype)
+        ga_pen = (pen_rows * rm).sum() / torch.clamp(rm.sum() * heads,
+                                                     min=1.0)
+        a = merge_heads(torch.matmul(probs.to(v.dtype), v))
+    else:
+        a = merge_heads(mha(q, k, v, causal=False, use_flash=flash_cross))
+    x = x + dense(lp["encoder_attn"]["out"], a)
+
+    h = layer_norm(lp["final_layer_norm"], x)
+    x = x + mlp_block(lp, h)
+    return x, ga_pen
+
+
+def decode_full(
+    params: dict,
+    cfg: WhisperConfig,
+    tokens: torch.Tensor,
+    enc_states: torch.Tensor,
+    flash_cross: bool = False,
+    ga_weights: Optional[torch.Tensor] = None,
+    ga_row_mask: Optional[torch.Tensor] = None,
+):
+    """Teacher-forced decoder forward: tokens (B, S) → logits (B, S, V)
+    fp32.
+
+    ``flash_cross`` picks the cross attention's lowering: False (default)
+    the plain formula, as the JAX package pins XLA there; True the fused
+    kernel (K1, K4 in the backward), as training runs it. With
+    ``ga_weights`` (S, T) and ``ga_row_mask`` (B, S) (the guided-attention
+    loss, ``training/train.py::guided_attn_weights``) it returns (logits,
+    the mean of the layers' penalties)."""
+    dec = params["decoder"]
+    s = tokens.shape[1]
+    x = embedding(dec["embed_tokens"], tokens, dtype=enc_states.dtype)
+    x = x + dec["embed_positions"][:s].to(x.dtype)[None]
+    heads = cfg.decoder_attention_heads
+    pens = []
+    for i in range(cfg.decoder_layers):
+        x, pen = _decoder_layer_full(layer(dec["layers"], i), x, enc_states,
+                                     heads, flash_cross, ga_weights,
+                                     ga_row_mask)
+        pens.append(pen)
+    x = layer_norm(dec["layer_norm"], x)
+    logits = _vocab_logits(dec, x)
+    if ga_weights is not None:
+        return logits, torch.stack(pens).mean()
+    return logits
 
 
 # --------------------------------------------------------------------------

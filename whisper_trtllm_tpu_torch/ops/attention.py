@@ -1,10 +1,17 @@
 """Attention ops over (B, H, S, dh) tensors (counterpart of
 ``whisper_trtllm_tpu/ops/attention.py``).
 
-On a CUDA tensor every attention here runs a hand-written kernel
-(``ops/kernels``) or raises: a case the kernels do not take yet is a later
-slice, and never falls through to the plain formula on the card. On a CPU
-tensor the plain formulas serve every case.
+``mha`` dispatches exactly as the JAX package does on the TPU: the fused
+flash kernel (K1, with K4 in its backward) takes the unmasked case with
+S > 1, dh % 8 == 0 and Hkv | H, bidirectional or causal square with
+S == T >= 768, unless ``use_flash=False``. Every other case the JAX package
+runs in XLA, and here it runs the plain formula on either device: the
+masked case, causal attention below S = 768 (the decoder's self attention
+in training: Whisper has at most 448 positions) and ``use_flash=False``
+(``decode_full``'s default cross attention). Those are torch matmuls
+standing for XLA's products, not cases the kernels have yet to take. A case
+inside the flash conditions that K1 does not take (dh > 128) raises on the
+card. The decode step's attention always runs K2 on the card.
 """
 
 from __future__ import annotations
@@ -19,9 +26,13 @@ from whisper_trtllm_tpu_torch.ops.kernels.decode_attention import (
 )
 from whisper_trtllm_tpu_torch.ops.kernels.flash_attention import (
     attention_reference,
-    flash_fwd,
+    flash_attention,
 )
 from whisper_trtllm_tpu_torch.utils.device import resolve_device
+
+# the causal flash path engages only from this length on: the JAX package's
+# choice (ops/attention.py), measured on its TPU
+FLASH_CAUSAL_MIN_LEN = 768
 
 
 def mha(
@@ -31,23 +42,22 @@ def mha(
     mask: Optional[torch.Tensor] = None,
     causal: bool = False,
     fp32_softmax: bool = True,
+    use_flash: bool = True,
 ) -> torch.Tensor:
     """Full-sequence attention. q: (B, H, S, dh) pre-scaled by dh**-0.5;
     k, v: (B, Hkv, T, dh) with Hkv | H; ``mask`` additive, broadcastable
-    to (B, H, S, T).
+    to (B, H, S, T). Differentiable on both paths.
 
-    The bidirectional unmasked case (the encoder's) goes to kernel K1
-    under the JAX package's conditions; on the card K1 also needs
-    dh <= 128."""
-    h, s, dh = q.shape[1], q.shape[2], q.shape[3]
-    if (mask is None and h % k.shape[1] == 0 and s > 1 and dh % 8 == 0
-            and not causal):
-        return flash_fwd(q.contiguous(), k.contiguous(), v.contiguous())
-    if q.is_cuda:
-        raise NotImplementedError(
-            "mha on CUDA runs only the flash kernel's case (no mask, S > 1, "
-            "dh % 8 == 0, bidirectional); masked, causal and single-row "
-            "attention on the card are later slices")
+    The JAX package's flash conditions go to ``flash_attention`` (K1, and
+    K4 in the backward; the plain versions on the CPU); the rest to the
+    plain formula (see the module docstring)."""
+    h, s, dh = q.shape[1:]
+    hkv, t = k.shape[1], k.shape[2]
+    if (use_flash and mask is None and h % hkv == 0 and s > 1
+            and dh % 8 == 0
+            and (not causal or (s == t and s >= FLASH_CAUSAL_MIN_LEN))):
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal)
     return attention_reference(q, k, v, causal=causal, mask=mask,
                                fp32_softmax=fp32_softmax)
 

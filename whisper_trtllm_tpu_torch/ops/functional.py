@@ -14,7 +14,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from whisper_trtllm_tpu_torch.ops.kernels import _build
 from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import (
+    LayerNorm,
     layer_norm as layer_norm_kernel,
 )
 
@@ -52,9 +54,12 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with fp32 statistics whatever the compute dtype; kernel K5
-    on the card."""
-    return layer_norm_kernel(x.contiguous(), params["scale"],
-                             params.get("bias"), eps)
+    on the card, through the differentiable ``LayerNorm`` where autograd
+    records."""
+    x, scale, bias = x.contiguous(), params["scale"], params.get("bias")
+    if _build.needs_grad(x, scale, bias):
+        return LayerNorm.apply(x, scale, bias, eps)
+    return layer_norm_kernel(x, scale, bias, eps)
 
 
 def embedding(table, ids: torch.Tensor, dtype=None) -> torch.Tensor:

@@ -4,6 +4,7 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<digest>.so`` at the repository root (a
 directory ``.gitignore`` lists), for ``sm_90a``. The digest covers the
 source and the flags, so an edited source never loads a stale library.
+Shared headers (``csrc/*.cuh``) count in every source's digest.
 ``nvcc``'s report (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library as ``.log``.
 
@@ -22,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -45,6 +48,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -102,6 +106,25 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
             lib.error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd is recording and one of ``tensors`` (None
+    skipped) requires grad: the call must then go through a
+    ``torch.autograd.Function``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where a kernel with no backward would be handed an input that
+    requires grad: its output (filled through ctypes) would carry no
+    ``grad_fn`` and cut the graph without a word."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad and this kernel has no "
+            "backward; call it under torch.no_grad() or through the "
+            "differentiable entry point")
 
 
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:

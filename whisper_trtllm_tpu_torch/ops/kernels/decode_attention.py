@@ -138,8 +138,9 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     when ``t_major``, in q's dtype, or int8/fp8 with fp32 scales
     (B, H, T, 1) for each; ``valid_len`` an int32 tensor on the device,
     one count or one per lane, read by the kernel (no host sync). fp32
-    softmax. Returns (B, H, 1, dh) in q's dtype. Counts its kernel launches
-    in ``decode_attn.launches``."""
+    softmax. Returns (B, H, 1, dh) in q's dtype. Has no backward: on the
+    card it refuses inputs that require grad. Counts its kernel launches in
+    ``decode_attn.launches``."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("decode_attn: give both k_scale and v_scale or "
                          "neither")
@@ -153,6 +154,7 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     _check(q, cache_k, cache_v, valid_len, k_scale, v_scale, t_major)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn: unsupported device {q.device}")
+    _build.refuse_grad("decode_attn", q, cache_k, cache_v, k_scale, v_scale)
     lib = _build.load("decode_attention", _SIGNATURES)
     b, h, _, dh = q.shape
     t = cache_k.shape[3] if t_major else cache_k.shape[2]

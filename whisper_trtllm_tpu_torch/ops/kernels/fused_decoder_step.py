@@ -210,7 +210,8 @@ def fused_decoder_layer_step(x: torch.Tensor, h1: torch.Tensor, pos, lp: dict,
     layer's unfused float parameters; self cache (B, H, Ts, dh) ×2 already
     holding this step's K/V at ``pos``; cross cache (B, H, Tc, dh) ×2 of
     which the first ``enc_len`` rows are valid (a 0-d int32 tensor or an
-    int). Returns x' (B, d) in x's dtype. Counts its kernel launches in
+    int). Returns x' (B, d) in x's dtype. Has no backward: on the card it
+    refuses inputs that require grad. Counts its kernel launches in
     ``fused_decoder_layer_step.launches``.
 
     ``timeline``, on the card only: an int64 tensor of ``len(PHASES) + 1``
@@ -231,6 +232,8 @@ def fused_decoder_layer_step(x: torch.Tensor, h1: torch.Tensor, pos, lp: dict,
     blocks = _blocks(lp)
     caches = (self_k, self_v, cross_k, cross_v)
     _check(x, h1, pos, enc_len, blocks, caches)
+    _build.refuse_grad("fused_decoder_layer_step", x, h1, *caches,
+                       *(t for pair in blocks for t in pair))
     if timeline is not None and (
             timeline.dtype != torch.int64 or timeline.device != x.device
             or timeline.numel() < len(PHASES) + 1):

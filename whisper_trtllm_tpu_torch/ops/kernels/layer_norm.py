@@ -4,6 +4,10 @@
 Counterpart of ``whisper_trtllm_tpu/ops/pallas/layer_norm.py::
 layer_norm_fused``. The wrapper takes the plain version only for CPU
 tensors; for a CUDA tensor it launches the kernel or raises.
+
+``LayerNorm`` makes it differentiable: its forward is the wrapper and its
+backward the LayerNorm VJP in plain PyTorch ops with fp32 statistics (the
+JAX package has no backward kernel: XLA differentiates its LayerNorm).
 """
 
 from __future__ import annotations
@@ -64,13 +68,15 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
                bias: Optional[torch.Tensor] = None,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm of x (..., d) over d with fp32 statistics; returns x's
-    shape and dtype. Counts its kernel launches in
-    ``layer_norm.launches``."""
+    shape and dtype. Has no backward: on the card it refuses inputs that
+    require grad (``LayerNorm`` is the differentiable entry). Counts its
+    kernel launches in ``layer_norm.launches``."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, scale, bias, eps)
     _check(x, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm: unsupported device {x.device}")
+    _build.refuse_grad("layer_norm", x, scale, bias)
     lib = _build.load("layer_norm", _SIGNATURES)
     d = x.shape[-1]
     rows = x.numel() // d
@@ -87,3 +93,42 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 layer_norm.launches = 0
+
+
+def layer_norm_backward(x: torch.Tensor, scale: torch.Tensor,
+                        dy: torch.Tensor, eps: float = 1e-5):
+    """The LayerNorm VJP in fp32: with x̂ = (x - mean) · rstd,
+    dx = rstd · (g - mean(g) - x̂ · mean(g · x̂)) for g = dy · scale;
+    dscale = Σ dy · x̂ and dbias = Σ dy over the rows. Returns (dx in x's
+    dtype, dscale, dbias in scale's dtype)."""
+    d = x.shape[-1]
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt(xc.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    dyf = dy.float()
+    g = dyf * scale.float()
+    dx = rstd * (g - g.mean(dim=-1, keepdim=True)
+                 - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+    dscale = (dyf * xhat).reshape(-1, d).sum(dim=0)
+    dbias = dyf.reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype)
+
+
+class LayerNorm(torch.autograd.Function):
+    """K5 forward, the plain LayerNorm VJP backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return layer_norm(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale, dbias = layer_norm_backward(x, scale, dy, ctx.eps)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dscale if need[1] else None,
+                dbias if need[2] else None, None)

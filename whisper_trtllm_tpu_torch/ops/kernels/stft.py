@@ -69,7 +69,8 @@ def stft_log_mel(audio_blocks: torch.Tensor, basis: torch.Tensor,
     """audio_blocks (B, n_blocks, hop) fp32, the center-padded signal in
     hop rows; basis (n_taps <= 3*hop, 2*n_bins), the windowed DFT, real
     columns then imaginary; mel_fb (n_bins, M). Returns (B, n_blocks - 2,
-    M) log10-mel, frame f reading n_taps samples from block f. Counts its
+    M) log10-mel, frame f reading n_taps samples from block f. Has no
+    backward: on the card it refuses inputs that require grad. Counts its
     kernel launches in ``stft_log_mel.launches``."""
     if audio_blocks.device.type == "cpu":
         return stft_log_mel_reference(audio_blocks, basis, mel_fb)
@@ -77,6 +78,7 @@ def stft_log_mel(audio_blocks: torch.Tensor, basis: torch.Tensor,
     if audio_blocks.device.type != "cuda":
         raise ValueError(
             f"stft_log_mel: unsupported device {audio_blocks.device}")
+    _build.refuse_grad("stft_log_mel", audio_blocks, basis, mel_fb)
     lib = _build.load("stft", _SIGNATURES)
     b, n_blocks, hop = audio_blocks.shape
     n_taps, n_bins, m = basis.shape[0], basis.shape[1] // 2, mel_fb.shape[1]

@@ -1,5 +1,6 @@
-"""Checkpoint loading: ``config.json`` + flax ``params.msgpack``, read with
-plain ``msgpack`` (counterpart of ``whisper_trtllm_tpu/utils/checkpoint.py``).
+"""Checkpoint loading and saving: ``config.json`` + flax
+``params.msgpack``, read and written with plain ``msgpack`` (counterpart of
+``whisper_trtllm_tpu/utils/checkpoint.py``).
 
 flax serializes each array as a msgpack extension of type 1 whose payload
 is itself msgpack: ``(shape, dtype_name, raw_bytes)``, C order. Nested
@@ -17,10 +18,12 @@ import numpy as np
 import torch
 
 from whisper_trtllm_tpu_torch.config import WhisperConfig
-from whisper_trtllm_tpu_torch.utils.device import resolve_device
+from whisper_trtllm_tpu_torch.utils.device import resolve_device, to_numpy
 
 _EXT_NDARRAY = 1
 _CHUNKED_MARKER = "__msgpack_chunked_array__"
+# flax splits an array above this many bytes into chunks
+_MAX_CHUNK_BYTES = 2 ** 30
 
 
 def _ext_hook(code: int, data: bytes):
@@ -28,6 +31,15 @@ def _ext_hook(code: int, data: bytes):
         shape, dtype_name, buf = msgpack.unpackb(data)
         return np.frombuffer(buf, dtype=np.dtype(dtype_name)).reshape(shape)
     raise ValueError(f"unsupported msgpack extension type {code}")
+
+
+def _ext_pack(x):
+    """The writer's side of ``_ext_hook``: an ndarray as extension 1."""
+    if isinstance(x, np.ndarray):
+        payload = msgpack.packb((x.shape, x.dtype.name, x.tobytes("C")),
+                                use_bin_type=True)
+        return msgpack.ExtType(_EXT_NDARRAY, payload)
+    raise TypeError(f"cannot serialize {type(x).__name__}")
 
 
 def _check_tree(tree, path="") -> None:
@@ -85,3 +97,29 @@ def load_checkpoint(path: str, device=None,
         cfg = WhisperConfig.from_json(f.read())
     tree = read_msgpack(os.path.join(path, "params.msgpack"))
     return params_from_numpy(tree, dev, dtype), cfg
+
+
+def _host_tree(tree, path=""):
+    """Tensors → C-ordered numpy (bfloat16 widened to float32, exact), dict
+    keys sorted as flax writes them."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(tree[k], f"{path}/{k}") for k in sorted(tree)}
+    arr = np.ascontiguousarray(to_numpy(tree))
+    if arr.nbytes > _MAX_CHUNK_BYTES:
+        raise NotImplementedError(
+            f"array at {path} exceeds 1 GiB: flax would write it chunked, "
+            "which is not supported")
+    return arr
+
+
+def save_checkpoint(path: str, params: dict, cfg: WhisperConfig) -> None:
+    """Write ``<path>/params.msgpack`` (flax msgpack, byte for byte what
+    ``flax.serialization.msgpack_serialize`` writes for the same arrays)
+    and ``<path>/config.json``; both ``load_checkpoint``s read them."""
+    os.makedirs(path, exist_ok=True)
+    packed = msgpack.packb(_host_tree(params), default=_ext_pack,
+                           strict_types=True)
+    with open(os.path.join(path, "params.msgpack"), "wb") as f:
+        f.write(packed)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        f.write(cfg.to_json())
