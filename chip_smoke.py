@@ -4,10 +4,10 @@ CUDA card.
 
     python3 chip_smoke.py
 
-Four phases; any failure raises and the script exits non-zero:
+Five phases; any failure raises and the script exits non-zero:
 
 1. build — compiles every kernel of the main paths from ``csrc/`` with
-   ``nvcc`` for sm_90a (one ``nvcc`` per source, all at once: six
+   ``nvcc`` for sm_90a (one ``nvcc`` per source, all at once: eight
    sources) and prints the build time, ``nvcc``'s register/spill report and
    the card's name and power limit;
 2. kernels — holds each kernel against its plain PyTorch version on the
@@ -15,10 +15,18 @@ Four phases; any failure raises and the script exits non-zero:
    with int8 and fp8 caches, both cache layouts and per-lane valid
    lengths; the fused decoder-layer step over a sweep of positions; the
    flash backward at the encoder's, the training cross attention's, a
-   causal and a GQA shape), and times the kernel, the plain version and,
-   where one exists, one PyTorch library call computing the same function
-   (the yardstick; the port never calls it);
-3. end to end — loads the trained tiny.en artifact and transcribes the
+   causal and a GQA shape; the head-contiguous cross attention at the
+   hardware check's shape over valid lengths 1500, 1 and T; the example's
+   bias+GELU at its (512, 384)), and times the kernel, the plain version
+   and, where one exists, one PyTorch library call computing the same
+   function (the yardstick; the port never calls it);
+3. hardware check and example — runs ``python -m
+   whisper_trtllm_tpu_torch.cli.gpu_check`` (every check of the port's
+   counterpart of ``cli/tpu_check.py``, among them K7's
+   ``cross_attn_kernel``) and the custom-kernel example's ``main()`` (K8)
+   as subprocesses: each must exit 0 with every check passing, and each
+   reports the launches of its kernel;
+4. end to end — loads the trained tiny.en artifact and transcribes the
    four bundled utterances as one batch through
    ``WhisperSession.transcribe`` in seven configurations: A fp32 with float
    KV caches; B bf16 with int8 KV, cross cache T-minor ("auto"), the
@@ -33,7 +41,7 @@ Four phases; any failure raises and the script exits non-zero:
    that one transcribe; A, C and E must give the same tokens as the plain
    path on the CPU. A, B and E are timed stage by stage, and for E the
    host time a decode step spends in K6's gate and wrapper;
-4. training — on the float tree with the bundled batch of 4 and their
+5. training — on the float tree with the bundled batch of 4 and their
    ground-truth tokens (32 positions): (a) the loss and every leaf's
    gradient on the card against the CPU's (each nonzero), and one
    ``make_train_step`` step with exact K1, K4 and K5 launch counts; (b)
@@ -80,7 +88,8 @@ TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
 # another order, amplified by log10 near the floor)
 STFT_TOLERANCE = 2e-4
 SOURCES = ["flash_attention", "flash_attention_bwd", "decode_attention",
-           "stft", "layer_norm", "fused_decoder_step"]
+           "stft", "layer_norm", "fused_decoder_step", "cross_attention",
+           "fused_bias_gelu"]
 # the fused decoder-layer step: fp32 sums over up to 1536 terms in another
 # order (atol and rtol); bf16 relative to max(|plain|, 1), one bf16 step
 FUSED_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -626,28 +635,160 @@ def check_flash_bwd(torch, rng, card):
     return headline
 
 
-def unported_bounds(card):
-    """The bounds of the two TPU kernels not yet ported, at their callers'
-    shapes, for PERF.md's table (nothing runs)."""
-    # K7 cross_decode_mha (cli/tpu_check.py:360): fp32 q (B, H*dh), cache
-    # (B, T, H*dh) of which 1500 rows are valid, B 4, H 6, dh 64
-    b, h, dh, valid = 4, 6, 64, 1500
-    nbytes = 4 * (2 * b * h * dh + 2 * b * valid * h * dh)
-    b_ms, b_by = bound(nbytes, 4.0 * b * h * valid * dh, "float32")
-    print(f"bound cross_decode_mha (K7, not ported) B={b} H={h} dh={dh} "
-          f"valid_len={valid} float32: {nbytes} bytes, bound_ms={b_ms:.5f} "
-          f"({b_by}) [{card}]")
-    # K8 fused_bias_gelu (examples/custom_kernel/custom_gelu_kernel.py):
-    # fp32 x (512, 384) + bias (384,), exact GELU (~20 flops an element)
+def check_cross(torch, rng, card):
+    """K7 at the hardware check's shape (``cli/tpu_check.py:360``: B 4,
+    H 6, dh 64, T 1504), head-contiguous (B, T, H*dh), over valid lengths
+    1500 (timed), 1 and T. The yardstick is SDPA on the (B, H, T, dh) views
+    of the same cache sliced to the valid rows."""
+    import torch.nn.functional as F
+
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        cross_decode_mha,
+        cross_decode_mha_reference,
+    )
+
+    b, h, t, dh = 4, 6, 1504, 64
+    sweep, vl_timed = (1500, 1, t), 1500
+    headline = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        item = torch.tensor([], dtype=dtype).element_size()
+        sets = []
+        for _ in range(n_sets(2 * b * t * h * dh * item)):
+            q = rng.standard_normal((b, h * dh), dtype="float32") / math.sqrt(dh)
+            k = rng.standard_normal((b, t, h * dh), dtype="float32")
+            v = rng.standard_normal((b, t, h * dh), dtype="float32")
+            sets.append(tuple(torch.from_numpy(x).to(DEVICE, dtype)
+                              for x in (q, k, v)))
+        q, k, v = sets[0]
+        err = 0.0
+        for vl in sweep:
+            out = cross_decode_mha(q, k, v, h, dh, vl)
+            ref = cross_decode_mha_reference(q, k, v, h, dh, vl)
+            torch.cuda.synchronize()
+            e = (out.float() - ref.float()).abs().max().item()
+            if not math.isfinite(e) or e > TOLERANCE[dn]:
+                fail(f"cross_decode_mha {dn} valid_len={vl}: max |kernel - "
+                     f"plain| = {e} > {TOLERANCE[dn]}")
+            err = max(err, e)
+        iters = 200
+        ms = time_ms(torch, lambda q, k, v: cross_decode_mha(
+            q, k, v, h, dh, vl_timed), sets, iters)
+        plain = time_ms(torch, lambda q, k, v: cross_decode_mha_reference(
+            q, k, v, h, dh, vl_timed), sets, iters)
+
+        def heads(x):  # (B, T, H*dh) -> the (B, H, T, dh) view
+            return x.view(b, -1, h, dh).transpose(1, 2)
+
+        lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+            heads(q[:, None]), heads(k)[:, :, :vl_timed],
+            heads(v)[:, :, :vl_timed], scale=1.0), sets, iters)
+        # q and out, then the valid rows of K and V once each
+        nbytes = (2 * b * h * dh + 2 * b * vl_timed * h * dh) * item
+        # the arithmetic is fp32 whatever the storage dtype
+        b_ms, b_by = bound(nbytes, 4.0 * b * h * vl_timed * dh, "float32")
+        print(f"kernel cross_decode_mha {dn} B={b} H={h} T={t} dh={dh} "
+              f"valid_len={','.join(map(str, sweep))}: max_abs_err={err:.3e} "
+              f"(tol {TOLERANCE[dn]}) at valid_len={vl_timed}: ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={b_ms:.5f} "
+              f"({b_by}, {nbytes} bytes) [{card}]")
+        if dtype == torch.float32:
+            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    return headline
+
+
+def check_gelu(torch, rng, card):
+    """K8 at its example's (512, 384). The yardstick is two PyTorch calls,
+    ``F.gelu(x + bias)``: no single call computes it."""
+    import torch.nn.functional as F
+
+    from whisper_trtllm_tpu_torch.examples.custom_kernel.custom_gelu_kernel \
+        import fused_bias_gelu, fused_bias_gelu_reference
+
     rows, d = 512, 384
-    nbytes = 4 * (2 * rows * d + d)
-    b_ms, b_by = bound(nbytes, 20.0 * rows * d, "float32")
-    print(f"bound fused_bias_gelu (K8, not ported) x=({rows}, {d}) float32: "
-          f"{nbytes} bytes, bound_ms={b_ms:.5f} ({b_by}) [{card}]")
+    headline = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        item = torch.tensor([], dtype=dtype).element_size()
+        sets = []
+        for _ in range(n_sets(2 * rows * d * item)):
+            x = rng.standard_normal((rows, d), dtype="float32")
+            bias = rng.standard_normal(d, dtype="float32")
+            sets.append((torch.from_numpy(x).to(DEVICE, dtype),
+                         torch.from_numpy(bias).to(DEVICE, dtype)))
+        out = fused_bias_gelu(*sets[0])
+        ref = fused_bias_gelu_reference(*sets[0])
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not math.isfinite(err) or err > TOLERANCE[dn]:
+            fail(f"fused_bias_gelu {dn}: max |kernel - plain| = {err} > "
+                 f"{TOLERANCE[dn]}")
+        iters = 200
+        ms = time_ms(torch, fused_bias_gelu, sets, iters)
+        plain = time_ms(torch, fused_bias_gelu_reference, sets, iters)
+        lib = time_ms(torch, lambda x, bias: F.gelu(x + bias), sets, iters)
+        nbytes = (2 * rows * d + d) * item
+        # ~20 fp32 operations an element for the add and the exact GELU
+        b_ms, b_by = bound(nbytes, 20.0 * rows * d, "float32")
+        print(f"kernel fused_bias_gelu {dn} x=({rows}, {d}): max_abs_err="
+              f"{err:.3e} (tol {TOLERANCE[dn]}) ms={ms:.4f} plain_ms="
+              f"{plain:.4f} library_ms={lib:.4f} (two calls: add, F.gelu) "
+              f"bound_ms={b_ms:.5f} ({b_by}, {nbytes} bytes) [{card}]")
+        if dtype == torch.float32:
+            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    return headline
 
 
 # --------------------------------------------------------------------------
-# phase 3: end to end
+# phase 3: the hardware check and the custom-kernel example
+# --------------------------------------------------------------------------
+
+def run_module(module: str, timeout: int):
+    """``python -m module`` from the repository's root; fails the run
+    unless it exits 0. Returns its standard output."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module], capture_output=True,
+                         text=True, timeout=timeout, cwd=ROOT, env=env)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"{module} exited {out.returncode}:\n{out.stdout[-4000:]}\n"
+             f"{out.stderr[-4000:]}")
+    return out.stdout, wall
+
+
+def hardware_check(card):
+    """Runs ``cli.gpu_check`` and the K8 example; returns the launches of
+    K7 in ``cross_attn_kernel`` and of K8 in the example's ``main()``."""
+    import re
+
+    stdout, wall = run_module("whisper_trtllm_tpu_torch.cli.gpu_check", 600)
+    report = json.loads(stdout.strip().splitlines()[-1])
+    checks = {k: v for k, v in report.items() if isinstance(v, dict)}
+    for name, r in checks.items():
+        print(f"gpu_check {name}: pass={r['pass']} "
+              + " ".join(f"{k}={r[k]}" for k in r if k != "pass")
+              + f" [{card}]")
+    if not (report["pass"] is True and len(checks) == 10
+            and all(r["pass"] is True for r in checks.values())):
+        fail(f"gpu_check: not every check passed: {report}")
+    print(f"gpu_check: all {len(checks)} checks passed in {wall:.1f} s of "
+          f"wall time (process start included)")
+    k7 = checks["cross_attn_kernel"]["launches"].get("cross_decode_mha", 0)
+
+    stdout, wall = run_module(
+        "whisper_trtllm_tpu_torch.examples.custom_kernel.custom_gelu_kernel",
+        300)
+    line = stdout.strip().splitlines()[-1]
+    print(f"example: {line} ({wall:.1f} s of wall time)")
+    k8 = int(re.search(r"launches=(\d+)", line).group(1))
+    return {"cross_decode_mha": k7}, {"fused_bias_gelu": k8}
+
+
+# --------------------------------------------------------------------------
+# phase 4: end to end
 # --------------------------------------------------------------------------
 
 # name: (weights, compute dtype, kv_cache_dtype, cross_kv_layout, held to
@@ -827,7 +968,7 @@ def end_to_end(torch, np, card):
             fail(f"{tag}: transcripts differ from artifacts/expected.json")
         layers = cfg.decoder_layers
         want = {"flash_fwd": cfg.encoder_layers, "flash_bwd": 0,
-                "stft_log_mel": 1}
+                "stft_log_mel": 1, "cross_decode_mha": 0}
         if weights == "float":
             # per step: LN1 of each layer and the final LN; one fused launch
             # a layer does the rest, attention included
@@ -880,7 +1021,7 @@ def end_to_end(torch, np, card):
 
 
 # --------------------------------------------------------------------------
-# phase 4: training
+# phase 5: training
 # --------------------------------------------------------------------------
 
 TRAIN_LEN = 32  # max_target_len: the decoder runs 31 positions
@@ -908,7 +1049,7 @@ def train_launches(cfg, guided: bool, remat: bool) -> dict:
     return {"flash_fwd": enc_fwd + cross, "flash_bwd": le + cross,
             "decode_attn": 0, "stft_log_mel": 0,
             "layer_norm": 2 * enc_fwd + 1 + 3 * ld + 1,
-            "fused_decoder_layer_step": 0}
+            "fused_decoder_layer_step": 0, "cross_decode_mha": 0}
 
 
 def training(torch, np, card):
@@ -1090,11 +1231,15 @@ def main() -> None:
     norm = check_layer_norm(torch, rng, card)
     fused = check_fused(torch, rng, card)
     flash_bwd = check_flash_bwd(torch, rng, card)
-    unported_bounds(card)
+    cross = check_cross(torch, rng, card)
+    gelu = check_gelu(torch, rng, card)
     # each kernel's launches from a path that runs it: configuration B, the
     # serving precision, for K1, K2, K3 and K5; E, the float-weight path,
-    # for K6; one training step for K4
-    counts = end_to_end(torch, np, card)
+    # for K6; one training step for K4; the hardware check's
+    # cross_attn_kernel for K7; the example's main() for K8
+    counts = {}
+    counts["gpu_check"], counts["example"] = hardware_check(card)
+    counts.update(end_to_end(torch, np, card))
     counts["train"] = training(torch, np, card)
 
     rows = [
@@ -1120,8 +1265,17 @@ def main() -> None:
              source="whisper_trtllm_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="whisper_trtllm_tpu/ops/pallas/flash_attention.py:181",
              **flash_bwd),
+        dict(name="cross_decode_mha", route="cuda",
+             source="whisper_trtllm_tpu_torch/csrc/cross_attention.cu",
+             replaces="whisper_trtllm_tpu/ops/pallas/cross_attention.py:86",
+             **cross),
+        dict(name="fused_bias_gelu", route="cuda",
+             source="whisper_trtllm_tpu_torch/csrc/fused_bias_gelu.cu",
+             replaces="examples/custom_kernel/custom_gelu_kernel.py:37",
+             **gelu),
     ]
-    path = {"fused_decoder_layer_step": "E", "flash_bwd": "train"}
+    path = {"fused_decoder_layer_step": "E", "flash_bwd": "train",
+            "cross_decode_mha": "gpu_check", "fused_bias_gelu": "example"}
     for r in rows:
         r["launches"] = counts[path.get(r["name"], "B")][r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

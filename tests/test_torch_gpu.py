@@ -353,7 +353,7 @@ def test_artifact_transcribes_exactly_through_the_kernels(cuda, compute, kv):
         "stft_log_mel": 1,
         "layer_norm": (2 * cfg.encoder_layers + 1
                        + (3 * cfg.decoder_layers + 1) * steps),
-        "fused_decoder_layer_step": 0}
+        "fused_decoder_layer_step": 0, "cross_decode_mha": 0}
 
 
 def _fused_inputs(rng, dtype, cuda, b=4, d=384, h=6, ffn=1536, ts=33,
@@ -477,7 +477,8 @@ def test_float_tree_transcribes_exactly_through_k6(cuda):
         "flash_fwd": cfg.encoder_layers, "flash_bwd": 0, "decode_attn": 0,
         "stft_log_mel": 1,
         "layer_norm": 2 * cfg.encoder_layers + 1 + 5 * steps,
-        "fused_decoder_layer_step": cfg.decoder_layers * steps}
+        "fused_decoder_layer_step": cfg.decoder_layers * steps,
+        "cross_decode_mha": 0}
 
 
 def _cut_float_artifact(device, layers=1):
@@ -520,7 +521,8 @@ def test_training_step_gradients_on_the_card_equal_the_cpus(cuda):
         grads[str(dev)] = (float(loss), [t.cpu() for t in tree_leaves(g)])
     assert {n: f.launches for n, f in KERNELS.items()} == {
         "flash_fwd": 2, "flash_bwd": 2, "decode_attn": 0, "stft_log_mel": 0,
-        "layer_norm": 7, "fused_decoder_layer_step": 0}
+        "layer_norm": 7, "fused_decoder_layer_step": 0,
+        "cross_decode_mha": 0}
     (l_cpu, g_cpu), (l_card, g_card) = grads["cpu"], grads["cuda"]
     assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
     for a, b in zip(g_card, g_cpu):
@@ -533,3 +535,164 @@ def test_training_step_gradients_on_the_card_equal_the_cpus(cuda):
     losses = [float(step(params, state, mel, tokens, mask)[2])
               for _ in range(3)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# --------------------------------------------------------------------------
+# K7, K8, init_params, step == full and the hardware check on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,h,t,dh,valid_lens", [
+    (4, 6, 1504, 64, [1500, 1, 1504, 0]),   # the hardware check's shape
+    (2, 4, 24, 16, [20, -1, 30]),
+    (1, 2, 130, 40, [65, 129]),
+    (3, 1, 200, 128, [200, 64]),
+])
+def test_cross_kernel_matches_plain(cuda, dtype, tol, b, h, t, dh, valid_lens):
+    """valid_len <= 0 masks every row (the mean of V); past T, none."""
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        cross_decode_mha,
+        cross_decode_mha_reference,
+    )
+
+    rng = np.random.default_rng(t + dh)
+    q = _normal(rng, (b, h * dh), dh ** -0.5, cuda, dtype)
+    k = _normal(rng, (b, t, h * dh), 1.0, cuda, dtype)
+    v = _normal(rng, (b, t, h * dh), 1.0, cuda, dtype)
+    for vl in valid_lens:
+        before = cross_decode_mha.launches
+        out = cross_decode_mha(q, k, v, h, dh, vl)
+        assert cross_decode_mha.launches == before + 1
+        ref = cross_decode_mha_reference(q, k, v, h, dh, vl)
+        assert out.dtype == dtype and out.shape == q.shape
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+        # the chunks combine in a fixed order: bit for bit repeatable
+        assert torch.equal(out, cross_decode_mha(q, k, v, h, dh, vl))
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("shape", [(512, 384), (7, 33), (1000, 1536)])
+def test_bias_gelu_kernel_matches_plain(cuda, dtype, tol, shape):
+    from whisper_trtllm_tpu_torch.examples.custom_kernel.custom_gelu_kernel \
+        import fused_bias_gelu, fused_bias_gelu_reference
+
+    rng = np.random.default_rng(shape[1])
+    x = _normal(rng, shape, 2.0, cuda, dtype)
+    bias = _normal(rng, shape[1:], 1.0, cuda, dtype)
+    before = fused_bias_gelu.launches
+    out = fused_bias_gelu(x, bias)
+    assert fused_bias_gelu.launches == before + 1
+    ref = fused_bias_gelu_reference(x, bias)
+    assert out.dtype == dtype and out.shape == x.shape
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    if dtype == torch.float32:
+        gelu = torch.nn.functional.gelu(x + bias)
+        assert (out - gelu).abs().max().item() <= 1e-5
+
+
+def test_cross_and_gelu_kernels_refuse_what_they_do_not_take(cuda):
+    from whisper_trtllm_tpu_torch.examples.custom_kernel.custom_gelu_kernel \
+        import fused_bias_gelu
+    from whisper_trtllm_tpu_torch.ops.kernels import cross_decode_mha
+
+    q = torch.zeros(1, 256, device=cuda)
+    kv = torch.zeros(1, 8, 256, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        cross_decode_mha(q, kv, kv, 1, 256, 4)
+    with pytest.raises(TypeError, match="one dtype"):
+        cross_decode_mha(q, kv.bfloat16(), kv.bfloat16(), 2, 128, 4)
+    kv_t = torch.zeros(1, 256, 8, device=cuda).transpose(1, 2)  # strided
+    with pytest.raises(ValueError, match="contiguous"):
+        cross_decode_mha(q, kv_t, kv_t, 2, 128, 4)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        cross_decode_mha(q.requires_grad_(True), kv, kv, 2, 128, 4)
+    x = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(TypeError, match="one dtype"):
+        fused_bias_gelu(x, torch.zeros(8, device=cuda).bfloat16())
+    with pytest.raises(ValueError, match="bias"):
+        fused_bias_gelu(x, torch.zeros(9, device=cuda))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused_bias_gelu(x.requires_grad_(True), torch.zeros(8, device=cuda))
+
+
+def test_init_params_on_the_card_equals_the_cpus(cuda):
+    from whisper_trtllm_tpu_torch.config import WhisperConfig
+    from whisper_trtllm_tpu_torch.models.whisper import init_params
+    from whisper_trtllm_tpu_torch.training.train import tree_leaves
+
+    cfg = WhisperConfig.tiny_en()
+    card = tree_leaves(init_params(cfg, seed=3))
+    cpu = tree_leaves(init_params(cfg, seed=3, device="cpu"))
+    assert len(card) == len(cpu) == 50
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda" and a.dtype == torch.float32
+        assert torch.equal(a.cpu(), b)
+
+
+# step == full on the card: float KV through K2 (int8 weights: the unfused
+# layer) and through K6 (float weights: one fused launch a layer), atol
+# 1e-4 + rtol 1e-4 (the kernels and cuBLAS sum in other orders than the
+# full forward's products; K6's projections over up to 256 terms); an int8
+# KV cache, 1e-2 of the largest |logit| (the step reads K and V rounded to
+# 8 bits, the full forward exact; 3.9e-3 on the CPU at this config).
+@pytest.mark.parametrize("weights,kv", [("int8", "float"), ("float", "float"),
+                                        ("float", "int8")])
+def test_decode_step_matches_teacher_forced_on_the_card(cuda, weights, kv):
+    from whisper_trtllm_tpu_torch.config import WhisperConfig
+    from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+    from whisper_trtllm_tpu_torch.quantization import weight_only_quantize
+    from whisper_trtllm_tpu_torch.utils.checkpoint import params_from_numpy
+
+    cfg = WhisperConfig.testing(d_model=128, encoder_attention_heads=2,
+                                decoder_attention_heads=2,
+                                encoder_ffn_dim=256, decoder_ffn_dim=256,
+                                vocab_size=128, max_source_positions=40)
+    params = wmodel.init_params(cfg, seed=1, device=cuda)
+    if weights == "int8":
+        params = params_from_numpy(weight_only_quantize(params), cuda)
+    rng = np.random.default_rng(2)
+    mel = _normal(rng, (2, 2 * cfg.max_source_positions, cfg.num_mel_bins),
+                  1.0, cuda, torch.float32)
+    s = 8
+    toks = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)).to(cuda)
+    with torch.no_grad():
+        enc = wmodel.encode(params, cfg, mel)
+        full = wmodel.decode_full(params, cfg, toks, enc)
+        cross = wmodel.compute_cross_kv(params, cfg, enc)
+        if kv == "int8":
+            cross = wmodel.quantize_cross_kv(*cross)
+            self_kv = wmodel.init_self_kv_int8(cfg, 2, s)
+        else:
+            self_kv = wmodel.init_self_kv(cfg, 2, s)
+        reset_launch_counts()
+        steps = []
+        for i in range(s):
+            logits, self_kv = wmodel.decode_step_kv(params, cfg, toks[:, i],
+                                                    i, self_kv, cross)
+            steps.append(logits)
+    steps = torch.stack(steps, dim=1)
+    fused = weights == "float" and kv == "float"
+    layers = cfg.decoder_layers
+    assert KERNELS["fused_decoder_layer_step"].launches == (
+        layers * s if fused else 0)
+    assert KERNELS["decode_attn"].launches == (0 if fused else 2 * layers * s)
+    diff = (steps - full).abs()
+    if kv == "int8":
+        assert 0 < diff.max().item() <= 1e-2 * full.abs().max().item()
+    else:
+        assert (diff <= 1e-4 + 1e-4 * full.abs()).all(), diff.max().item()
+
+
+def test_gpu_check_passes_on_the_card(cuda, tmp_path, monkeypatch, capsys):
+    from whisper_trtllm_tpu_torch.cli import gpu_check
+
+    state = tmp_path / "state.json"
+    monkeypatch.setenv(gpu_check.STATE_PATH_ENV, str(state))
+    assert gpu_check.main([]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["pass"] is True
+    assert out["cross_attn_kernel"]["launches"] == {"cross_decode_mha": 1}
+    record = json.loads(state.read_text())
+    assert record["pass"] is True
+    assert record["kernel_tree_digest"] == gpu_check.kernel_tree_digest()

@@ -1,8 +1,8 @@
 """PyTorch port: it stands alone and never falls back to the CPU.
 
-- The package and ``chip_smoke.py`` import without JAX, flax, the JAX
-  package or ``cli`` (checked in a fresh interpreter where importing JAX
-  or flax fails).
+- The package and ``chip_smoke.py`` import without JAX, flax,
+  ``ml_dtypes``, the JAX package or ``cli`` (checked in a fresh
+  interpreter where importing JAX, flax or ``ml_dtypes`` fails).
 - No port module calls a fused attention operator, ``torch.compile`` or a
   package of finished kernels.
 - Entry points called without ``device=`` raise when there is no CUDA;
@@ -40,6 +40,7 @@ _NO_JAX = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["ml_dtypes"] = None
 sys.path.insert(0, {root!r})
 import whisper_trtllm_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -48,7 +49,8 @@ import chip_smoke
 bad = sorted(n for n in sys.modules
              if n == "whisper_trtllm_tpu" or n.startswith("whisper_trtllm_tpu.")
              or n == "cli" or n.startswith("cli.")
-             or (n.split(".")[0] in ("jax", "flax") and sys.modules[n] is not None))
+             or (n.split(".")[0] in ("jax", "flax", "ml_dtypes")
+                 and sys.modules[n] is not None))
 print("IMPORTED", bad)
 """
 
@@ -66,7 +68,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert "IMPORTED []" in out.stdout, out.stdout
     assert len(_port_modules()) >= 15
-    for name in ("training", "training.train", "cli", "cli.finetune"):
+    for name in ("training", "training.train", "cli", "cli.finetune",
+                 "cli.gpu_check", "layers.init", "models.whisper.convert",
+                 "ops.kernels.cross_attention",
+                 "examples.custom_kernel.custom_gelu_kernel"):
         assert f"whisper_trtllm_tpu_torch.{name}" in _port_modules()
 
 

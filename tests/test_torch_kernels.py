@@ -291,9 +291,12 @@ def test_plain_versions_do_not_count_launches():
     cache = torch.zeros(1, 2, 8, 32)
     fused_decoder_layer_step(x, x, torch.tensor(3, dtype=torch.int32), lp,
                              cache, cache, cache, cache, 8)
+    kv = torch.zeros(1, 8, 64)
+    KERNELS["cross_decode_mha"](x, kv, kv, 2, 32, 5)
     assert {n: f.launches for n, f in KERNELS.items()} == {
         "flash_fwd": 0, "flash_bwd": 0, "decode_attn": 0, "stft_log_mel": 0,
-        "layer_norm": 0, "fused_decoder_layer_step": 0}
+        "layer_norm": 0, "fused_decoder_layer_step": 0,
+        "cross_decode_mha": 0}
 
 
 def test_wrappers_never_take_the_plain_version_off_the_cpu():

@@ -269,23 +269,30 @@ def test_saved_checkpoint_loads_bit_equal_in_jax_and_the_port(tmp_path):
     jcfg, cfg = _configs()
     ref = init_params(jcfg, seed=14)
     p = params_from_numpy(ref, "cpu")
+    bf16 = "/decoder/layer_norm/bias"
     p["decoder"]["layer_norm"]["bias"] = (
-        p["decoder"]["layer_norm"]["bias"].bfloat16())  # widened to fp32
+        p["decoder"]["layer_norm"]["bias"].bfloat16())  # written as bf16
     save_checkpoint(str(tmp_path), p, cfg)
     back, back_cfg = jax_load(str(tmp_path))
     assert back_cfg == jcfg
+    assert back["decoder"]["layer_norm"]["bias"].dtype == jnp.bfloat16
     got, want = _flat(back), _flat(p)
     assert got.keys() == want.keys()
     for path, w in want.items():
-        assert got[path].dtype == w.dtype == np.float32
-        np.testing.assert_array_equal(got[path], w)
+        # the bf16 leaf compares widened to fp32 (exact) on both sides
+        assert got[path].dtype == (jnp.bfloat16 if path == bf16
+                                   else np.float32)
+        np.testing.assert_array_equal(got[path].astype(np.float32), w)
     with open(tmp_path / "params.msgpack", "rb") as f:
         assert f.read() == serialization.msgpack_serialize(
             jax.tree_util.tree_map(np.asarray, back))
     port, port_cfg = load_checkpoint(str(tmp_path), device="cpu")
     assert port_cfg == cfg
+    assert port["decoder"]["layer_norm"]["bias"].dtype == torch.bfloat16
     for path, w in _flat(port).items():
-        np.testing.assert_array_equal(w, got[path])
+        np.testing.assert_array_equal(w, got[path].astype(np.float32))
+    assert torch.equal(port["decoder"]["layer_norm"]["bias"],
+                       p["decoder"]["layer_norm"]["bias"])
 
 
 def test_finetune_cli_runs_on_the_cpu_and_writes_a_checkpoint(tmp_path):

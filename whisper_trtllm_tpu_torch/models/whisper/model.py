@@ -25,6 +25,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from whisper_trtllm_tpu_torch.config import WhisperConfig
+from whisper_trtllm_tpu_torch.layers.init import (
+    init_attention,
+    init_conv1d,
+    init_dense,
+    init_embedding,
+    init_layer_norm,
+)
 from whisper_trtllm_tpu_torch.layers.transformer import (
     attention_qkv,
     merge_heads,
@@ -43,16 +50,83 @@ from whisper_trtllm_tpu_torch.ops.functional import (
     embedding,
     gelu,
     layer_norm,
+    sinusoid_position_embedding,
 )
 from whisper_trtllm_tpu_torch.ops.kernels.fused_decoder_step import (
     fused_decoder_layer_step,
     fused_layer_supported,
 )
+from whisper_trtllm_tpu_torch.utils.checkpoint import params_from_numpy
 from whisper_trtllm_tpu_torch.utils.device import resolve_device, to_numpy
 
 # cross-attention caches are padded along T to a multiple of this (1500 →
 # 1504); the padding is masked by the true encoder length
 CROSS_PAD = 8
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _stack(trees: list) -> dict:
+    """Stack a list of identically shaped dict trees of numpy arrays along a
+    new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees, axis=0)
+
+
+def _init_encoder_layer(rng, cfg: WhisperConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "self_attn": init_attention(rng, d),
+        "self_attn_layer_norm": init_layer_norm(d),
+        "fc1": init_dense(rng, d, cfg.encoder_ffn_dim),
+        "fc2": init_dense(rng, cfg.encoder_ffn_dim, d),
+        "final_layer_norm": init_layer_norm(d),
+    }
+
+
+def _init_decoder_layer(rng, cfg: WhisperConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "self_attn": init_attention(rng, d),
+        "self_attn_layer_norm": init_layer_norm(d),
+        "encoder_attn": init_attention(rng, d),
+        "encoder_attn_layer_norm": init_layer_norm(d),
+        "fc1": init_dense(rng, d, cfg.decoder_ffn_dim),
+        "fc2": init_dense(rng, cfg.decoder_ffn_dim, d),
+        "final_layer_norm": init_layer_norm(d),
+    }
+
+
+def init_params(cfg: WhisperConfig, seed: int = 0, device=None) -> dict:
+    """Random-init parameter tree (HF Whisper's statistics) as fp32 tensors
+    on ``device`` (the CUDA card by default). The arrays are drawn in numpy
+    in the JAX package's order, so they equal its ``init_params(cfg,
+    seed)`` leaf for leaf and bit for bit, then carried by
+    ``params_from_numpy``. A real checkpoint replaces them through
+    ``convert.py`` or ``load_checkpoint``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    d = cfg.d_model
+    encoder = {
+        "conv1": init_conv1d(rng, 3, cfg.num_mel_bins, d),
+        "conv2": init_conv1d(rng, 3, d, d),
+        "embed_positions": sinusoid_position_embedding(
+            cfg.max_source_positions, d),
+        "layers": _stack([_init_encoder_layer(rng, cfg)
+                          for _ in range(cfg.encoder_layers)]),
+        "layer_norm": init_layer_norm(d),
+    }
+    decoder = {
+        "embed_tokens": init_embedding(rng, cfg.vocab_size, d),
+        "embed_positions": init_embedding(rng, cfg.max_target_positions, d),
+        "layers": _stack([_init_decoder_layer(rng, cfg)
+                          for _ in range(cfg.decoder_layers)]),
+        "layer_norm": init_layer_norm(d),
+    }
+    return params_from_numpy({"encoder": encoder, "decoder": decoder}, dev)
 
 
 def layer(tree, i: int):

@@ -17,7 +17,14 @@ version (counterparts of ``whisper_trtllm_tpu/ops/pallas``):
   autograd ``LayerNorm`` (a plain-op backward);
 - ``fused_decoder_step.fused_decoder_layer_step`` — K6, a decoder layer's
   decode step after the cache append, one launch, on the float-weight path
-  (≙ ``fused_decoder_step.py::fused_decoder_layer_step``).
+  (≙ ``fused_decoder_step.py::fused_decoder_layer_step``);
+- ``cross_attention.cross_decode_mha`` — K7, one token's cross attention
+  against a head-contiguous ``(B, T, H·dh)`` cache, a library kernel that
+  the hardware check (``cli/gpu_check.py``) runs
+  (≙ ``cross_attention.py::cross_decode_mha``).
+
+K8, the worked example's ``fused_bias_gelu``, lives with its example in
+``examples/custom_kernel``.
 
 A wrapper takes its plain version only for CPU tensors; for a CUDA tensor
 it launches its kernel or raises, and it refuses an input that requires
@@ -25,6 +32,10 @@ grad where autograd records (its output would cut the graph). Sources live in ``
 first use (``_build``).
 """
 
+from whisper_trtllm_tpu_torch.ops.kernels.cross_attention import (  # noqa: F401
+    cross_decode_mha,
+    cross_decode_mha_reference,
+)
 from whisper_trtllm_tpu_torch.ops.kernels.decode_attention import (  # noqa: F401
     decode_attention_reference,
     decode_attn,
@@ -57,7 +68,8 @@ from whisper_trtllm_tpu_torch.ops.kernels.stft import (  # noqa: F401
 KERNELS = {"flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
            "decode_attn": decode_attn,
            "stft_log_mel": stft_log_mel, "layer_norm": layer_norm,
-           "fused_decoder_layer_step": fused_decoder_layer_step}
+           "fused_decoder_layer_step": fused_decoder_layer_step,
+           "cross_decode_mha": cross_decode_mha}
 
 
 def reset_launch_counts() -> None:

@@ -6,6 +6,11 @@ flax serializes each array as a msgpack extension of type 1 whose payload
 is itself msgpack: ``(shape, dtype_name, raw_bytes)``, C order. Nested
 dicts keep the JAX parameter tree's keys; kernels are ``(in, out)`` with a
 stacked leading layer axis, which is also the port's layout.
+
+numpy names ``"bfloat16"`` only once ``ml_dtypes`` is imported, which the
+port never does: a bfloat16 payload is read as raw 2-byte words into a
+``torch.bfloat16`` tensor, and a bfloat16 tensor is written as such a
+payload with the same bits, as flax writes it.
 """
 
 from __future__ import annotations
@@ -26,20 +31,33 @@ _CHUNKED_MARKER = "__msgpack_chunked_array__"
 _MAX_CHUNK_BYTES = 2 ** 30
 
 
+_BF16 = "bfloat16"
+
+
 def _ext_hook(code: int, data: bytes):
     if code == _EXT_NDARRAY:
         shape, dtype_name, buf = msgpack.unpackb(data)
+        if dtype_name == _BF16:
+            # bytearray: a writable copy, which torch.frombuffer wants
+            words = (torch.frombuffer(bytearray(buf), dtype=torch.bfloat16)
+                     if buf else torch.empty(0, dtype=torch.bfloat16))
+            return words.reshape(shape)
         return np.frombuffer(buf, dtype=np.dtype(dtype_name)).reshape(shape)
     raise ValueError(f"unsupported msgpack extension type {code}")
 
 
 def _ext_pack(x):
-    """The writer's side of ``_ext_hook``: an ndarray as extension 1."""
+    """The writer's side of ``_ext_hook``: an ndarray, or a bfloat16
+    tensor's 2-byte words, as extension 1."""
     if isinstance(x, np.ndarray):
-        payload = msgpack.packb((x.shape, x.dtype.name, x.tobytes("C")),
-                                use_bin_type=True)
-        return msgpack.ExtType(_EXT_NDARRAY, payload)
-    raise TypeError(f"cannot serialize {type(x).__name__}")
+        payload = (x.shape, x.dtype.name, x.tobytes("C"))
+    elif isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        payload = (tuple(x.shape), _BF16,
+                   x.view(torch.int16).numpy().tobytes("C"))
+    else:
+        raise TypeError(f"cannot serialize {type(x).__name__}")
+    return msgpack.ExtType(_EXT_NDARRAY,
+                           msgpack.packb(payload, use_bin_type=True))
 
 
 def _check_tree(tree, path="") -> None:
@@ -53,7 +71,8 @@ def _check_tree(tree, path="") -> None:
 
 
 def read_msgpack(path: str) -> dict:
-    """flax ``params.msgpack`` → nested dict of numpy arrays."""
+    """flax ``params.msgpack`` → nested dict of numpy arrays (bfloat16
+    leaves: ``torch.bfloat16`` tensors)."""
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False,
                                strict_map_key=False)
@@ -100,12 +119,17 @@ def load_checkpoint(path: str, device=None,
 
 
 def _host_tree(tree, path=""):
-    """Tensors → C-ordered numpy (bfloat16 widened to float32, exact), dict
-    keys sorted as flax writes them."""
+    """Tensors → C-ordered numpy, bfloat16 tensors → contiguous CPU
+    bfloat16 tensors; dict keys sorted as flax writes them."""
     if isinstance(tree, dict):
         return {k: _host_tree(tree[k], f"{path}/{k}") for k in sorted(tree)}
-    arr = np.ascontiguousarray(to_numpy(tree))
-    if arr.nbytes > _MAX_CHUNK_BYTES:
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
+        arr = tree.detach().cpu().contiguous()
+        nbytes = arr.numel() * arr.element_size()
+    else:
+        arr = np.ascontiguousarray(to_numpy(tree))
+        nbytes = arr.nbytes
+    if nbytes > _MAX_CHUNK_BYTES:
         raise NotImplementedError(
             f"array at {path} exceeds 1 GiB: flax would write it chunked, "
             "which is not supported")
