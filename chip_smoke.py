@@ -54,7 +54,7 @@ Five phases; any failure raises and the script exits non-zero:
    batch, with exact launch counts, its checkpoint reloaded.
 
 The line before the last is one JSON object with every ported kernel's
-numbers; the last is ``{"ok": true, "device": {...}}``. Without a CUDA
+numbers (K1's and K4's also in bf16, under "bfloat16"); the last is ``{"ok": true, "device": {...}}``. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
 and prints no result.
 """
@@ -79,6 +79,11 @@ DEVICE = "cuda"
 # inputs' type — fp32 outside the tensor cores, bf16 on them
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# K1 and K4 take fp32 products on the tensor cores as 3xTF32: each operand
+# split into two tf32 halves and three tf32 products (flash_tiles.cuh), so
+# their fp32 peak is a third of the 495 TFLOP/s TF32 rate, not the FMA
+# units' 67 (which a share above 100% would otherwise read against)
+FLASH_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # fp32: the kernel reorders sums (online softmax, lane-group dots, warp
 # shuffles); bf16: the plain decode attention rounds the softmax weights to
 # bf16 before P·V, and a bf16 LayerNorm output may round the other way (one
@@ -112,9 +117,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float, dtype_name: str):
+def bound(nbytes: float, flops: float, dtype_name: str, peaks=PEAK_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_ops = flops / peaks[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -202,15 +207,19 @@ def check_flash(torch, rng, card):
             pairs = s * (s + 1) / 2 if causal else s * s
             flops = 4.0 * b * h * pairs * dh
             nbytes = (2 * b * h * s * dh + 2 * b * hkv * s * dh) * item
-            b_ms, b_by = bound(nbytes, flops, dn)
+            b_ms, b_by = bound(nbytes, flops, dn, FLASH_PEAK_FLOPS)
             print(f"kernel flash_fwd {name} {dn} B={b} H={h} Hkv={hkv} "
                   f"S=T={s} dh={dh} causal={causal}: max_abs_err={err:.3e} "
                   f"(tol {TOLERANCE[dn]}) ms={ms:.4f} plain_ms={plain:.4f} "
                   f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
                   f"[{card}]")
-            if name == "encoder" and dtype == torch.float32:
-                headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            if name == "encoder":
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                if dtype == torch.float32:
+                    headline = row
+                else:
+                    headline["bfloat16"] = row
     return headline
 
 
@@ -622,15 +631,19 @@ def check_flash_bwd(torch, rng, card):
             pairs = s * (s + 1) / 2 if causal else s * t
             # the function: the scores recomputed, then dP, dq, dk, dv
             flops = 10.0 * b * h * pairs * dh
-            b_ms, b_by = bound(nbytes, flops, dn)
+            b_ms, b_by = bound(nbytes, flops, dn, FLASH_PEAK_FLOPS)
             print(f"kernel flash_bwd {name} {dn} B={b} H={h} Hkv={hkv} S={s} "
                   f"T={t} dh={dh} causal={causal}: max_abs_err={err:.3e} "
                   f"(tol {TOLERANCE[dn]}) ms={ms:.4f} plain_ms={plain:.4f} "
                   f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
                   f"[{card}]")
-            if name == "encoder" and dtype == torch.float32:
-                headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            if name == "encoder":
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                if dtype == torch.float32:
+                    headline = row
+                else:
+                    headline["bfloat16"] = row
             del sets, lib_sets
     return headline
 
@@ -1280,7 +1293,10 @@ def main() -> None:
         r["launches"] = counts[path.get(r["name"], "B")][r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    # K1 and K4 also carry their bf16 numbers at the encoder's shape
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + (["bfloat16"] if "bfloat16" in r else [])}
+        for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

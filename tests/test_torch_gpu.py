@@ -10,7 +10,8 @@ on a machine that has only PyTorch:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
 Tolerances: 1e-5 max-abs in fp32 (the kernels reorder sums: online
-softmax, lane-group dot products, warp-shuffle reductions), 2e-2 in bf16
+softmax, lane-group dot products, warp-shuffle reductions; K1 and K4 take
+their products as 3xTF32, ~22 bits an operand), 2e-2 in bf16
 (the plain decode attention rounds the softmax weights to bf16 before P·V
 and the kernel does not; LayerNorm's bf16 outputs may round one way in one
 and the other in the other, one bf16 step: 2e-2 of max(|plain|, 1)), and
@@ -20,7 +21,7 @@ atol 1e-4 + rtol 1e-4 in fp32 for K6 (its projections sum up to 1536
 products in another order). K4 (the flash backward): 1e-5 of
 max(max|plain|, 1) in fp32 (sums reordered), 2e-2 of max(|plain|, 1)
 elementwise in bf16 (dq rounds to bf16 from fp32 sums taken in another
-order). K1's
+order; P and dS enter the products as bf16 hi + lo). K1's
 log-sum-exp 1e-4 (fp32 values up to ~10). A training step's gradients:
 1e-3 of each leaf's largest |g| on the CPU (the card's fp32 products and
 cuDNN's convolutions sum in another order over ~10^5 terms).
@@ -78,15 +79,21 @@ def _normal(rng, shape, scale, device, dtype):
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("hkv,s,dh,causal", [(6, 1500, 64, False),
-                                             (2, 200, 64, True),
-                                             (2, 100, 128, False),
-                                             (3, 77, 40, False)])
-def test_flash_kernel_matches_plain(cuda, dtype, tol, hkv, s, dh, causal):
+@pytest.mark.parametrize("hkv,s,t,dh,causal", [
+    (6, 1500, 1500, 64, False),  # the encoder's: a 28-row tail of 64
+    (2, 200, 200, 64, True),
+    (2, 100, 100, 128, False),
+    (3, 77, 77, 40, False),
+    (6, 31, 1500, 64, False),    # the training cross attention's
+    (1, 1500, 1500, 64, True),   # MQA, causal, the 28-row tail
+    (1, 200, 200, 8, False),     # dh 8, padded to 64
+    (3, 130, 130, 72, False),    # dh 72, padded to 128
+])
+def test_flash_kernel_matches_plain(cuda, dtype, tol, hkv, s, t, dh, causal):
     rng = np.random.default_rng(s)
     q = _normal(rng, (2, 6, s, dh), dh ** -0.5, cuda, dtype)
-    k = _normal(rng, (2, hkv, s, dh), 1.0, cuda, dtype)
-    v = _normal(rng, (2, hkv, s, dh), 1.0, cuda, dtype)
+    k = _normal(rng, (2, hkv, t, dh), 1.0, cuda, dtype)
+    v = _normal(rng, (2, hkv, t, dh), 1.0, cuda, dtype)
     before = flash_fwd.launches
     out = flash_fwd(q, k, v, causal=causal)
     assert flash_fwd.launches == before + 1
@@ -106,6 +113,9 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, hkv, s, dh, causal):
     (2, 2, 200, 200, 64, True),      # GQA, causal
     (2, 3, 77, 130, 40, False),      # GQA, ragged S and T, dh 40
     (1, 6, 100, 100, 128, False),    # dh 128
+    (1, 1, 1500, 1500, 64, True),    # MQA, causal, a 28-row tail of 64
+    (2, 1, 200, 200, 8, False),      # MQA, dh 8, padded to 64
+    (1, 2, 130, 1500, 72, False),    # GQA, dh 72, padded to 128
 ])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, tol, b, hkv, s, t, dh,
                                         causal):

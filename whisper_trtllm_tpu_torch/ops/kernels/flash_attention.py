@@ -130,6 +130,9 @@ def _check(q, k, v, causal, what="flash_fwd"):
                          f"to 128, got {dh}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what}: q, k, v must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError(f"{what}: q, k, v must start on 16 bytes (the "
+                         "kernels copy 16 bytes at a time)")
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -182,9 +185,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
     b, h, s, dh = q.shape
     if (dout.shape != q.shape or dout.dtype != q.dtype
-            or dout.device != q.device or not dout.is_contiguous()):
-        raise ValueError(f"flash_bwd: dout must be a contiguous "
-                         f"{tuple(q.shape)} {q.dtype} on {q.device}")
+            or dout.device != q.device or not dout.is_contiguous()
+            or dout.data_ptr() % 16):
+        raise ValueError(f"flash_bwd: dout must be a contiguous, 16-byte "
+                         f"aligned {tuple(q.shape)} {q.dtype} on {q.device}")
     if (lse is None or lse.shape != (b, h, s) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"flash_bwd: lse must be K1's contiguous fp32 "
