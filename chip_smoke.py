@@ -2,7 +2,12 @@
 """Smoke test of the PyTorch/CUDA port (``whisper_trtllm_tpu_torch``) on one
 CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` (a checkout of an earlier commit) builds that commit's
+decode-attention kernels K2 and K7 from its own ``csrc/`` and times them
+beside these on the same inputs, in turns (parent, this, this, parent),
+as ``parent_ms`` on their lines; without it nothing else is built.
 
 Five phases; any failure raises and the script exits non-zero:
 
@@ -13,11 +18,13 @@ Five phases; any failure raises and the script exits non-zero:
 2. kernels — holds each kernel against its plain PyTorch version on the
    card at the main paths' shapes, in fp32 and bf16 (decode attention also
    with int8 and fp8 caches, both cache layouts and per-lane valid
-   lengths; the fused decoder-layer step over a sweep of positions; the
-   flash backward at the encoder's, the training cross attention's, a
-   causal and a GQA shape; the head-contiguous cross attention at the
-   hardware check's shape over valid lengths 1500, 1 and T; the example's
-   bias+GELU at its (512, 384)), and times the kernel, the plain version
+   lengths, its cross case at batch 4 and 32, each line with its split
+   plan and the blocks it launches; the fused decoder-layer step over a
+   sweep of positions; the flash backward at the encoder's, the training
+   cross attention's, a causal and a GQA shape; the head-contiguous cross
+   attention at the hardware check's shape over valid lengths 1500, 1 and
+   T, at batch 4 and 32; the example's bias+GELU at its (512, 384)), and
+   times the kernel, the plain version
    and, where one exists, one PyTorch library call computing the same
    function (the yardstick; the port never calls it);
 3. hardware check and example — runs ``python -m
@@ -157,6 +164,54 @@ def n_sets(set_bytes: float) -> int:
     return max(2, min(8, math.ceil(2 * L2_BYTES / set_bytes)))
 
 
+def time_beside(torch, fn, parent_fn, arg_sets, iters: int):
+    """(ms, parent_ms): ``fn`` timed as ``time_ms`` does and, where
+    ``parent_fn`` (an earlier commit's kernel, ``--parent``) is given, the
+    two in turns, parent, this, this, parent, each the mean of its two
+    timings; parent_ms is None without one."""
+    if parent_fn is None:
+        return time_ms(torch, fn, arg_sets, iters), None
+    p1 = time_ms(torch, parent_fn, arg_sets, iters)
+    m1 = time_ms(torch, fn, arg_sets, iters)
+    m2 = time_ms(torch, fn, arg_sets, iters)
+    p2 = time_ms(torch, parent_fn, arg_sets, iters)
+    return (m1 + m2) / 2, (p1 + p2) / 2
+
+
+def parent_note(parent_ms) -> str:
+    return "" if parent_ms is None else f"parent_ms={parent_ms:.4f} "
+
+
+def load_parent(root: str) -> dict:
+    """K2's and K7's wrappers from the checkout of another commit at
+    ``root``, built from its own ``csrc/`` into its own ``build/`` by its
+    own ``_build``, so that the same calls time both. Their launch counts
+    are their own."""
+    import importlib.util
+
+    kernels = os.path.join(os.path.abspath(root), "whisper_trtllm_tpu_torch",
+                           "ops", "kernels")
+
+    def load(name, **attrs):
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{name}", os.path.join(kernels, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+        for key, value in attrs.items():
+            setattr(mod, key, value)  # its functions look it up at call time
+        return mod
+
+    build = load("_build")
+    t0 = time.perf_counter()
+    build.build(["decode_attention", "cross_attention"])
+    print(f"parent: built K2 and K7 from {kernels} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return {"decode_attn": load("decode_attention", _build=build).decode_attn,
+            "cross_decode_mha": load("cross_attention",
+                                     _build=build).cross_decode_mha}
+
+
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
@@ -223,7 +278,25 @@ def check_flash(torch, rng, card):
     return headline
 
 
-def check_decode(torch, rng, card):
+def _split_note(q, cache_k, t_major):
+    """The split plan of a K2 call: splits a (batch, head), rows a chunk,
+    blocks launched (one cluster of ``splits`` blocks a head)."""
+    from whisper_trtllm_tpu_torch.ops.kernels.decode_attention import (
+        decode_plan,
+    )
+
+    splits, chunk, _, _ = decode_plan(q, cache_k, t_major)
+    blocks = splits * q.shape[0] * q.shape[1]
+    return f"splits={splits} chunk={chunk} blocks={blocks}"
+
+
+def check_decode(torch, rng, card, parent=None):
+    """K2 with float caches: the self-attention sweep at T 33 (batch 4, and
+    the full cache at batch 32) and the cross case at T 1504, 1500 valid,
+    at batch 4 (the bundled utterances) and 32 (the serving batch), each
+    timed beside the ``parent``'s K2 where one is given. Returns the
+    batch-4 cross case's numbers, fp32 with the bf16 ones under
+    "bfloat16"."""
     import torch.nn.functional as F
 
     from whisper_trtllm_tpu_torch.ops.kernels import (
@@ -231,13 +304,15 @@ def check_decode(torch, rng, card):
         decode_attn,
     )
 
-    b, h, dh = 4, 6, 64
-    cases = [  # (name, T, valid lengths checked, valid length timed)
-        ("self", 33, list(range(1, 34)), 33),
-        ("cross", 1504, [1500], 1500),
+    h, dh = 6, 64
+    cases = [  # (name, B, T, valid lengths checked, valid length timed)
+        ("self", 4, 33, list(range(1, 34)), 33),
+        ("self", 32, 33, [33], 33),
+        ("cross", 4, 1504, [1500], 1500),
+        ("cross", 32, 1504, [1500], 1500),
     ]
     headline = None
-    for name, t, sweep, vl_timed in cases:
+    for name, b, t, sweep, vl_timed in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
             item = torch.tensor([], dtype=dtype).element_size()
@@ -257,13 +332,16 @@ def check_decode(torch, rng, card):
                 torch.cuda.synchronize()
                 e = (out.float() - ref.float()).abs().max().item()
                 if not math.isfinite(e) or e > TOLERANCE[dn]:
-                    fail(f"decode_attn {name} {dn} valid_len={vl}: "
+                    fail(f"decode_attn {name} B={b} {dn} valid_len={vl}: "
                          f"max |kernel - plain| = {e} > {TOLERANCE[dn]}")
                 err = max(err, e)
             vlt = torch.tensor(vl_timed, dtype=torch.int32, device=DEVICE)
             iters = 200
-            ms = time_ms(torch, lambda q, k, v: decode_attn(q, k, v, vlt),
-                         sets, iters)
+            ms, p_ms = time_beside(
+                torch, lambda q, k, v: decode_attn(q, k, v, vlt),
+                parent and (lambda q, k, v: parent["decode_attn"](
+                    q, k, v, vlt)),
+                sets, iters)
             plain = time_ms(torch, lambda q, k, v: decode_attention_reference(
                 q, k, v, vlt), sets, iters)
             lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
@@ -273,35 +351,47 @@ def check_decode(torch, rng, card):
             nbytes = (2 * b * h * dh + 2 * b * h * vl_timed * dh) * item + 4
             b_ms, b_by = bound(nbytes, flops, dn)
             print(f"kernel decode_attn {name} {dn} B={b} H={h} T={t} dh={dh} "
-                  f"valid_len={sweep[0]}..{sweep[-1]}: max_abs_err={err:.3e} "
+                  f"valid_len={sweep[0]}..{sweep[-1]} "
+                  f"{_split_note(q, k, False)}: max_abs_err={err:.3e} "
                   f"(tol {TOLERANCE[dn]}) at valid_len={vl_timed}: "
-                  f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
-                  f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
-            if name == "cross" and dtype == torch.float32:
-                headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                  f"ms={ms:.4f} {parent_note(p_ms)}plain_ms={plain:.4f} "
+                  f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"[{card}]")
+            if name == "cross" and b == 4:
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                if dtype == torch.float32:
+                    headline = row
+                else:
+                    headline["bfloat16"] = row
     return headline
 
 
-def check_decode_quant(torch, rng, card):
+def check_decode_quant(torch, rng, card, parent=None):
     """K2 with int8/fp8 caches (scales folded in), both cache layouts, fp32
-    and bf16 q: a per-lane valid_len sweep at the self-attention shape and
-    the scalar cross case. No single PyTorch call computes it: no library
-    time."""
+    and bf16 q: a per-lane valid_len sweep at the self-attention shape
+    (batch 4; the full cache at batch 32) and the scalar cross case at
+    batch 4 and 32. No single PyTorch call computes it: no library time.
+    Each case is timed beside the ``parent``'s K2 where one is given.
+    Returns the serving precision's numbers (int8 T-minor cache, bf16 q,
+    the batch-4 cross case)."""
     from whisper_trtllm_tpu_torch.ops.attention import quantize_kv
     from whisper_trtllm_tpu_torch.ops.kernels import (
         decode_attention_reference,
         decode_attn,
     )
 
-    b, h, dh = 4, 6, 64
+    h, dh = 6, 64
     # per-lane sweep: lane i reads (v + 9 i) mod 34 rows, v = 0..33, so every
     # lane meets every length 0..33 (0: the uniform softmax)
-    cases = [("self", 33, [[(v + 9 * i) % 34 for i in range(b)]
-                           for v in range(34)], [33] * b),
-             ("cross", 1504, [1500], 1500)]
+    cases = [("self", 4, 33, [[(v + 9 * i) % 34 for i in range(4)]
+                              for v in range(34)], [33] * 4),
+             ("self", 32, 33, [[33] * 32], [33] * 32),
+             ("cross", 4, 1504, [1500], 1500),
+             ("cross", 32, 1504, [1500], 1500)]
     kinds = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
-    for name, t, sweep, vl_timed in cases:
+    serving = None
+    for name, b, t, sweep, vl_timed in cases:
         for kind, qdt in kinds.items():
             for t_major in (False, True):
                 for dtype in (torch.float32, torch.bfloat16):
@@ -330,13 +420,18 @@ def check_decode_quant(torch, rng, card):
                         torch.cuda.synchronize()
                         e = (out.float() - ref.float()).abs().max().item()
                         if not math.isfinite(e) or e > TOLERANCE[dn]:
-                            fail(f"decode_attn {name} {kind} t_major={t_major} "
-                                 f"{dn} valid_len={vl}: max |kernel - plain| "
-                                 f"= {e} > {TOLERANCE[dn]}")
+                            fail(f"decode_attn {name} B={b} {kind} "
+                                 f"t_major={t_major} {dn} valid_len={vl}: "
+                                 f"max |kernel - plain| = {e} > "
+                                 f"{TOLERANCE[dn]}")
                         err = max(err, e)
                     vlt = torch.tensor(vl_timed, dtype=torch.int32, device=DEVICE)
-                    ms = time_ms(torch, lambda q, k, v, ks, vs: decode_attn(
-                        q, k, v, vlt, ks, vs, t_major), sets, 200)
+                    ms, p_ms = time_beside(
+                        torch, lambda q, k, v, ks, vs: decode_attn(
+                            q, k, v, vlt, ks, vs, t_major),
+                        parent and (lambda q, k, v, ks, vs: parent[
+                            "decode_attn"](q, k, v, vlt, ks, vs, t_major)),
+                        sets, 200)
                     plain = time_ms(torch, lambda q, k, v, ks, vs:
                                     decode_attention_reference(
                                         q, k, v, vlt, k_scale=ks, v_scale=vs,
@@ -351,11 +446,19 @@ def check_decode_quant(torch, rng, card):
                     b_ms, b_by = bound(nbytes, flops, "float32")
                     print(f"kernel decode_attn {name} {kind} "
                           f"{'bhdt' if t_major else 'bhtd'} q={dn} B={b} H={h} "
-                          f"T={t} dh={dh} {len(sweep)} valid_len sets: "
+                          f"T={t} dh={dh} {_split_note(q, kq, t_major)} "
+                          f"{len(sweep)} valid_len sets: "
                           f"max_abs_err={err:.3e} (tol {TOLERANCE[dn]}) at "
                           f"valid_len={vl_timed if isinstance(vl_timed, int) else vl_timed[0]}: "
-                          f"ms={ms:.4f} plain_ms={plain:.4f} library_ms=none "
+                          f"ms={ms:.4f} {parent_note(p_ms)}"
+                          f"plain_ms={plain:.4f} library_ms=none "
                           f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+                    if (name, b, kind, t_major, dn) == (
+                            "cross", 4, "int8", True, "bfloat16"):
+                        serving = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                       bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=None)
+    return serving
 
 
 def check_stft(torch, rng, card):
@@ -648,66 +751,79 @@ def check_flash_bwd(torch, rng, card):
     return headline
 
 
-def check_cross(torch, rng, card):
+def check_cross(torch, rng, card, parent=None):
     """K7 at the hardware check's shape (``cli/tpu_check.py:360``: B 4,
     H 6, dh 64, T 1504), head-contiguous (B, T, H*dh), over valid lengths
-    1500 (timed), 1 and T. The yardstick is SDPA on the (B, H, T, dh) views
-    of the same cache sliced to the valid rows."""
+    1500 (timed), 1 and T, and at the serving batch of 32; each timed
+    beside the ``parent``'s K7 where one is given. The yardstick is SDPA
+    on the (B, H, T, dh) views of the same cache sliced to the valid rows.
+    Returns the batch-4 fp32 numbers."""
     import torch.nn.functional as F
 
     from whisper_trtllm_tpu_torch.ops.kernels import (
         cross_decode_mha,
         cross_decode_mha_reference,
     )
+    from whisper_trtllm_tpu_torch.ops.kernels.cross_attention import (
+        cross_plan,
+    )
 
-    b, h, t, dh = 4, 6, 1504, 64
+    h, t, dh = 6, 1504, 64
     sweep, vl_timed = (1500, 1, t), 1500
     headline = None
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[1]
-        item = torch.tensor([], dtype=dtype).element_size()
-        sets = []
-        for _ in range(n_sets(2 * b * t * h * dh * item)):
-            q = rng.standard_normal((b, h * dh), dtype="float32") / math.sqrt(dh)
-            k = rng.standard_normal((b, t, h * dh), dtype="float32")
-            v = rng.standard_normal((b, t, h * dh), dtype="float32")
-            sets.append(tuple(torch.from_numpy(x).to(DEVICE, dtype)
-                              for x in (q, k, v)))
-        q, k, v = sets[0]
-        err = 0.0
-        for vl in sweep:
-            out = cross_decode_mha(q, k, v, h, dh, vl)
-            ref = cross_decode_mha_reference(q, k, v, h, dh, vl)
-            torch.cuda.synchronize()
-            e = (out.float() - ref.float()).abs().max().item()
-            if not math.isfinite(e) or e > TOLERANCE[dn]:
-                fail(f"cross_decode_mha {dn} valid_len={vl}: max |kernel - "
-                     f"plain| = {e} > {TOLERANCE[dn]}")
-            err = max(err, e)
-        iters = 200
-        ms = time_ms(torch, lambda q, k, v: cross_decode_mha(
-            q, k, v, h, dh, vl_timed), sets, iters)
-        plain = time_ms(torch, lambda q, k, v: cross_decode_mha_reference(
-            q, k, v, h, dh, vl_timed), sets, iters)
+    for b in (4, 32):
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            item = torch.tensor([], dtype=dtype).element_size()
+            sets = []
+            for _ in range(n_sets(2 * b * t * h * dh * item)):
+                q = rng.standard_normal((b, h * dh), dtype="float32") / math.sqrt(dh)
+                k = rng.standard_normal((b, t, h * dh), dtype="float32")
+                v = rng.standard_normal((b, t, h * dh), dtype="float32")
+                sets.append(tuple(torch.from_numpy(x).to(DEVICE, dtype)
+                                  for x in (q, k, v)))
+            q, k, v = sets[0]
+            err = 0.0
+            for vl in sweep:
+                out = cross_decode_mha(q, k, v, h, dh, vl)
+                ref = cross_decode_mha_reference(q, k, v, h, dh, vl)
+                torch.cuda.synchronize()
+                e = (out.float() - ref.float()).abs().max().item()
+                if not math.isfinite(e) or e > TOLERANCE[dn]:
+                    fail(f"cross_decode_mha B={b} {dn} valid_len={vl}: max "
+                         f"|kernel - plain| = {e} > {TOLERANCE[dn]}")
+                err = max(err, e)
+            iters = 200
+            ms, p_ms = time_beside(
+                torch, lambda q, k, v: cross_decode_mha(q, k, v, h, dh,
+                                                        vl_timed),
+                parent and (lambda q, k, v: parent["cross_decode_mha"](
+                    q, k, v, h, dh, vl_timed)), sets, iters)
+            plain = time_ms(torch, lambda q, k, v: cross_decode_mha_reference(
+                q, k, v, h, dh, vl_timed), sets, iters)
 
-        def heads(x):  # (B, T, H*dh) -> the (B, H, T, dh) view
-            return x.view(b, -1, h, dh).transpose(1, 2)
+            def heads(x, b=b):  # (B, T, H*dh) -> the (B, H, T, dh) view
+                return x.view(b, -1, h, dh).transpose(1, 2)
 
-        lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
-            heads(q[:, None]), heads(k)[:, :, :vl_timed],
-            heads(v)[:, :, :vl_timed], scale=1.0), sets, iters)
-        # q and out, then the valid rows of K and V once each
-        nbytes = (2 * b * h * dh + 2 * b * vl_timed * h * dh) * item
-        # the arithmetic is fp32 whatever the storage dtype
-        b_ms, b_by = bound(nbytes, 4.0 * b * h * vl_timed * dh, "float32")
-        print(f"kernel cross_decode_mha {dn} B={b} H={h} T={t} dh={dh} "
-              f"valid_len={','.join(map(str, sweep))}: max_abs_err={err:.3e} "
-              f"(tol {TOLERANCE[dn]}) at valid_len={vl_timed}: ms={ms:.4f} "
-              f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={b_ms:.5f} "
-              f"({b_by}, {nbytes} bytes) [{card}]")
-        if dtype == torch.float32:
-            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+                heads(q[:, None]), heads(k)[:, :, :vl_timed],
+                heads(v)[:, :, :vl_timed], scale=1.0), sets, iters)
+            # q and out, then the valid rows of K and V once each
+            nbytes = (2 * b * h * dh + 2 * b * vl_timed * h * dh) * item
+            # the arithmetic is fp32 whatever the storage dtype
+            b_ms, b_by = bound(nbytes, 4.0 * b * h * vl_timed * dh, "float32")
+            splits, chunk, _, _ = cross_plan(q, h, dh, t, vl_timed)
+            print(f"kernel cross_decode_mha {dn} B={b} H={h} T={t} dh={dh} "
+                  f"valid_len={','.join(map(str, sweep))} splits={splits} "
+                  f"chunk={chunk} blocks={splits * b * h}: "
+                  f"max_abs_err={err:.3e} (tol {TOLERANCE[dn]}) at "
+                  f"valid_len={vl_timed}: ms={ms:.4f} {parent_note(p_ms)}"
+                  f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+                  f"bound_ms={b_ms:.5f} ({b_by}, {nbytes} bytes) [{card}]")
+            if b == 4 and dtype == torch.float32:
+                headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            del sets
     return headline
 
 
@@ -1210,6 +1326,13 @@ def training(torch, np, card):
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="the checkout of an earlier commit: its K2 and K7 "
+                         "are built from its csrc/ and timed beside these")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -1235,16 +1358,17 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"build {src}: {line.strip()}")
 
+    parent = load_parent(args.parent) if args.parent else None
     set_fp32_precision()
     rng = np.random.default_rng(SEED)
     flash = check_flash(torch, rng, card)
-    decode = check_decode(torch, rng, card)
-    check_decode_quant(torch, rng, card)
+    decode = check_decode(torch, rng, card, parent)
+    decode["serving"] = check_decode_quant(torch, rng, card, parent)
     stft = check_stft(torch, rng, card)
     norm = check_layer_norm(torch, rng, card)
     fused = check_fused(torch, rng, card)
     flash_bwd = check_flash_bwd(torch, rng, card)
-    cross = check_cross(torch, rng, card)
+    cross = check_cross(torch, rng, card, parent)
     gelu = check_gelu(torch, rng, card)
     # each kernel's launches from a path that runs it: configuration B, the
     # serving precision, for K1, K2, K3 and K5; E, the float-weight path,
@@ -1293,9 +1417,12 @@ def main() -> None:
         r["launches"] = counts[path.get(r["name"], "B")][r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    # K1 and K4 also carry their bf16 numbers at the encoder's shape
+    # K1 and K4 also carry their bf16 numbers at the encoder's shape; K2
+    # its bf16 float case and the serving precision (int8 T-minor, bf16 q)
+    # at the cross case
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + (["bfloat16"] if "bfloat16" in r else [])}
+        {k: r[k] for k in keys + [x for x in ("bfloat16", "serving")
+                                  if x in r]}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -193,6 +193,138 @@ def test_decode_kernel_cache_kinds_match_plain(cuda, dtype, tol, t_major,
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _k2_cache(rng, cuda, b, t, kind, t_major, dtype):
+    q = _normal(rng, (b, 6, 1, 64), 0.125, cuda, dtype)
+    ck = _normal(rng, (b, 6, t, 64), 1.0, cuda, torch.float32)
+    cv = _normal(rng, (b, 6, t, 64), 1.0, cuda, torch.float32)
+    scales = {}
+    if kind == "float":
+        ck, cv = ck.to(dtype), cv.to(dtype)
+    else:
+        ck, ks = quantize_kv(ck, _QUANT[kind])
+        cv, vs = quantize_kv(cv, _QUANT[kind])
+        scales = dict(k_scale=ks, v_scale=vs)
+    if t_major:
+        ck = ck.transpose(-1, -2).contiguous()
+        cv = cv.transpose(-1, -2).contiguous()
+    return q, ck, cv, scales
+
+
+def _k2_once(q, ck, cv, vl, t_major, scales, tol):
+    """One counted launch against the plain version; a second launch
+    repeats it bit for bit (the cluster combines in rank order)."""
+    before = decode_attn.launches
+    out = decode_attn(q, ck, cv, vl, t_major=t_major, **scales)
+    assert decode_attn.launches == before + 1
+    ref = decode_attention_reference(q, ck, cv, vl, t_major=t_major, **scales)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert torch.equal(out, decode_attn(q, ck, cv, vl, t_major=t_major,
+                                        **scales))
+
+
+_K2_KINDS = [("float", False), ("int8", False), ("int8", True),
+             ("fp8", True)]
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("kind,t_major", _K2_KINDS,
+                         ids=["float", "int8-bhtd", "int8-bhdt", "fp8-bhdt"])
+@pytest.mark.parametrize("b", [4, 32])
+def test_decode_kernel_split_edges_match_plain(cuda, dtype, tol, kind,
+                                               t_major, b):
+    """The cross shape (T 1504) split across a cluster: valid_len one row
+    before, at and after the first chunk's edge R and the last chunk's
+    start, and 1500; at batch 4 and at batch 32 (the serving batch)."""
+    from whisper_trtllm_tpu_torch.ops.kernels.decode_attention import (
+        decode_plan,
+    )
+
+    rng = np.random.default_rng(b + len(kind) + t_major)
+    q, ck, cv, scales = _k2_cache(rng, cuda, b, 1504, kind, t_major, dtype)
+    splits, chunk, _, _ = decode_plan(q, ck, t_major)
+    assert splits > 1 and (splits - 1) * chunk < 1504 <= splits * chunk
+    last = (splits - 1) * chunk
+    for n in (chunk - 1, chunk, chunk + 1, last, last + 1, 1500):
+        vl = torch.tensor(n, dtype=torch.int32, device=cuda)
+        _k2_once(q, ck, cv, vl, t_major, scales, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("kind,t_major", _K2_KINDS,
+                         ids=["float", "int8-bhtd", "int8-bhdt", "fp8-bhdt"])
+@pytest.mark.parametrize("t", [33, 1504])
+def test_decode_kernel_per_lane_mix_matches_plain(cuda, dtype, tol, kind,
+                                                  t_major, t):
+    """One launch whose lanes hold 0 (the uniform softmax over T), 1, T and
+    lengths inside and past the cache."""
+    rng = np.random.default_rng(t + len(kind) + t_major)
+    q, ck, cv, scales = _k2_cache(rng, cuda, 6, t, kind, t_major, dtype)
+    lens = [0, 1, t, t // 2 + 3, t + 5, -4]
+    vl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    _k2_once(q, ck, cv, vl, t_major, scales, tol)
+
+
+@pytest.mark.parametrize("kind,t_major", [("float", False), ("int8", True)])
+def test_decode_kernel_replays_in_a_cuda_graph(cuda, kind, t_major):
+    """A captured launch stays right when valid_len is rewritten in place:
+    the split plan depends on the shape only, and the kernel reads
+    valid_len from the device."""
+    rng = np.random.default_rng(5)
+    q, ck, cv, scales = _k2_cache(rng, cuda, 4, 1504, kind, t_major,
+                                  torch.bfloat16)
+    vl = torch.tensor(1500, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attn(q, ck, cv, vl, t_major=t_major, **scales)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = decode_attn.launches
+    with torch.cuda.graph(graph):
+        out = decode_attn(q, ck, cv, vl, t_major=t_major, **scales)
+    assert decode_attn.launches == before + 1
+    for n in (1500, 1, 700, 0, 1504, 97):
+        vl.fill_(n)
+        graph.replay()
+        eager = decode_attn(q, ck, cv, vl, t_major=t_major, **scales)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        ref = decode_attention_reference(q, ck, cv, vl, t_major=t_major,
+                                         **scales)
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_decode_kernels_are_one_device_launch_a_call(cuda):
+    """The profiler sees one operation on the card for a K2 call and one
+    for a K7 call, each a kernel split across a cluster: no combine
+    kernel, and no copy or memset of the wrappers' own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_trtllm_tpu_torch.ops.kernels import cross_decode_mha
+
+    rng = np.random.default_rng(9)
+    q, ck, cv, scales = _k2_cache(rng, cuda, 4, 1504, "int8", True,
+                                  torch.bfloat16)
+    vl = torch.tensor(1500, dtype=torch.int32, device=cuda)
+    q7 = _normal(rng, (4, 384), 0.125, cuda, torch.float32)
+    kv7 = _normal(rng, (4, 1504, 384), 1.0, cuda, torch.float32)
+    decode_attn(q, ck, cv, vl, t_major=True, **scales)
+    cross_decode_mha(q7, kv7, kv7, 6, 64, 1500)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_attn(q, ck, cv, vl, t_major=True, **scales)
+        cross_decode_mha(q7, kv7, kv7, 6, 64, 1500)
+        torch.cuda.synchronize()
+    # every kernel, copy and memset the card ran in the window, in order
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert "decode_t_minor" in names[0] and "cross_kernel" in names[1], names
+
+
 @pytest.mark.parametrize("n_mels", [80, 128])
 def test_stft_kernel_matches_plain(cuda, n_mels):
     from whisper_trtllm_tpu_torch.audio.features import LogMelSpectrogram
@@ -577,6 +709,31 @@ def test_cross_kernel_matches_plain(cuda, dtype, tol, b, h, t, dh, valid_lens):
         assert out.dtype == dtype and out.shape == q.shape
         assert (out.float() - ref.float()).abs().max().item() <= tol
         # the chunks combine in a fixed order: bit for bit repeatable
+        assert torch.equal(out, cross_decode_mha(q, k, v, h, dh, vl))
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b", [4, 32])
+def test_cross_kernel_is_one_launch_at_the_hardware_check_shape(
+        cuda, dtype, tol, b):
+    """K7 at T 1504, H 6, dh 64 over valid_len 1, 1500, T and <= 0 (the
+    mean of V): each call one launch, repeatable bit for bit."""
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        cross_decode_mha,
+        cross_decode_mha_reference,
+    )
+
+    rng = np.random.default_rng(b)
+    h, t, dh = 6, 1504, 64
+    q = _normal(rng, (b, h * dh), dh ** -0.5, cuda, dtype)
+    k = _normal(rng, (b, t, h * dh), 1.0, cuda, dtype)
+    v = _normal(rng, (b, t, h * dh), 1.0, cuda, dtype)
+    for vl in (1, 1500, t, 0, -3):
+        before = cross_decode_mha.launches
+        out = cross_decode_mha(q, k, v, h, dh, vl)
+        assert cross_decode_mha.launches == before + 1
+        ref = cross_decode_mha_reference(q, k, v, h, dh, vl)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
         assert torch.equal(out, cross_decode_mha(q, k, v, h, dh, vl))
 
 

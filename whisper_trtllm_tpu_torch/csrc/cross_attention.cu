@@ -1,6 +1,6 @@
-// One-token cross attention against a head-contiguous cache, for Hopper
-// (sm_90a): fp32 scores, an exact fp32 softmax and fp32 P.V whatever the
-// storage.
+// K7: one-token cross attention against a head-contiguous cache, for Hopper
+// (sm_90a), one launch a call on the split-T engine of decode_split.cuh:
+// fp32 scores, an exact fp32 softmax and fp32 P.V whatever the storage.
 //
 // Replaces whisper_trtllm_tpu/ops/pallas/cross_attention.py::
 // cross_decode_mha (_kernel): q (B, H*dh) pre-scaled; the cache K, V
@@ -12,183 +12,82 @@
 // all T rows: the mean of V, as in the JAX package.
 //
 // What bounds it: each (batch, head) reads valid_len * dh values of K and
-// of V and does 4 flops per pair of them, far below the ~20 flops per byte
-// at which an H100's fp32 units would be the limit: device memory
-// bandwidth (3.35 TB/s on an H100 SXM). At the hardware check's shape
-// (B 4, H 6, T 1504 of which 1500 valid, dh 64, fp32) that is 18.4 MB,
-// 5.5 us.
+// of V, 4 flops a pair: device memory bandwidth (3.35 TB/s on an H100
+// SXM). At the hardware check's shape (B 4, H 6, T 1504 of which 1500
+// valid, dh 64) that is 18.4 MB in fp32, 5.5 us, and 9.2 MB in bf16.
 //
-// Design: at that shape B*H is only 24, so one block per (batch, head)
-// would leave 108 of the 132 SMs idle (the decode-attention kernel's
-// measured loss on the same cross case). T is split into chunks of CHUNK
-// rows instead, one block of 128 threads each: 24 heads x 24 chunks = 576
-// blocks.
-// - Scores: a warp per row; lane l reads the row's head slice at l, l + 32,
-//   ... (dh contiguous values: neighbouring lanes on neighbouring
-//   addresses) and the warp sums its dot with shuffles. The chunk's scores
-//   stay in shared memory.
-// - The chunk's max m, its exponentials e = exp(s - m), their sum l and
-//   acc = sum e v over its rows, in fp32; P.V by groups of dh threads, one
-//   column a thread, each group over every G-th row, the groups summed in
-//   order. The partials (m, l, acc[dh]) go to an fp32 workspace.
-// - A second small kernel combines a head's chunks in chunk order: with
-//   M = max m, out = sum acc exp(m - M) / sum l exp(m - M). Every sum has a
-//   fixed order, so results repeat bit for bit (no atomics).
-// Only valid rows are read: with 1 <= valid_len <= T the masked rows'
-// weights are exactly 0 in fp32.
+// It is the engine's dh-minor case with rows H*dh apart and head h's
+// columns from h*dh: 16-byte cp.async pieces, or element by element where
+// dh * size is not a multiple of 16. Its valid_len is known on the host,
+// so the host splits only the rows it reads (ops/kernels/
+// cross_attention.py). Before this design, 576 blocks of 64 rows wrote
+// fp32 partials that a second kernel combined: 0.0225 ms in fp32 and
+// 0.0219 in bf16 at that shape; one launch now takes 0.0150 and 0.0118
+// (chip_smoke.py --parent, H100 80GB HBM3, 700 W, both in one run).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int CHUNK = 64;  // rows a block; the wrapper sizes the workspace by it
-constexpr int MAX_DH = 128;
-constexpr float MASKED = -1e9f;  // the JAX package's mask value
+using namespace decode_split;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+struct Params {
+  const void *q, *k, *v;
+  void* out;
+  int t, rows, heads, dh, chunk, tile, stages;
+  bool all_masked;
+  Copy copy;
+};
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+template <typename T, int LPR>
+__global__ void __launch_bounds__(THREADS) cross_kernel(const Params p) {
+  __shared__ Partial part;
+  const int splits = static_cast<int>(cg::this_cluster().num_blocks());
+  if (splits > 1) cluster_arrive();
+  const int bh = blockIdx.x / splits, rank = blockIdx.x % splits;
+  const int b = bh / p.heads, hh = bh % p.heads;
+  const long long hd = (long long)p.heads * p.dh;
+  Head<T, T> h;
+  h.q = static_cast<const T*>(p.q) + (long long)bh * p.dh;
+  h.out = static_cast<T*>(p.out) + (long long)bh * p.dh;
+  h.k = static_cast<const T*>(p.k) + (long long)b * p.t * hd + (long long)hh * p.dh;
+  h.v = static_cast<const T*>(p.v) + (long long)b * p.t * hd + (long long)hh * p.dh;
+  h.stride = hd;
+  h.ks = h.vs = nullptr;
+  h.n = p.rows;
+  h.all_masked = p.all_masked;
+  h.copy = p.copy;
+  if (!attend_rows<T, T, LPR>(h, p.dh, p.chunk, p.tile, p.stages, rank, part))
+    combine(part, p.dh, h.out);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// The block's max (MAX) or sum of x, in every thread; the warps' results
-// combine in warp order. `red` holds WARPS floats.
-template <bool MAX>
-__device__ float block_reduce(float x, float* red) {
-  x = MAX ? warp_max(x) : warp_sum(x);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < WARPS; ++w) r = MAX ? fmaxf(r, red[w]) : r + red[w];
-  __syncthreads();  // red is written again by the next call
-  return r;
-}
-
-// Grid (chunks, H, B). Writes ws[b, h, chunk] = (m, l, acc[dh]).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-cross_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, float* __restrict__ ws, int t,
-                     int rows, int heads, int dh, int all_masked) {
-  const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hd = heads * dh;
-  const int row0 = chunk * CHUNK;
-  const int n = min(CHUNK, rows - row0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __shared__ float s[CHUNK];
-  __shared__ float pv[THREADS];
-  __shared__ float red[WARPS];
-
-  const T* qh = q + (size_t)b * hd + (size_t)h * dh;
-  float qv[MAX_DH / 32];
-#pragma unroll
-  for (int i = 0; i < MAX_DH / 32; ++i) {
-    const int c = lane + 32 * i;
-    qv[i] = c < dh ? to_float(qh[c]) : 0.f;
-  }
-  // row row0 of batch b, head h's first column
-  const size_t base = ((size_t)b * t + row0) * hd + (size_t)h * dh;
-  for (int r = warp; r < n; r += WARPS) {
-    float dot = MASKED;
-    if (!all_masked) {
-      const T* kr = k + base + (size_t)r * hd;
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < MAX_DH / 32; ++i) {
-        const int c = lane + 32 * i;
-        if (c < dh) part += qv[i] * to_float(kr[c]);
-      }
-      dot = warp_sum(part);
-    }
-    if (lane == 0) s[r] = dot;
-  }
-  __syncthreads();
-
-  float x = -INFINITY;
-  for (int r = threadIdx.x; r < n; r += THREADS) x = fmaxf(x, s[r]);
-  const float m = block_reduce<true>(x, red);
-  float e_sum = 0.f;
-  for (int r = threadIdx.x; r < n; r += THREADS) {
-    const float e = expf(s[r] - m);
-    s[r] = e;
-    e_sum += e;
-  }
-  // its first barrier also publishes every exponential in s
-  const float l = block_reduce<false>(e_sum, red);
-
-  // P.V: G groups of dh threads, thread (g, j) sums column j over rows
-  // g, g + G, ...
-  const int groups = max(1, THREADS / dh);
-  const int g = threadIdx.x / dh, j = threadIdx.x % dh;
-  if (g < groups) {
-    float acc = 0.f;
-    const T* vc = v + base + j;
-    for (int r = g; r < n; r += groups) acc += s[r] * to_float(vc[(size_t)r * hd]);
-    pv[threadIdx.x] = acc;
-  }
-  // dh > THREADS is refused, so with one group every column has a thread
-  __syncthreads();
-  float* out = ws + (((size_t)b * heads + h) * gridDim.x + chunk) * (dh + 2);
-  for (int c = threadIdx.x; c < dh; c += THREADS) {
-    float acc = 0.f;
-    for (int gg = 0; gg < groups; ++gg) acc += pv[gg * dh + c];
-    out[2 + c] = acc;
-  }
-  if (threadIdx.x == 0) {
-    out[0] = m;
-    out[1] = l;
-  }
-}
-
-// Grid (H, B): the chunks of one head, combined in chunk order.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-cross_combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
-                     int heads, int dh, int n_chunks) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int stride = dh + 2;
-  const float* p = ws + ((size_t)b * heads + h) * n_chunks * stride;
-  float mx = -INFINITY;
-  for (int c = 0; c < n_chunks; ++c) mx = fmaxf(mx, p[c * stride]);
-  for (int j = threadIdx.x; j < dh; j += THREADS) {
-    float l = 0.f, acc = 0.f;
-    for (int c = 0; c < n_chunks; ++c) {
-      const float w = expf(p[c * stride] - mx);
-      l += p[c * stride + 1] * w;
-      acc += p[c * stride + 2 + j] * w;
-    }
-    store1(out + ((size_t)b * heads + h) * dh + j, acc / l);
-  }
+template <typename T, int LPR>
+cudaError_t launch_lpr(const Params& p, int splits, int bh, cudaStream_t st) {
+  static unsigned ready = 0;
+  constexpr int VEC = Vec<T>::N;
+  const int dhp = (p.dh + VEC - 1) / VEC * VEC;
+  const int smem = tile_smem<T>(p.tile, dhp, p.stages, false);
+  if (!plan_ok(p.rows, splits, p.chunk, p.tile, p.stages, smem)) return cudaErrorInvalidValue;
+  return launch(cross_kernel<T, LPR>, &ready, splits, bh, smem, st, p);
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* ws, int b, int t, int rows, int heads, int dh,
-                   int all_masked, cudaStream_t st) {
-  const int n_chunks = (rows + CHUNK - 1) / CHUNK;
-  cross_partial_kernel<T><<<dim3(n_chunks, heads, b), THREADS, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), ws, t, rows, heads, dh, all_masked);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  cross_combine_kernel<T><<<dim3(heads, b), THREADS, 0, st>>>(
-      ws, static_cast<T*>(out), heads, dh, n_chunks);
-  return cudaGetLastError();
+cudaError_t launch_dtype(Params p, int splits, int bh, cudaStream_t st) {
+  // rows H*dh apart: 16-byte cp.async pieces where dh * size allows
+  if ((p.dh * (int)sizeof(T)) % 16 != 0) p.copy = ELEMENT;
+  // dh <= 128: 1..32 pieces of 4 fp32 values, 1..16 of 8 bf16 values;
+  // only the reachable widths are built
+  const int pieces = (p.dh + Vec<T>::N - 1) / Vec<T>::N;
+  if (pieces <= 1) return launch_lpr<T, 1>(p, splits, bh, st);
+  if (pieces <= 2) return launch_lpr<T, 2>(p, splits, bh, st);
+  if (pieces <= 4) return launch_lpr<T, 4>(p, splits, bh, st);
+  if (pieces <= 8) return launch_lpr<T, 8>(p, splits, bh, st);
+  if constexpr (Vec<T>::N == 4) {
+    if (pieces <= 16) return launch_lpr<T, 16>(p, splits, bh, st);
+    return launch_lpr<T, 32>(p, splits, bh, st);
+  } else {
+    return launch_lpr<T, 16>(p, splits, bh, st);
+  }
 }
 
 }  // namespace
@@ -196,30 +95,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // q, out (B, H*dh); k, v (B, T, H*dh); all contiguous, of dtype (0 float32,
-// 1 bfloat16). ws: ws_floats fp32 of scratch, at least
-// B * H * ceil(rows / 64) * (dh + 2) with rows = min(valid_len, T), or T
-// when valid_len <= 0. dh <= 128. Returns a cudaError_t.
-int cross_decode_mha(const void* q, const void* k, const void* v, void* out,
-                     void* ws, long long ws_floats, int b, int t, int heads,
-                     int dh, int valid_len, int dtype, void* stream) {
-  if (b <= 0 || t <= 0 || heads <= 0 || dh <= 0 || dh > MAX_DH || dtype < 0 ||
-      dtype > 1 || b > 65535 || heads > 65535)
+// 1 bfloat16); dh <= 128. The kernel reads rows = min(valid_len, T) rows, or
+// all T when valid_len <= 0 (then every score is masked): splits (1..16)
+// chunks of `chunk` rows cover them, none empty, walked in tiles of `tile`
+// rows (chunk and tile multiples of 16), `stages` (1..4) tiles in flight.
+// Returns a cudaError_t.
+int cross_decode_mha(const void* q, const void* k, const void* v, void* out, int b,
+                     int t, int heads, int dh, int valid_len, int dtype, int splits,
+                     int chunk, int tile, int stages, void* stream) {
+  if (b <= 0 || t <= 0 || heads <= 0 || dh <= 0 || dh > MAX_DH || dtype < 0 || dtype > 1 ||
+      (long long)b * heads * splits > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const int all_masked = valid_len <= 0;
+  const bool all_masked = valid_len <= 0;
   const int rows = all_masked ? t : min(valid_len, t);
-  const long long need =
-      (long long)b * heads * ((rows + CHUNK - 1) / CHUNK) * (dh + 2);
-  if (ws_floats < need) return cudaErrorInvalidValue;
+  const bool aligned = (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  const Params p{q,     k,    v,      out,        t,      rows, heads,
+                 dh,    chunk, tile, stages, all_masked, aligned ? ASYNC : ELEMENT};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* w = static_cast<float*>(ws);
-  if (dtype == 0)
-    return launch<float>(q, k, v, out, w, b, t, rows, heads, dh, all_masked, st);
-  return launch<__nv_bfloat16>(q, k, v, out, w, b, t, rows, heads, dh,
-                               all_masked, st);
+  if (dtype == 0) return launch_dtype<float>(p, splits, b * heads, st);
+  return launch_dtype<__nv_bfloat16>(p, splits, b * heads, st);
 }
 
-const char* error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 }  // extern "C"

@@ -15,17 +15,32 @@ import ctypes
 import torch
 
 from whisper_trtllm_tpu_torch.ops.kernels import _build
+from whisper_trtllm_tpu_torch.ops.kernels.decode_attention import (
+    sm_count,
+    split_plan,
+    tile_row_bytes,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cross_decode_mha": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
-                         _I, _I, _I, _P],
+    "cross_decode_mha": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MASK_VALUE = -1e9
 MAX_DH = 128
-CHUNK = 64  # cache rows a block of the kernel takes (csrc: CHUNK)
+
+
+def cross_plan(q: torch.Tensor, heads: int, head_dim: int, t: int,
+               valid_len: int):
+    """The split plan of a ``cross_decode_mha`` call on the card: the rows
+    it reads (``valid_len`` is known here, so only those are split; all T
+    when it masks every row) over ``decode_attention.split_plan``."""
+    rows = t if valid_len <= 0 else min(valid_len, t)
+    return split_plan(rows, q.shape[0] * heads,
+                      tile_row_bytes(head_dim, q.element_size(), False),
+                      sm_count(q.device.index or 0))
 
 
 def cross_decode_mha_reference(q: torch.Tensor, cache_k: torch.Tensor,
@@ -86,15 +101,14 @@ def cross_decode_mha(q: torch.Tensor, cache_k: torch.Tensor,
     _build.refuse_grad("cross_decode_mha", q, cache_k, cache_v)
     lib = _build.load("cross_attention", _SIGNATURES)
     b, t = cache_k.shape[0], cache_k.shape[1]
-    rows = t if valid_len <= 0 else min(valid_len, t)
-    ws = torch.empty(b * heads * -(-rows // CHUNK) * (head_dim + 2),
-                     dtype=torch.float32, device=q.device)
+    splits, chunk, tile, stages = cross_plan(q, heads, head_dim, t,
+                                             valid_len)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.cross_decode_mha(
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), ws.numel(), b, t, heads, head_dim,
-            rows if valid_len > 0 else 0, _DTYPES[q.dtype],
+            out.data_ptr(), b, t, heads, head_dim, min(max(valid_len, 0), t),
+            _DTYPES[q.dtype], splits, chunk, tile, stages,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "cross_decode_mha")
     cross_decode_mha.launches += 1

@@ -1,5 +1,6 @@
 """K2: single-token masked attention against a static KV cache — the
-wrapper of ``csrc/decode_attention.cu`` and its plain PyTorch version.
+wrapper of ``csrc/decode_attention.cu`` and its plain PyTorch version, and
+the split plan that K2 and K7 (``cross_attention.py``) share.
 
 Counterpart of ``whisper_trtllm_tpu/ops/pallas/decode_attention.py::
 decode_mha``, extended to everything ``ops/attention.py::mha_decode_step``
@@ -13,7 +14,8 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,14 +25,76 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "decode_attn": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                    _I, _P],
+                    _I, _I, _I, _I, _I, _P],
 }
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                  torch.float8_e4m3fn: 3}
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
-MAX_T = 53248  # scores of one (batch, head) live in shared memory
+MAX_T = 53248  # the longest cache the kernel is held to
 MASK_VALUE = -1e9
+
+# The split of one (batch, head)'s rows across a cluster of blocks
+# (csrc/decode_split.cuh): from the shape and the SM count only, never from
+# valid_len, so a captured launch stays right when valid_len changes.
+MAX_SPLITS = 16        # the largest cluster (non-portable above 8)
+ROW_ALIGN = 16         # chunk and tile rows are multiples of it
+MIN_ROWS = 64          # rows a block takes at the least
+BLOCKS_PER_SM = 2      # what the split aims for where B * H is small
+TILE_BYTES = 32 * 1024  # shared memory of one tile's rows, at most
+TILE_ROWS = 64         # rows of a tile, at most
+MAX_STAGES = 2         # tiles a block keeps in flight
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(t: int, bh: int, row_bytes: int, sms: int,
+               t_major: bool = False) -> Tuple[int, int, int, int]:
+    """(splits, chunk, tile, stages) for ``t`` rows of each of ``bh``
+    (batch, head) pairs, ``row_bytes`` the shared memory one row of a tile
+    takes (K, V and their scales), on a card of ``sms`` SMs. Enough splits
+    to give every SM ``BLOCKS_PER_SM`` blocks, but no block under
+    ``MIN_ROWS`` rows, and at most 16; ``chunk`` rows a block, a multiple
+    of 16, no chunk empty of rows; the block walks its chunk in tiles of
+    ``tile`` rows (at most ``TILE_BYTES``, and in the dh-minor layout,
+    whose rows each slot of lanes takes one after another, at most
+    ``TILE_ROWS``), up to ``stages`` of them in flight."""
+    cap = TILE_BYTES // row_bytes
+    if not t_major:
+        cap = min(cap, TILE_ROWS)
+    tile_max = max(ROW_ALIGN, cap // ROW_ALIGN * ROW_ALIGN)
+    splits = max(1, min(MAX_SPLITS, _ceil(BLOCKS_PER_SM * sms, bh),
+                        _ceil(t, MIN_ROWS)))
+    chunk = _ceil(_ceil(t, splits), ROW_ALIGN) * ROW_ALIGN
+    tile = min(chunk, tile_max)
+    return (_ceil(t, chunk), chunk, tile,
+            min(MAX_STAGES, _ceil(chunk, tile)))
+
+
+def tile_row_bytes(dh: int, elem: int, t_major: bool) -> int:
+    """Shared memory one cache row takes in a tile's stage: K and V
+    (dh-minor rows padded to whole 16- or 8-byte reads) and two scales."""
+    vec = 16 // elem if elem > 1 else 8
+    dhp = dh if t_major else _ceil(dh, vec) * vec
+    return 2 * dhp * elem + 8
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def decode_plan(q: torch.Tensor, cache_k: torch.Tensor,
+                t_major: bool) -> Tuple[int, int, int, int]:
+    """The split plan of a ``decode_attn`` call on the card."""
+    b, h, _, dh = q.shape
+    t = cache_k.shape[3] if t_major else cache_k.shape[2]
+    return split_plan(t, b * h, tile_row_bytes(dh, cache_k.element_size(),
+                                               t_major),
+                      sm_count(q.device.index or 0), t_major)
 
 
 def decode_attention_reference(
@@ -111,12 +175,14 @@ def _check(q, k, v, valid_len, k_scale, v_scale, t_major):
         raise ValueError(f"decode_attn: head_dim must be a multiple of 8 up "
                          f"to 128, got {dh}")
     if t > MAX_T:
-        raise ValueError(f"decode_attn: cache length {t} exceeds the "
-                         f"shared-memory score buffer ({MAX_T})")
+        raise ValueError(f"decode_attn: cache length {t} exceeds "
+                         f"MAX_T ({MAX_T})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attn: q and the cache must be contiguous")
-    # the dh-minor kernel reads each row in 8- or 16-byte pieces, the T-minor
-    # one in runs of 4 elements when T % 4 == 0
+    # the caches the decode path makes start rows on 8- or 16-byte pieces
+    # (dh-minor) or runs of 4 elements (T-minor, T % 4 == 0); the kernel
+    # bulk-copies them where 16 bytes align and copies element by element
+    # otherwise, and refuses what no caller makes
     if t_major:
         align = k.element_size() * (4 if t % 4 == 0 else 1)
     else:
@@ -158,6 +224,7 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     lib = _build.load("decode_attention", _SIGNATURES)
     b, h, _, dh = q.shape
     t = cache_k.shape[3] if t_major else cache_k.shape[2]
+    splits, chunk, tile, stages = decode_plan(q, cache_k, t_major)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.decode_attn(
@@ -166,8 +233,8 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
             None if v_scale is None else v_scale.data_ptr(),
             valid_len.data_ptr(), int(valid_len.dim() == 1),
             out.data_ptr(), b, h, t, dh, _Q_DTYPES[q.dtype],
-            _CACHE_DTYPES[cache_k.dtype], int(t_major),
-            torch.cuda.current_stream().cuda_stream)
+            _CACHE_DTYPES[cache_k.dtype], int(t_major), splits, chunk, tile,
+            stages, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "decode_attn")
     decode_attn.launches += 1
     return out

@@ -90,7 +90,7 @@ def main(argv=None) -> None:
           f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {n_ops} device operations "
           f"({n_ops / max(steps, 1):.1f} per decode step, encode included)")
-    for key, count, us in sorted(rows, key=lambda r: -r[2])[:15]:
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:20]:
         print(f"profile: {us / 1e3:9.3f} ms {count:6d} x {us / count:9.2f} us  "
               f"{key[:100]}")
     if args.trace:
