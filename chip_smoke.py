@@ -5,9 +5,10 @@ CUDA card.
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR`` (a checkout of an earlier commit) builds that commit's
-decode-attention kernels K2 and K7 from its own ``csrc/`` and times them
-beside these on the same inputs, in turns (parent, this, this, parent),
-as ``parent_ms`` on their lines; without it nothing else is built.
+decode-attention kernels K2 and K7, its STFT frontend K3 and its fused
+decoder-layer step K6 from its own ``csrc/`` and times them beside these
+on the same inputs, in turns (parent, this, this, parent), as
+``parent_ms`` on their lines; without it nothing else is built.
 
 Five phases; any failure raises and the script exits non-zero:
 
@@ -183,10 +184,10 @@ def parent_note(parent_ms) -> str:
 
 
 def load_parent(root: str) -> dict:
-    """K2's and K7's wrappers from the checkout of another commit at
-    ``root``, built from its own ``csrc/`` into its own ``build/`` by its
-    own ``_build``, so that the same calls time both. Their launch counts
-    are their own."""
+    """K2's, K3's, K6's and K7's wrappers from the checkout of another
+    commit at ``root``, built from its own ``csrc/`` into its own
+    ``build/`` by its own ``_build``, so that the same calls time both.
+    Their launch counts are their own."""
     import importlib.util
 
     kernels = os.path.join(os.path.abspath(root), "whisper_trtllm_tpu_torch",
@@ -204,12 +205,16 @@ def load_parent(root: str) -> dict:
 
     build = load("_build")
     t0 = time.perf_counter()
-    build.build(["decode_attention", "cross_attention"])
-    print(f"parent: built K2 and K7 from {kernels} in "
+    build.build(["decode_attention", "cross_attention", "stft",
+                 "fused_decoder_step"])
+    print(f"parent: built K2, K3, K6 and K7 from {kernels} in "
           f"{time.perf_counter() - t0:.2f} s")
     return {"decode_attn": load("decode_attention", _build=build).decode_attn,
             "cross_decode_mha": load("cross_attention",
-                                     _build=build).cross_decode_mha}
+                                     _build=build).cross_decode_mha,
+            "stft_log_mel": load("stft", _build=build).stft_log_mel,
+            "fused_decoder_layer_step": load(
+                "fused_decoder_step", _build=build).fused_decoder_layer_step}
 
 
 # --------------------------------------------------------------------------
@@ -461,7 +466,10 @@ def check_decode_quant(torch, rng, card, parent=None):
     return serving
 
 
-def check_stft(torch, rng, card):
+def check_stft(torch, rng, card, parent=None):
+    """K3 at the frontend's shapes, batch 4, 80 and 128 mels, half of one
+    utterance silent; timed beside the ``parent``'s K3 where one is
+    given."""
     from whisper_trtllm_tpu_torch.audio.features import (
         HOP_LENGTH,
         N_FFT,
@@ -489,19 +497,29 @@ def check_stft(torch, rng, card):
         if not math.isfinite(err) or err > STFT_TOLERANCE:
             fail(f"stft_log_mel M={n_mels}: max |kernel - plain| = {err} > "
                  f"{STFT_TOLERANCE}")
-        ms = time_ms(torch, lambda x: stft_log_mel(x, basis, mel_fb), sets, 20)
+        ms, p_ms = time_beside(
+            torch, lambda x: stft_log_mel(x, basis, mel_fb),
+            parent and (lambda x: parent["stft_log_mel"](x, basis, mel_fb)),
+            sets, 20)
         plain = time_ms(torch, lambda x: stft_log_mel_reference(x, basis, mel_fb),
                         sets, 20)
         n_frames, n_bins = n_blocks - 2, basis.shape[1] // 2
-        flops = b * n_frames * (2.0 * N_FFT * 2 * n_bins + 3 * n_bins
-                                + 2.0 * n_bins * n_mels)
+        # the DFT and the mel product run on the tensor cores as 3xTF32 (a
+        # third of the TF32 rate), power on the fp32 units: the times add
+        products = 2.0 * b * n_frames * n_bins * (N_FFT * 2 + n_mels)
+        power = 3.0 * b * n_frames * n_bins
+        t_ops = (products / FLASH_PEAK_FLOPS["float32"]
+                 + power / PEAK_FLOPS["float32"])
         nbytes = 4 * (b * n_blocks * HOP_LENGTH + basis.numel()
                       + mel_fb.numel() + b * n_frames * n_mels)
-        b_ms, b_by = bound(nbytes, flops, "float32")
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        b_ms = max(t_ops, t_bytes) * 1e3
+        b_by = "operations" if t_ops >= t_bytes else "bytes"
         print(f"kernel stft_log_mel B={b} blocks={n_blocks}x{HOP_LENGTH} "
               f"taps={N_FFT} M={n_mels} float32: max_abs_err={err:.3e} "
-              f"(tol {STFT_TOLERANCE}) ms={ms:.4f} plain_ms={plain:.4f} "
-              f"library_ms=none bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+              f"(tol {STFT_TOLERANCE}) ms={ms:.4f} {parent_note(p_ms)}"
+              f"plain_ms={plain:.4f} library_ms=none bound_ms={b_ms:.4f} "
+              f"({b_by}) [{card}]")
         if n_mels == 80:
             headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -561,10 +579,11 @@ def check_layer_norm(torch, rng, card):
     return headline
 
 
-def check_fused(torch, rng, card):
+def check_fused(torch, rng, card, parent=None):
     """K6 at tiny.en's decoder-layer shapes, batch 4: self cache of 33 rows
     at positions 0, 16 and 32, cross cache of 1504 rows of which 1500 are
-    valid. No single PyTorch call computes it: no library time."""
+    valid; timed beside the ``parent``'s K6 where one is given. No single
+    PyTorch call computes it: no library time."""
     from whisper_trtllm_tpu_torch.ops.kernels import (
         fused_decoder_layer_step,
         fused_decoder_layer_step_reference,
@@ -624,8 +643,11 @@ def check_fused(torch, rng, card):
             err = max(err, e)
         pos = positions[-1]
         pt = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
-        ms = time_ms(torch, lambda x, h1, lp, c: fused_decoder_layer_step(
-            x, h1, pt, lp, *c, el), sets, 200)
+        ms, p_ms = time_beside(
+            torch, lambda x, h1, lp, c: fused_decoder_layer_step(
+                x, h1, pt, lp, *c, el),
+            parent and (lambda x, h1, lp, c: parent["fused_decoder_layer_step"](
+                x, h1, pt, lp, *c, el)), sets, 200)
         plain = time_ms(torch, lambda x, h1, lp, c:
                         fused_decoder_layer_step_reference(
                             x, h1, pt, lp, *c, el), sets, 50)
@@ -640,7 +662,7 @@ def check_fused(torch, rng, card):
             marks.append(timeline.diff().double().cpu())
         phase_us = (torch.stack(marks).mean(0) / 1e3).tolist()
         print(f"kernel fused_decoder_layer_step {dn} phases (us, mean of 50, "
-              f"{len(PHASES) - 1} grid barriers) [{card}]: "
+              f"{len(PHASES) - 1} waits) [{card}]: "
               + ", ".join(f"{n} {t:.2f}" for n, t in zip(PHASES, phase_us)))
         # this run's work: the self rows t <= pos and the cross rows
         # t < enc_len are read, the rest of the caches is not
@@ -652,7 +674,8 @@ def check_fused(torch, rng, card):
         print(f"kernel fused_decoder_layer_step {dn} B={b} d={d} H={h} dh={dh} "
               f"ffn={ffn} Ts={ts} Tc={tc} enc_len={enc_len} pos="
               f"{','.join(map(str, positions))}: max_abs_err={err:.3e} (tol "
-              f"{tol}) at pos={pos}: ms={ms:.4f} plain_ms={plain:.4f} "
+              f"{tol}) at pos={pos}: ms={ms:.4f} {parent_note(p_ms)}"
+              f"plain_ms={plain:.4f} "
               f"library_ms=none bound_ms={b_ms:.4f} ({b_by}) [{card}]")
         if dtype == torch.float32:
             headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
@@ -1330,8 +1353,9 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="the checkout of an earlier commit: its K2 and K7 "
-                         "are built from its csrc/ and timed beside these")
+                    help="the checkout of an earlier commit: its K2, K3, K6 "
+                         "and K7 are built from its csrc/ and timed beside "
+                         "these")
     args = ap.parse_args()
     import torch
 
@@ -1364,9 +1388,9 @@ def main() -> None:
     flash = check_flash(torch, rng, card)
     decode = check_decode(torch, rng, card, parent)
     decode["serving"] = check_decode_quant(torch, rng, card, parent)
-    stft = check_stft(torch, rng, card)
+    stft = check_stft(torch, rng, card, parent)
     norm = check_layer_norm(torch, rng, card)
-    fused = check_fused(torch, rng, card)
+    fused = check_fused(torch, rng, card, parent)
     flash_bwd = check_flash_bwd(torch, rng, card)
     cross = check_cross(torch, rng, card, parent)
     gelu = check_gelu(torch, rng, card)

@@ -255,9 +255,12 @@ def test_k6_launch_checks_keep_the_kernel_inside_its_tensors():
     with pytest.raises(ValueError, match="aligned"):
         shifted = torch.zeros(b * heads * 8 * 64 + 1)[1:].view(b, heads, 8, 64)
         k6._check(x, h1, pos, el, blocks, [shifted, *caches[1:]])
-    # the workspace covers every (b, h) row of cross chunks: 40 rows are two
-    assert k6._workspace_floats(b, heads, 40, 64, d, ffn) == (
-        (4 * 4 + 6 + 8) * b * d + 4 * b * ffn + b * heads * 2 * 66)
+    # the workspace: four (B, d) rows, each (b, head)'s cross splits (on
+    # 132 SMs, 40 rows make 40 splits of one row) and an fc2 partial for
+    # each of the 32 MLP groups of 8 columns
+    assert k6.fused_plan(b, heads, 40, d, ffn, 132) == (40, 1, 8, 8)
+    assert k6._workspace_floats(b, heads, 40, 64, d, ffn, 132) == (
+        4 * b * d + b * heads * 40 * 66 + 32 * b * d)
 
 
 def test_fuse_qkv_params_equals_jax():

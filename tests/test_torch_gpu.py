@@ -342,6 +342,39 @@ def test_stft_kernel_matches_plain(cuda, n_mels):
     assert (out - ref).abs().max().item() <= 2e-4
 
 
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_stft_kernel_on_near_silent_input_matches_plain(cuda, n_mels):
+    """Near-silent frames, where log10 magnifies the DFT's relative error
+    the most: a bundled utterance scaled by 1e-4 after a second of exact
+    zeros, and a signal of 1e-7 noise (power near the 1e-10 floor)."""
+    from whisper_trtllm_tpu_torch.audio.features import (
+        HOP_LENGTH,
+        N_FFT,
+        LogMelSpectrogram,
+        pad_or_trim,
+        read_wav,
+    )
+
+    fe = LogMelSpectrogram(n_mels, device=cuda)
+    speech = pad_or_trim(read_wav(os.path.join(
+        ROOT, "artifacts", "eval", "utt00.wav")))
+    quiet = np.concatenate([np.zeros(16000, np.float32), speech[:-16000]]) * 1e-4
+    noise = np.random.default_rng(3).standard_normal(speech.shape) * 1e-7
+    audio = torch.from_numpy(np.stack([quiet, noise]).astype(np.float32))
+    pad = N_FFT // 2
+    padded = torch.nn.functional.pad(audio[:, None], (pad, pad),
+                                     mode="reflect")[:, 0]
+    n_blocks = 3003  # the frontend's: 3001 frames
+    padded = torch.nn.functional.pad(
+        padded, (0, n_blocks * HOP_LENGTH - padded.shape[1]))
+    blocks = padded.reshape(2, n_blocks, HOP_LENGTH).to(cuda)
+    basis = fe.dft_basis[:N_FFT]
+    out = stft_log_mel(blocks, basis, fe.mel_fb)
+    ref = stft_log_mel_reference(blocks, basis, fe.mel_fb)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 2e-4
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("shape", [(4, 1500, 384), (4, 1, 384), (3, 7, 1280),
@@ -528,11 +561,22 @@ def _fused_inputs(rng, dtype, cuda, b=4, d=384, h=6, ffn=1536, ts=33,
 FUSED_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 
 
+def _fused_close(out, ref, dtype, tol):
+    assert out.dtype == dtype and out.shape == ref.shape
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert (diff <= tol + tol * ref.abs()).all(), diff.max().item()
+    else:
+        assert (diff / ref.float().abs().clamp(min=1)).max().item() <= tol
+
+
 @pytest.mark.parametrize("dtype,tol", FUSED_DTYPES)
-@pytest.mark.parametrize("b,enc_len", [(4, 1500), (1, 1504), (9, 700)])
+@pytest.mark.parametrize("b,enc_len", [(4, 1500), (1, 1504), (9, 700),
+                                       (16, 1500), (4, 0)])
 def test_fused_decoder_step_matches_plain(cuda, dtype, tol, b, enc_len):
     """K6 at tiny.en's widths over the position sweep of a 33-row self
-    cache, at batch 4 (the main path's), 1 and 9."""
+    cache, at batch 4 (the main path's), 1, 9 and 16 (the gate's largest),
+    and with no valid cross row (a uniform softmax over all of them)."""
     rng = np.random.default_rng(b)
     x, h1, lp, caches = _fused_inputs(rng, dtype, cuda, b=b)
     el = torch.tensor(enc_len, dtype=torch.int32, device=cuda)
@@ -542,12 +586,72 @@ def test_fused_decoder_step_matches_plain(cuda, dtype, tol, b, enc_len):
         out = fused_decoder_layer_step(x, h1, p, lp, *caches, el)
         assert fused_decoder_layer_step.launches == before + 1
         ref = fused_decoder_layer_step_reference(x, h1, p, lp, *caches, el)
-        assert out.dtype == dtype and out.shape == x.shape
-        diff = (out.float() - ref.float()).abs()
-        if dtype == torch.float32:
-            assert (diff <= tol + tol * ref.abs()).all()
-        else:
-            assert (diff / ref.float().abs().clamp(min=1)).max().item() <= tol
+        _fused_close(out, ref, dtype, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", FUSED_DTYPES)
+def test_fused_decoder_step_at_wide_shapes_matches_plain(cuda, dtype, tol):
+    """Shapes whose slices do not fit the kernel's ring at once: d 1280
+    (20 heads, ffn 5120) at batch 16 with a 448-row self cache, so every
+    phase streams its tiles through the stages."""
+    rng = np.random.default_rng(21)
+    x, h1, lp, caches = _fused_inputs(rng, dtype, cuda, b=16, d=1280, h=20,
+                                      ffn=5120, ts=448, tc=1504)
+    el = torch.tensor(1500, dtype=torch.int32, device=cuda)
+    for pos in (0, 447):
+        p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        out = fused_decoder_layer_step(x, h1, p, lp, *caches, el)
+        ref = fused_decoder_layer_step_reference(x, h1, p, lp, *caches, el)
+        _fused_close(out, ref, dtype, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", FUSED_DTYPES)
+def test_fused_decoder_step_replays_in_a_cuda_graph(cuda, dtype, tol):
+    """A captured K6 launch, replayed with pos rewritten in place, equals
+    the eager launch each time: the plan depends on the shape only, the
+    kernel reads pos from the device, and its counters are back at zero
+    after every launch (no memset is captured)."""
+    rng = np.random.default_rng(31)
+    x, h1, lp, caches = _fused_inputs(rng, dtype, cuda)
+    el = torch.tensor(1500, dtype=torch.int32, device=cuda)
+    pos = torch.tensor(0, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_decoder_layer_step(x, h1, pos, lp, *caches, el)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = fused_decoder_layer_step.launches
+    with torch.cuda.graph(graph):
+        out = fused_decoder_layer_step(x, h1, pos, lp, *caches, el)
+    assert fused_decoder_layer_step.launches == before + 1
+    for p in (32, 5, 17):
+        pos.fill_(p)
+        graph.replay()
+        eager = fused_decoder_layer_step(x, h1, pos, lp, *caches, el)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), p
+        ref = fused_decoder_layer_step_reference(x, h1, pos, lp, *caches, el)
+        _fused_close(out, ref, dtype, tol)
+
+
+def test_fused_decoder_step_back_to_back_launches_need_no_sync(cuda):
+    """Launches queued one after another with no sync between them (the
+    decode loop's four layers): each finds the counters the last left at
+    zero, and each result equals its own launch taken alone."""
+    rng = np.random.default_rng(41)
+    sets = [_fused_inputs(rng, torch.float32, cuda) for _ in range(3)]
+    el = torch.tensor(1500, dtype=torch.int32, device=cuda)
+    pos = torch.tensor(20, dtype=torch.int32, device=cuda)
+    alone = []
+    for x, h1, lp, caches in sets:
+        alone.append(fused_decoder_layer_step(x, h1, pos, lp, *caches, el))
+        torch.cuda.synchronize()
+    queued = [fused_decoder_layer_step(x, h1, pos, lp, *caches, el)
+              for _ in range(4) for x, h1, lp, caches in sets]
+    torch.cuda.synchronize()
+    for i, out in enumerate(queued):
+        assert torch.equal(out, alone[i % 3]), i
 
 
 def test_fused_decoder_step_refuses_before_and_at_launch(cuda):
@@ -577,10 +681,12 @@ def test_fused_decoder_step_refuses_before_and_at_launch(cuda):
     enc_len = torch.tensor(40, dtype=torch.int32, device=cuda)
     out = torch.empty_like(x)
     ws = torch.empty(16, device=cuda)
+    _, sync = k6._device_state(x.device)
     err = lib.fused_decoder_step(
         x.data_ptr(), h1.data_ptr(), pos.data_ptr(), enc_len.data_ptr(),
         *blocks, *(c.data_ptr() for c in caches), out.data_ptr(),
-        ws.data_ptr(), None, 2, 6, 8, 64, 40, 384, 1536, 0, 16,
+        ws.data_ptr(), None, sync.data_ptr(), 2, 6, 8, 64, 40, 384, 1536, 0,
+        *k6.fused_plan(2, 6, 40, 384, 1536, 132), 16,
         torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="launch failed"):
         _build.check_launch(lib, err, "fused_decoder_layer_step")

@@ -5,8 +5,9 @@ The audio is center-padded and cut into hop-sized (160) blocks; analysis
 frame f is the 400 samples from block f on. The windowed DFT (the window
 folded into a (400, 402) real-then-imaginary basis), power, mel projection
 and log10 run in kernel K3 (``ops/kernels/stft.py``) on the card and in its
-plain version, two fp32 matmuls, on the CPU. Both stay full fp32: log10
-amplifies any rounding in the power spectrum.
+plain version, two fp32 matmuls, on the CPU; the kernel takes both
+products as 3xTF32, about fp32's precision. Neither rounds to TF32 or
+bf16: log10 amplifies any rounding in the power spectrum.
 
 Semantics: hann(400, periodic) window, hop 160, reflect center-pad 200,
 power spectrum, slaney mel (80 or 128 bins), log10 with a 1e-10 floor, drop

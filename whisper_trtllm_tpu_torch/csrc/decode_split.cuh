@@ -69,9 +69,12 @@
 
 #include <utility>
 
+#include "async_copy.cuh"
+
 namespace decode_split {
 
 namespace cg = cooperative_groups;
+using namespace async_copy;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
@@ -153,76 +156,6 @@ __device__ __forceinline__ void load4(const T* p, float* out) {
   const Run r = *reinterpret_cast<const Run*>(p);
 #pragma unroll
   for (int i = 0; i < 4; ++i) out[i] = to_float(r.x[i]);
-}
-
-// ---- mbarriers and asynchronous copies (PTX) -------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// the one arrival of a bulk phase, which then waits for `bytes` of copies
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// this thread's arrival, once its stores so far are visible
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// this thread's arrival, once its cp.async copies so far have landed
-__device__ __forceinline__ void mbar_arrive_async(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` (a multiple of 16) from 16-byte aligned global to 16-byte aligned
-// shared memory by the copy engine, counted on `bar` when they land
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// 16 bytes, global to shared, without passing through registers
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-// shared memory read by the threads is rewritten by the copy engine next
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- reductions ----------------------------------------------------------
@@ -341,12 +274,6 @@ __device__ __forceinline__ float tile_softmax(float* s, const Stage<CT>& st, int
   l = l * alpha + sum;
   m = m_new;
   return alpha;
-}
-
-// 4 bytes, global to shared, without passing through registers
-__device__ __forceinline__ void copy4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
 }
 
 // Starts tile `it` of the chunk into stage `it % stages`: every thread

@@ -31,24 +31,24 @@ from whisper_trtllm_tpu_torch.ops.kernels import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"fused_decoder_step": [_P] * 27 + [_I] * 9 + [_P]}
+_SIGNATURES = {"fused_decoder_step": [_P] * 28 + [_I] * 13 + [_P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's shape limits (csrc/fused_decoder_step.cu): batch rows of a
-# projection item, the head dim of its attention (every Whisper size's),
-# projections in 64-column groups over 32-row chunks, one LayerNorm row in
-# shared memory
+# the kernel's shape limits (csrc/fused_decoder_step.cu): batch rows held
+# in registers, the head dim of its attention (every Whisper size's), d and
+# ffn in 64-column heads and groups, the heads' tickets
 MAX_B = 16
 HEAD_DIM = 64
 MAX_D = 2048
-_KCHUNK = 32       # input rows of a projection item
-_CHUNK_ROWS = 32   # cache rows of a cross-attention chunk at dh = 64
+MAX_SPLITS = 128   # cross splits a head
+SYNC_WORDS = 40    # the kernel's per-device counters (uint32)
 MASK_VALUE = -1e9
-# the kernel's phases, separated by grid-wide barriers (csrc/
-# fused_decoder_step.cu); a timeline holds their boundaries
-PHASES = ("q projection", "self attention", "out projection",
-          "residual + LN2", "cross-q projection", "cross attention chunks",
-          "combine chunks", "cross out projection", "residual + LN3", "fc1",
-          "fc2 of GELU", "residual + store")
+# the kernel's phases; each after the first starts with a wait for the
+# blocks that produce what it reads (csrc/fused_decoder_step.cu), and a
+# timeline holds their boundaries
+PHASES = ("q + self attention", "out projection",
+          "LN2 + cross q + cross attention + combine",
+          "cross out projection", "LN3 + fc1 + GELU + fc2",
+          "residual + store")
 
 _WEIGHTS = (  # (subtree path, weight key) in the kernel's order
     (("self_attn", "q"), "kernel"), (("self_attn", "out"), "kernel"),
@@ -61,11 +61,10 @@ _WEIGHTS = (  # (subtree path, weight key) in the kernel's order
 def fused_layer_supported(b: int, h: int, ts: int, dh: int, tc: int, d: int,
                           ffn: int, itemsize: int) -> bool:
     """True when the H100 kernel takes these shapes: 1 <= b <= 16 batch
-    rows, dh 64 with d = h·dh, d and ffn multiples of 64
-    (64-column groups over 32-row chunks), d <= 2048 (one LayerNorm row in
-    shared memory), fp32 or bf16 storage, non-empty caches. Neither cache
-    length is bounded: both attentions stream their rows, and a ragged
-    last chunk is masked."""
+    rows, dh 64 with d = h·dh, d and ffn multiples of 64, d <= 2048 (a
+    ticket a head), fp32 or bf16 storage, non-empty caches. Neither cache
+    length is bounded: both attentions stream their rows through the
+    kernel's ring of stages."""
     return (1 <= b <= MAX_B and dh == HEAD_DIM and d == h * dh
             and d % 64 == 0 and ffn % 64 == 0 and ffn > 0 and d <= MAX_D
             and itemsize in (2, 4) and ts >= 1 and tc >= 1)
@@ -138,23 +137,67 @@ def fused_decoder_layer_step_reference(x, h1, pos, lp, self_k, self_v,
     return (x2 + _dot32(mid, wf2, bf2)).to(x.dtype)
 
 
-def _workspace_floats(b: int, h: int, tc: int, dh: int, d: int,
-                      ffn: int) -> int:
+def fused_plan(b: int, h: int, tc: int, d: int, ffn: int,
+               sms: int) -> tuple:
+    """The kernel's split of the work, from the shape and the SM count
+    alone (never from pos or enc_len, so a captured launch stays right):
+    (splits, chunk, cg, g) — ``splits`` blocks a head share the cross rows,
+    ``chunk`` rows each; the out projections go in column groups of ``cg``,
+    the MLP in groups of ``g`` ffn columns (fc1) and fc2 rows, each the
+    smallest power of two from 8 (a 16-byte row of a bf16 column slice,
+    the least a tensor copy moves) that needs at most one block an SM, at
+    most 64."""
+    splits = max(1, min(sms // h, tc, MAX_SPLITS))
+
+    def group(n: int) -> int:
+        g = 8
+        while n // g > sms and g < 64:
+            g *= 2
+        return g
+
+    return splits, -(-tc // splits), group(d), group(ffn)
+
+
+def _workspace_floats(b: int, h: int, tc: int, dh: int, d: int, ffn: int,
+                      sms: int) -> int:
     """fp32 workspace of one launch, as the kernel's ``layout()`` lays it
-    out (the kernel refuses a smaller one): the partial sums of the six
-    projections, one set per 32 input rows; six (B, d) rows; each cross
-    chunk's (max, sum, acc[dh])."""
-    pd, pf = d // _KCHUNK, ffn // _KCHUNK
-    chunks = -(-tc // _CHUNK_ROWS)
-    return ((4 * pd + 6 + pf) * b * d + pd * b * ffn
-            + b * h * chunks * (dh + 2))
+    out (the kernel refuses a smaller one): four (B, d) rows (the self
+    attention's output, x_mid, the cross attention's output, x2), each
+    cross split's (max, sum, acc[dh]) a (b, head), and one (B, d) fc2
+    partial an MLP group."""
+    splits, _, _, g = fused_plan(b, h, tc, d, ffn, sms)
+    return 4 * b * d + b * h * splits * (dh + 2) + (ffn // g) * b * d
+
+
+_SMS: dict = {}
+_SYNC: dict = {}
+
+
+def _device_state(device: torch.device):
+    """(SM count, the kernel's counters) of a card: the counters are made
+    and zeroed once, at the device's first launch, and every launch leaves
+    them at zero. A first launch inside a CUDA graph capture is refused: a
+    buffer made there would belong to the graph's memory pool."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    sync = _SYNC.get(idx)
+    if sync is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fused_decoder_layer_step: launch once on "
+                               "this device outside a CUDA graph capture "
+                               "first (it makes the kernel's counters)")
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        sync = _SYNC[idx] = torch.zeros(SYNC_WORDS, dtype=torch.int32,
+                                        device=torch.device("cuda", idx))
+    return _SMS[idx], sync
 
 
 def _check(x, h1, pos, enc_len, blocks, caches):
     """What keeps the launch inside the tensors it is given: one device,
     one float dtype (float32 or bfloat16), the shapes the kernel indexes
-    by, contiguous storage, cache rows aligned to 16 bytes and weight rows
-    to 8. One pass over the ~25 tensors: it runs at every launch."""
+    by, contiguous storage, caches and weights aligned to 16 bytes (the
+    kernel's bulk copies and 16-byte cp.async). One pass over the ~25
+    tensors: it runs at every launch."""
     b, d = x.shape
     sk, sv, ck, cv = caches
     ffn = blocks[6][0].shape[-1]
@@ -192,10 +235,10 @@ def _check(x, h1, pos, enc_len, blocks, caches):
             raise TypeError("fused_decoder_layer_step: pos and enc_len must "
                             "be 0-d int32 tensors on x's device")
     if any(t.data_ptr() % 16 for t in caches) or any(
-            w.data_ptr() % 8 for w, _ in blocks):
-        raise ValueError("fused_decoder_layer_step: cache rows are read in "
-                         "16-byte pieces and weight rows in 8-byte ones; "
-                         "both must be aligned so")
+            w.data_ptr() % 16 for w, _ in blocks):
+        raise ValueError("fused_decoder_layer_step: caches and weights are "
+                         "copied in 16-byte pieces; both must be aligned "
+                         "so")
 
 
 def fused_decoder_layer_step(x: torch.Tensor, h1: torch.Tensor, pos, lp: dict,
@@ -216,8 +259,11 @@ def fused_decoder_layer_step(x: torch.Tensor, h1: torch.Tensor, pos, lp: dict,
 
     ``timeline``, on the card only: an int64 tensor of ``len(PHASES) + 1``
     on x's device that receives the card's global timer (ns) at the start
-    of the kernel and at the end of each phase, as its first block sees
-    them."""
+    of the kernel, after each phase's wait and at the end, as its first
+    block sees them.
+
+    Launches on one card must not overlap (one stream): they share the
+    kernel's per-device counters."""
     if x.device.type == "cpu":
         return fused_decoder_layer_step_reference(
             x, h1, pos, lp, self_k, self_v, cross_k, cross_v, enc_len)
@@ -244,7 +290,9 @@ def fused_decoder_layer_step(x: torch.Tensor, h1: torch.Tensor, pos, lp: dict,
     _, h, ts, dh = self_k.shape
     tc = cross_k.shape[2]
     ffn = blocks[6][0].shape[-1]
-    n_ws = _workspace_floats(b, h, tc, dh, d, ffn)
+    sms, sync = _device_state(x.device)
+    plan = fused_plan(b, h, tc, d, ffn, sms)
+    n_ws = _workspace_floats(b, h, tc, dh, d, ffn, sms)
     workspace = torch.empty(n_ws, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     ptrs = [t.data_ptr() if t is not None else None
@@ -255,8 +303,8 @@ def fused_decoder_layer_step(x: torch.Tensor, h1: torch.Tensor, pos, lp: dict,
             *ptrs, *(c.data_ptr() for c in caches), out.data_ptr(),
             workspace.data_ptr(),
             None if timeline is None else timeline.data_ptr(),
-            b, h, ts, dh, tc, d, ffn, _DTYPES[x.dtype],
-            n_ws, torch.cuda.current_stream().cuda_stream)
+            sync.data_ptr(), b, h, ts, dh, tc, d, ffn, _DTYPES[x.dtype],
+            *plan, n_ws, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "fused_decoder_layer_step")
     fused_decoder_layer_step.launches += 1
     return out

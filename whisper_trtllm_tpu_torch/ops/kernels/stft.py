@@ -1,5 +1,7 @@
 """K3: fused STFT + power + mel + log10 — the wrapper of ``csrc/stft.cu``
-and its plain PyTorch version.
+and its plain PyTorch version. The kernel takes the DFT and the mel
+product on the tensor cores as 3xTF32 (about 22 bits an operand, a fresh
+fp32 partial every 8 taps or bins) and power in fp32.
 
 Counterpart of ``whisper_trtllm_tpu/ops/pallas/stft.py::stft_log_mel``.
 The wrapper takes the plain version only for CPU tensors; for a CUDA
@@ -19,7 +21,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "stft_log_mel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
-MAX_BINS = 224  # the kernel's bin groups: 32 lanes × 7
+MAX_BINS = 224  # the kernel's bins: 4 warps × 7 tiles of 8
 
 
 def stft_log_mel_reference(audio_blocks: torch.Tensor, basis: torch.Tensor,
@@ -62,6 +64,9 @@ def _check(x, basis, mel_fb):
     if not (x.is_contiguous() and basis.is_contiguous()
             and mel_fb.is_contiguous()):
         raise ValueError("stft_log_mel: inputs must be contiguous")
+    if x.data_ptr() % 16 or basis.data_ptr() % 16:
+        raise ValueError("stft_log_mel: the signal and the basis are copied "
+                         "in 16-byte pieces and must be aligned so")
 
 
 def stft_log_mel(audio_blocks: torch.Tensor, basis: torch.Tensor,
