@@ -5,10 +5,11 @@ CUDA card.
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR`` (a checkout of an earlier commit) builds that commit's
-decode-attention kernels K2 and K7, its STFT frontend K3 and its fused
-decoder-layer step K6 from its own ``csrc/`` and times them beside these
-on the same inputs, in turns (parent, this, this, parent), as
-``parent_ms`` on their lines; without it nothing else is built.
+decode-attention kernels K2 and K7, its STFT frontend K3, its LayerNorm
+K5, its fused decoder-layer step K6 and its bias+GELU K8 from its own
+``csrc/`` and times them beside these on the same inputs, in turns
+(parent, this, this, parent), as ``parent_ms`` on their lines; without it
+nothing else is built.
 
 Five phases; any failure raises and the script exits non-zero:
 
@@ -24,10 +25,12 @@ Five phases; any failure raises and the script exits non-zero:
    sweep of positions; the flash backward at the encoder's, the training
    cross attention's, a causal and a GQA shape; the head-contiguous cross
    attention at the hardware check's shape over valid lengths 1500, 1 and
-   T, at batch 4 and 32; the example's bias+GELU at its (512, 384)), and
-   times the kernel, the plain version
-   and, where one exists, one PyTorch library call computing the same
-   function (the yardstick; the port never calls it);
+   T, at batch 4 and 32; the example's bias+GELU at its (512, 384) and at
+   the encoder MLP's (6000, 1536)), and times the kernel, the plain
+   version and, where one exists, one PyTorch library call computing the
+   same function (the yardstick; the port never calls it), and the launch
+   floor: PyTorch's spin kernel given nothing to do,
+   ``torch.cuda._sleep(0)``, the least time one launch takes;
 3. hardware check and example — runs ``python -m
    whisper_trtllm_tpu_torch.cli.gpu_check`` (every check of the port's
    counterpart of ``cli/tpu_check.py``, among them K7's
@@ -62,7 +65,10 @@ Five phases; any failure raises and the script exits non-zero:
    batch, with exact launch counts, its checkpoint reloaded.
 
 The line before the last is one JSON object with every ported kernel's
-numbers (K1's and K4's also in bf16, under "bfloat16"); the last is ``{"ok": true, "device": {...}}``. Without a CUDA
+numbers (K1's, K4's and K5's also in bf16, under "bfloat16"; K5's decode
+step under "decode", K8's (6000, 1536) under "encoder_mlp", both with the
+launch floor as "floor_ms"); the last is ``{"ok": true, "device":
+{...}}``. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
 and prints no result.
 """
@@ -184,18 +190,18 @@ def parent_note(parent_ms) -> str:
 
 
 def load_parent(root: str) -> dict:
-    """K2's, K3's, K6's and K7's wrappers from the checkout of another
-    commit at ``root``, built from its own ``csrc/`` into its own
+    """K2's, K3's, K5's, K6's, K7's and K8's wrappers from the checkout of
+    another commit at ``root``, built from its own ``csrc/`` into its own
     ``build/`` by its own ``_build``, so that the same calls time both.
     Their launch counts are their own."""
     import importlib.util
 
-    kernels = os.path.join(os.path.abspath(root), "whisper_trtllm_tpu_torch",
-                           "ops", "kernels")
+    package = os.path.join(os.path.abspath(root), "whisper_trtllm_tpu_torch")
+    kernels = os.path.join(package, "ops", "kernels")
 
-    def load(name, **attrs):
+    def load(name, folder=kernels, **attrs):
         spec = importlib.util.spec_from_file_location(
-            f"parent_{name}", os.path.join(kernels, f"{name}.py"))
+            f"parent_{name}", os.path.join(folder, f"{name}.py"))
         mod = importlib.util.module_from_spec(spec)
         sys.modules[spec.name] = mod
         spec.loader.exec_module(mod)
@@ -206,15 +212,20 @@ def load_parent(root: str) -> dict:
     build = load("_build")
     t0 = time.perf_counter()
     build.build(["decode_attention", "cross_attention", "stft",
-                 "fused_decoder_step"])
-    print(f"parent: built K2, K3, K6 and K7 from {kernels} in "
+                 "layer_norm", "fused_decoder_step", "fused_bias_gelu"])
+    print(f"parent: built K2, K3, K5, K6, K7 and K8 from {kernels} in "
           f"{time.perf_counter() - t0:.2f} s")
     return {"decode_attn": load("decode_attention", _build=build).decode_attn,
             "cross_decode_mha": load("cross_attention",
                                      _build=build).cross_decode_mha,
             "stft_log_mel": load("stft", _build=build).stft_log_mel,
+            "layer_norm": load("layer_norm", _build=build).layer_norm,
             "fused_decoder_layer_step": load(
-                "fused_decoder_step", _build=build).fused_decoder_layer_step}
+                "fused_decoder_step", _build=build).fused_decoder_layer_step,
+            "fused_bias_gelu": load(
+                "custom_gelu_kernel",
+                os.path.join(package, "examples", "custom_kernel"),
+                _build=build).fused_bias_gelu}
 
 
 # --------------------------------------------------------------------------
@@ -526,13 +537,26 @@ def check_stft(torch, rng, card, parent=None):
     return headline
 
 
-def check_layer_norm(torch, rng, card):
+def launch_floor(torch, card) -> float:
+    """The least time one launch takes on the card: PyTorch's spin kernel
+    given nothing to do, timed as every kernel is."""
+    ms = time_ms(torch, lambda: torch.cuda._sleep(0), [()], 200)
+    print(f"launch floor: torch.cuda._sleep(0) ms={ms:.4f} [{card}]")
+    return ms
+
+
+def check_layer_norm(torch, rng, card, floor_ms, parent=None):
+    """K5 at the encoder's rows (batch 4) and the decode step's, both
+    dtypes, with and without bias; timed beside the ``parent``'s K5 where
+    one is given. Returns the encoder's fp32 numbers, with its bf16 ones
+    under "bfloat16" and the decode step's under "decode"."""
     import torch.nn.functional as F
 
     from whisper_trtllm_tpu_torch.ops.kernels import (
         layer_norm,
         layer_norm_reference,
     )
+    from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import norm_plan
 
     d = 384
     cases = [("encoder", (4, 1500, d)), ("decode", (4, 1, d))]
@@ -563,19 +587,31 @@ def check_layer_norm(torch, rng, card):
                          f"{TOLERANCE[dn]}")
                 err = max(err, diff.max().item())
             iters = 200
-            ms = time_ms(torch, layer_norm, sets, iters)
+            ms, p_ms = time_beside(torch, layer_norm,
+                                   parent and parent["layer_norm"], sets,
+                                   iters)
             plain = time_ms(torch, layer_norm_reference, sets, iters)
             lib = time_ms(torch, lambda x, g, bb: F.layer_norm(
                 x, (d,), g, bb, 1e-5), sets, iters)
             nbytes = (2 * rows * d + 2 * d) * item
             b_ms, b_by = bound(nbytes, 8.0 * rows * d, "float32")
-            print(f"kernel layer_norm {name} {dn} rows={rows} d={d}: "
-                  f"max_abs_err={err:.3e} (tol {TOLERANCE[dn]} of "
-                  f"max(|plain|, 1)) ms={ms:.4f} plain_ms={plain:.4f} "
-                  f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+            plan = norm_plan(rows, d, item, True)
+            print(f"kernel layer_norm {name} {dn} rows={rows} d={d} "
+                  f"vec={plan.vec} lanes_a_row={plan.lpr} "
+                  f"vectors_a_lane={plan.vpt} blocks<={plan.blocks}x"
+                  f"{plan.threads}: max_abs_err={err:.3e} (tol "
+                  f"{TOLERANCE[dn]} of max(|plain|, 1)) ms={ms:.4f} "
+                  f"{parent_note(p_ms)}plain_ms={plain:.4f} "
+                  f"library_ms={lib:.4f} bound_ms={b_ms:.6f} ({b_by}) "
+                  f"floor_ms={floor_ms:.4f} [{card}]")
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib)
             if name == "encoder" and dtype == torch.float32:
-                headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                headline = row
+            elif name == "encoder":
+                headline["bfloat16"] = row
+            else:
+                headline.setdefault("decode", {})[dn] = row
     return headline
 
 
@@ -850,17 +886,21 @@ def check_cross(torch, rng, card, parent=None):
     return headline
 
 
-def check_gelu(torch, rng, card):
-    """K8 at its example's (512, 384). The yardstick is two PyTorch calls,
-    ``F.gelu(x + bias)``: no single call computes it."""
+def check_gelu(torch, rng, card, floor_ms, parent=None):
+    """K8 at its example's (512, 384) and at the encoder MLP's fc1 output
+    at batch 4, (6000, 1536), where bandwidth and not the launch sets the
+    pace; timed beside the ``parent``'s K8 where one is given. The
+    yardstick is two PyTorch calls, ``F.gelu(x + bias)``: no single call
+    computes it. Returns the example's fp32 numbers, the other shape's
+    under "encoder_mlp"."""
     import torch.nn.functional as F
 
     from whisper_trtllm_tpu_torch.examples.custom_kernel.custom_gelu_kernel \
-        import fused_bias_gelu, fused_bias_gelu_reference
+        import fused_bias_gelu, fused_bias_gelu_reference, gelu_plan
 
-    rows, d = 512, 384
     headline = None
-    for dtype in (torch.float32, torch.bfloat16):
+    for (rows, d), dtype in [(s, t) for s in ((512, 384), (6000, 1536))
+                             for t in (torch.float32, torch.bfloat16)]:
         dn = str(dtype).split(".")[1]
         item = torch.tensor([], dtype=dtype).element_size()
         sets = []
@@ -874,22 +914,31 @@ def check_gelu(torch, rng, card):
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         if not math.isfinite(err) or err > TOLERANCE[dn]:
-            fail(f"fused_bias_gelu {dn}: max |kernel - plain| = {err} > "
-                 f"{TOLERANCE[dn]}")
+            fail(f"fused_bias_gelu {dn} x=({rows}, {d}): max |kernel - "
+                 f"plain| = {err} > {TOLERANCE[dn]}")
         iters = 200
-        ms = time_ms(torch, fused_bias_gelu, sets, iters)
+        ms, p_ms = time_beside(torch, fused_bias_gelu,
+                               parent and parent["fused_bias_gelu"], sets,
+                               iters)
         plain = time_ms(torch, fused_bias_gelu_reference, sets, iters)
         lib = time_ms(torch, lambda x, bias: F.gelu(x + bias), sets, iters)
         nbytes = (2 * rows * d + d) * item
         # ~20 fp32 operations an element for the add and the exact GELU
         b_ms, b_by = bound(nbytes, 20.0 * rows * d, "float32")
-        print(f"kernel fused_bias_gelu {dn} x=({rows}, {d}): max_abs_err="
-              f"{err:.3e} (tol {TOLERANCE[dn]}) ms={ms:.4f} plain_ms="
-              f"{plain:.4f} library_ms={lib:.4f} (two calls: add, F.gelu) "
-              f"bound_ms={b_ms:.5f} ({b_by}, {nbytes} bytes) [{card}]")
-        if dtype == torch.float32:
-            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        plan = gelu_plan(rows, d, item, True)
+        print(f"kernel fused_bias_gelu {dn} x=({rows}, {d}) vec={plan.vec} "
+              f"block={plan.tx}x{plan.ty} vectors_a_thread={plan.cpt} "
+              f"blocks<={plan.blocks}x{plan.chunks}: max_abs_err={err:.3e} "
+              f"(tol {TOLERANCE[dn]}) ms={ms:.4f} {parent_note(p_ms)}"
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} (two calls: "
+              f"add, F.gelu) bound_ms={b_ms:.5f} ({b_by}, {nbytes} bytes) "
+              f"floor_ms={floor_ms:.4f} [{card}]")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib)
+        if (rows, dtype) == (512, torch.float32):
+            headline = row
+        elif rows == 6000:
+            headline.setdefault("encoder_mlp", {})[dn] = row
     return headline
 
 
@@ -1353,9 +1402,9 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="the checkout of an earlier commit: its K2, K3, K6 "
-                         "and K7 are built from its csrc/ and timed beside "
-                         "these")
+                    help="the checkout of an earlier commit: its K2, K3, K5, "
+                         "K6, K7 and K8 are built from its csrc/ and timed "
+                         "beside these")
     args = ap.parse_args()
     import torch
 
@@ -1389,11 +1438,13 @@ def main() -> None:
     decode = check_decode(torch, rng, card, parent)
     decode["serving"] = check_decode_quant(torch, rng, card, parent)
     stft = check_stft(torch, rng, card, parent)
-    norm = check_layer_norm(torch, rng, card)
+    floor_ms = launch_floor(torch, card)
+    norm = check_layer_norm(torch, rng, card, floor_ms, parent)
     fused = check_fused(torch, rng, card, parent)
     flash_bwd = check_flash_bwd(torch, rng, card)
     cross = check_cross(torch, rng, card, parent)
-    gelu = check_gelu(torch, rng, card)
+    gelu = check_gelu(torch, rng, card, floor_ms, parent)
+    norm["floor_ms"] = gelu["floor_ms"] = floor_ms
     # each kernel's launches from a path that runs it: configuration B, the
     # serving precision, for K1, K2, K3 and K5; E, the float-weight path,
     # for K6; one training step for K4; the hardware check's
@@ -1441,12 +1492,14 @@ def main() -> None:
         r["launches"] = counts[path.get(r["name"], "B")][r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    # K1 and K4 also carry their bf16 numbers at the encoder's shape; K2
-    # its bf16 float case and the serving precision (int8 T-minor, bf16 q)
-    # at the cross case
+    # K1, K4 and K5 also carry their bf16 numbers at the encoder's shape;
+    # K2 its bf16 float case and the serving precision (int8 T-minor, bf16
+    # q) at the cross case; K5 its decode step's, K8 the encoder MLP's
+    # shape, both beside the launch floor
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + [x for x in ("bfloat16", "serving")
-                                  if x in r]}
+        {k: r[k] for k in keys + [x for x in ("bfloat16", "serving",
+                                              "decode", "encoder_mlp",
+                                              "floor_ms") if x in r]}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -393,6 +393,118 @@ def test_layer_norm_kernel_matches_plain(cuda, dtype, tol, with_bias, shape):
     assert err.max().item() <= tol
 
 
+_NORM_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.bfloat16)]
+
+
+def _norm_error(out, ref):
+    """max |kernel - plain| / max(|plain|, 1): a bf16 output may round one
+    way in one and the other in the other."""
+    return ((out.float() - ref.float()).abs()
+            / ref.float().abs().clamp(min=1)).max().item()
+
+
+@pytest.mark.parametrize("x_dtype,p_dtype", _NORM_PAIRS)
+@pytest.mark.parametrize("rows", [1, 4, 6000])
+@pytest.mark.parametrize("d", [6, 100, 384, 1280, 2048])
+def test_layer_norm_kernel_over_widths_and_dtype_pairs(cuda, x_dtype, p_dtype,
+                                                       rows, d):
+    """Every vector and scalar plan K5 takes, in each of its four x and
+    parameter dtype pairs, against the plain version."""
+    from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import norm_plan
+
+    rng = np.random.default_rng(d + rows)
+    x = _normal(rng, (rows, d), 2.0, cuda, x_dtype) + 0.5
+    scale = _normal(rng, (d,), 1.0, cuda, p_dtype)
+    bias = _normal(rng, (d,), 1.0, cuda, p_dtype)
+    item = x.element_size()
+    plan = norm_plan(rows, d, item, True)
+    assert d % plan.vec == 0 and plan.lpr * plan.vpt * plan.vec >= d
+    if d % (16 // item) == 0:
+        assert plan.vec > 1
+    if d % (8 // item) != 0:
+        assert plan.vec == 1
+    out = layer_norm(x, scale, bias)
+    ref = layer_norm_reference(x, scale, bias)
+    assert out.dtype == x_dtype and torch.isfinite(out.float()).all()
+    assert _norm_error(out, ref) <= dict(DTYPES)[x_dtype]
+
+
+@pytest.mark.parametrize("x_dtype,p_dtype", _NORM_PAIRS)
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("what", ["x", "scale", "bias"])
+def test_layer_norm_kernel_at_unaligned_views(cuda, x_dtype, p_dtype, offset,
+                                              what):
+    """x, scale or bias as a view ``offset`` values into its storage, off
+    the 16-byte boundary whenever offset * itemsize is not a multiple of
+    16: the scalar path of the same kernel, still one launch."""
+    from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import norm_plan
+
+    rows, d = 37, 384
+    rng = np.random.default_rng(offset)
+
+    def view(shape, scale, dtype, name):
+        n = int(np.prod(shape))
+        k = offset if name == what else 0
+        return _normal(rng, (n + k,), scale, cuda, dtype)[k:].view(shape)
+
+    x = view((rows, d), 2.0, x_dtype, "x")
+    scale = view((d,), 1.0, p_dtype, "scale")
+    bias = view((d,), 1.0, p_dtype, "bias")
+    moved = {"x": x, "scale": scale, "bias": bias}[what]
+    assert moved.is_contiguous() and moved.storage_offset() == offset
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, bias))
+    assert aligned == (offset * moved.element_size() % 16 == 0)
+    plan = norm_plan(rows, d, x.element_size(), aligned)
+    assert (plan.vec > 1) == aligned
+    before = layer_norm.launches
+    out = layer_norm(x, scale, bias)
+    assert layer_norm.launches == before + 1
+    ref = layer_norm_reference(x, scale, bias)
+    assert _norm_error(out, ref) <= dict(DTYPES)[x_dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_and_gelu_replay_in_a_cuda_graph(cuda, dtype):
+    """K5 on the output of a matmul and K8 on K5's, captured together in a
+    CUDA graph at a width first launched inside the capture (so the
+    kernels' one-wave occupancy query runs there; a warm-up at another
+    width loads the libraries), replayed on new inputs written in place:
+    bit for bit the eager launches."""
+    from whisper_trtllm_tpu_torch.examples.custom_kernel.custom_gelu_kernel \
+        import fused_bias_gelu
+
+    rng = np.random.default_rng(41)
+
+    def inputs(rows, d):
+        return (_normal(rng, (rows, d), 1.0, cuda, dtype),
+                _normal(rng, (d, d), d ** -0.5, cuda, dtype),
+                _normal(rng, (d,), 1.0, cuda, dtype),
+                _normal(rng, (d,), 1.0, cuda, dtype))
+
+    def step(a, w, scale, bias):
+        return fused_bias_gelu(layer_norm(a @ w, scale, bias), bias)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(*inputs(300, 384))
+    torch.cuda.current_stream().wait_stream(side)
+    rows, d = 300, 648
+    a, w, scale, bias = inputs(rows, d)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(a, w, scale, bias)
+    for seed in (1, 2):
+        a.copy_(_normal(np.random.default_rng(seed), (rows, d), 1.0, cuda,
+                        dtype))
+        graph.replay()
+        eager = step(a, w, scale, bias)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), seed
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros(1, 2, 16, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -844,7 +956,8 @@ def test_cross_kernel_is_one_launch_at_the_hardware_check_shape(
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("shape", [(512, 384), (7, 33), (1000, 1536)])
+@pytest.mark.parametrize("shape", [(512, 384), (7, 33), (1000, 1536),
+                                   (6000, 1536), (3, 100003)])
 def test_bias_gelu_kernel_matches_plain(cuda, dtype, tol, shape):
     from whisper_trtllm_tpu_torch.examples.custom_kernel.custom_gelu_kernel \
         import fused_bias_gelu, fused_bias_gelu_reference
@@ -861,6 +974,30 @@ def test_bias_gelu_kernel_matches_plain(cuda, dtype, tol, shape):
     if dtype == torch.float32:
         gelu = torch.nn.functional.gelu(x + bias)
         assert (out - gelu).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("offset", [1, 4, 8])
+@pytest.mark.parametrize("what", ["x", "bias"])
+def test_bias_gelu_kernel_at_unaligned_views(cuda, dtype, tol, offset, what):
+    """x or bias as a view ``offset`` values into its storage: the scalar
+    path of the same kernel wherever the view is off 16 bytes."""
+    from whisper_trtllm_tpu_torch.examples.custom_kernel.custom_gelu_kernel \
+        import fused_bias_gelu, fused_bias_gelu_reference, gelu_plan
+
+    rows, d = 512, 384
+    rng = np.random.default_rng(offset)
+    kx, kb = (offset, 0) if what == "x" else (0, offset)
+    x = _normal(rng, (rows * d + kx,), 2.0, cuda, dtype)[kx:].view(rows, d)
+    bias = _normal(rng, (d + kb,), 1.0, cuda, dtype)[kb:]
+    aligned = x.data_ptr() % 16 == 0 and bias.data_ptr() % 16 == 0
+    assert aligned == (offset * x.element_size() % 16 == 0)
+    assert (gelu_plan(rows, d, x.element_size(), aligned).vec > 1) == aligned
+    before = fused_bias_gelu.launches
+    out = fused_bias_gelu(x, bias)
+    assert fused_bias_gelu.launches == before + 1
+    ref = fused_bias_gelu_reference(x, bias)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
 def test_cross_and_gelu_kernels_refuse_what_they_do_not_take(cuda):

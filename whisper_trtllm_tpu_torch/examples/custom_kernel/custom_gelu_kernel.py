@@ -15,7 +15,9 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,9 +28,41 @@ from whisper_trtllm_tpu_torch.utils.device import resolve_device
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"fused_bias_gelu": [_P, _P, _P, _I, _I, _I, _P]}
+_SIGNATURES = {"fused_bias_gelu": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TOLERANCE = 1e-5
+THREADS = 256            # at most, a block's
+MAX_CPT = 4              # vectors a thread that csrc/fused_bias_gelu.cu takes
+
+
+class GeluPlan(NamedTuple):
+    vec: int      # values a vector: 16 bytes of the dtype, or 1 (scalar)
+    cpt: int      # vectors a thread in its column chunk
+    tx: int       # column threads a row
+    ty: int       # rows a block
+    chunks: int   # column chunks of tx * cpt vectors (the grid's y)
+    blocks: int   # row blocks; the kernel launches one wave of them
+
+
+@functools.lru_cache(maxsize=None)
+def gelu_plan(rows: int, d: int, elem: int, aligned: bool) -> GeluPlan:
+    """K8's launch for x (``rows``, ``d``) of ``elem``-byte values:
+    16-byte vectors where ``d`` divides into them and ``aligned`` (every
+    pointer on 16 bytes), else one value at a time; a row's vectors over
+    at most ``THREADS`` column threads of up to ``MAX_CPT`` vectors each,
+    in as many column chunks as that leaves; as many rows a block as fill
+    ``THREADS``; row blocks for every row, of which the kernel launches
+    one wave (as many as its occupancy lets the card hold) that loops over
+    the rest."""
+    vec = 16 // elem
+    if not (aligned and d % vec == 0):
+        vec = 1
+    nv = d // vec
+    cpt = min(MAX_CPT, -(-nv // THREADS))
+    tx = min(THREADS, -(-nv // cpt))
+    ty = THREADS // tx
+    return GeluPlan(vec, cpt, tx, ty, -(-nv // (tx * cpt)), -(-rows // ty))
 
 
 def fused_bias_gelu_reference(x: torch.Tensor,
@@ -67,10 +101,12 @@ def fused_bias_gelu(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     _build.refuse_grad("fused_bias_gelu", x, bias)
     lib = _build.load("fused_bias_gelu", _SIGNATURES)
     out = torch.empty_like(x)
+    plan = gelu_plan(x.shape[0], x.shape[1], x.element_size(),
+                     _build.aligned16(x, bias, out))
     with torch.cuda.device(x.device):
         err = lib.fused_bias_gelu(x.data_ptr(), bias.data_ptr(),
                                   out.data_ptr(), x.shape[0], x.shape[1],
-                                  _DTYPES[x.dtype],
+                                  _DTYPES[x.dtype], *plan,
                                   torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "fused_bias_gelu")
     fused_bias_gelu.launches += 1

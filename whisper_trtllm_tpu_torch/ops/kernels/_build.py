@@ -127,6 +127,12 @@ def refuse_grad(what: str, *tensors) -> None:
             "differentiable entry point")
 
 
+def aligned16(*tensors) -> bool:
+    """Every given tensor (None skipped) starts on a 16-byte boundary: a
+    kernel may then move it as 16-byte vectors."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch function
     (a refused launch never runs, and no later synchronize reports it)."""

@@ -13,7 +13,8 @@ JAX package has no backward kernel: XLA differentiates its LayerNorm).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -22,10 +23,66 @@ from whisper_trtllm_tpu_torch.ops.kernels import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "layer_norm": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P],
+    "layer_norm": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I,
+                   _I, _I, _I, _I, _I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 2048
+THREADS = 128        # a block's threads when the rows fill more than one
+LANE_VECTORS = 4     # vectors a lane holds before another lane joins its row
+# the vectors a lane that csrc/layer_norm.cu instantiates, by path: 16-byte
+# vectors, 8-byte vectors filling 32 lanes exactly, one value at a time
+VECTOR_VPTS = (1, 2, 3, 4, 6, 8, 12, 16)
+HALF_VPTS = (1, 2, 3, 4)
+SCALAR_VPTS = (1, 2, 3, 4, 8, 16, 32, 64)
+
+
+class NormPlan(NamedTuple):
+    vec: int       # values a vector: 16 or 8 bytes of x's dtype, or 1
+    lpr: int       # lanes a row, a power of two
+    vpt: int       # vectors a lane; lpr * vpt * vec >= d
+    rpw: int       # rows a warp, 32 // lpr
+    threads: int   # a block's
+    blocks: int    # one warp a row group; the kernel launches one wave
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def norm_plan(rows: int, d: int, elem: int, aligned: bool) -> NormPlan:
+    """K5's launch for ``rows`` rows of ``d`` values of ``elem`` bytes.
+
+    Rows that fit in one block (at most ``THREADS // 32`` warps of one row
+    each) are bound by the kernel's chain of instructions: 32 lanes a row,
+    each with as few values as fill them exactly, in 16-byte vectors or,
+    where those leave lanes idle, 8-byte ones. Otherwise 16-byte vectors
+    where ``d`` divides into them, else one value at a time; the fewest
+    lanes a row (a power of two up to 32) that hold it in
+    ``LANE_VECTORS`` vectors a lane, rounded up to an instantiated count.
+    Every vector path needs ``aligned`` (every pointer on 16 bytes). Rows
+    that fit in one block get just the warps they need, more get
+    ``THREADS``-thread blocks, one warp a row group, of which the kernel
+    launches one wave (as many as its occupancy lets the card hold) that
+    loops over the rest."""
+    wide = 16 // elem
+    if aligned and rows * 32 <= THREADS:
+        for vec, vpts in ((wide, VECTOR_VPTS), (wide // 2, HALF_VPTS)):
+            if d % (32 * vec) == 0 and d // (32 * vec) in vpts:
+                return NormPlan(vec, 32, d // (32 * vec), 1, rows * 32, 1)
+    vec = wide if aligned and d % wide == 0 else 1
+    nv = d // vec
+    lpr = 1
+    while lpr < 32 and lpr * LANE_VECTORS < nv:
+        lpr *= 2
+    vpt = min(v for v in (VECTOR_VPTS if vec > 1 else SCALAR_VPTS)
+              if lpr * v >= nv)
+    rpw = 32 // lpr
+    warps = _ceil(rows, rpw)
+    if warps * 32 <= THREADS:
+        return NormPlan(vec, lpr, vpt, rpw, warps * 32, 1)
+    return NormPlan(vec, lpr, vpt, rpw, THREADS, _ceil(warps, THREADS // 32))
 
 
 def layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -81,11 +138,14 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
     d = x.shape[-1]
     rows = x.numel() // d
     out = torch.empty_like(x)
+    plan = norm_plan(rows, d, x.element_size(),
+                     _build.aligned16(x, scale, bias, out))
     with torch.cuda.device(x.device):
         err = lib.layer_norm(
             x.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), rows,
-            d, eps, _DTYPES[x.dtype], _DTYPES[scale.dtype],
+            d, eps, _DTYPES[x.dtype], _DTYPES[scale.dtype], plan.vec,
+            plan.lpr, plan.vpt, plan.blocks, plan.threads,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "layer_norm")
     layer_norm.launches += 1
