@@ -11,15 +11,19 @@ K5, its fused decoder-layer step K6 and its bias+GELU K8 from its own
 (parent, this, this, parent), as ``parent_ms`` on their lines; without it
 nothing else is built.
 
-Five phases; any failure raises and the script exits non-zero:
+Six phases, each timed; any failure raises and the script exits non-zero:
 
 1. build — compiles every kernel of the main paths from ``csrc/`` with
    ``nvcc`` for sm_90a (one ``nvcc`` per source, all at once: eight
    sources) and prints the build time, ``nvcc``'s register/spill report and
    the card's name and power limit;
 2. kernels — holds each kernel against its plain PyTorch version on the
-   card at the main paths' shapes, in fp32 and bf16 (decode attention also
-   with int8 and fp8 caches, both cache layouts and per-lane valid
+   card at the main paths' shapes, in fp32 and bf16 (and, from a random
+   stream of their own, at the bench's: flash attention, the quantized
+   decode attention and LayerNorm at tiny.en's batch 32 and medium.en's
+   and large-v3's batch 16, the STFT frontend at batch 32, the fused
+   decoder-layer step at the benchmark grid's batch 1 and 8; decode attention
+   also with int8 and fp8 caches, both cache layouts and per-lane valid
    lengths, its cross case at batch 4 and 32, each line with its split
    plan and the blocks it launches; the fused decoder-layer step over a
    sweep of positions; the flash backward at the encoder's, the training
@@ -62,12 +66,25 @@ Five phases; any failure raises and the script exits non-zero:
    weight by ~lr), whose loss must fall, timed, with the peak device
    memory; (c) ``python -m whisper_trtllm_tpu_torch.cli.finetune``
    for 3 epochs with ``--remat --guided-attn 1`` on a pickle of the same
-   batch, with exact launch counts, its checkpoint reloaded.
+   batch, with exact launch counts, its checkpoint reloaded;
+6. bench — runs ``python -m whisper_trtllm_tpu_torch.cli.bench --fp32``
+   (tiny.en at batch 32, medium.en and large-v3 at batch 16; its gate reads
+   the record phase 3 wrote) and ``python -m
+   whisper_trtllm_tpu_torch.benchmarks.benchmark --model tiny.en --batch 1
+   8 --dtype float32 bfloat16`` as subprocesses and prints their lines: the
+   gate must pass, every number be finite and positive, MFU and each
+   section's decode roofline share at most 1.05, both sections present,
+   and each grid row must show K6 once a decode layer; then one headline
+   pass in this process with exact K1, K2, K3 and K5 launch counts and no
+   K6, the headline batch's stages timed one by one, and the card's idle
+   share: the device time of one pass under ``torch.profiler`` over the
+   median wall time of three passes not traced.
 
 The line before the last is one JSON object with every ported kernel's
 numbers (K1's, K4's and K5's also in bf16, under "bfloat16"; K5's decode
 step under "decode", K8's (6000, 1536) under "encoder_mlp", both with the
-launch floor as "floor_ms"); the last is ``{"ok": true, "device":
+launch floor as "floor_ms"; the bench path's launches as "bench_launches");
+the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
 and prints no result.
@@ -75,6 +92,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -232,7 +250,21 @@ def load_parent(root: str) -> dict:
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def check_flash(torch, rng, card):
+FLASH_CASES = [  # (name, B, H, Hkv, S=T, dh, causal)
+    ("encoder", 4, 6, 6, 1500, 64, False),
+    ("gqa", 4, 6, 2, 1500, 64, False),
+    ("causal", 4, 6, 6, 1500, 64, True),
+    ("dh128", 1, 2, 2, 300, 128, False),
+]
+# the bench's encoders: tiny.en at batch 32, medium.en and large-v3 at 16
+BENCH_FLASH_CASES = [("encoder", 32, 6, 6, 1500, 64, False),
+                     ("encoder", 16, 16, 16, 1500, 64, False),
+                     ("encoder", 16, 20, 20, 1500, 64, False)]
+
+
+def check_flash(torch, rng, card, cases=FLASH_CASES):
+    """K1 at ``cases``; returns the batch-4 encoder's numbers (fp32, the
+    bf16 ones under "bfloat16"), None where ``cases`` has no such case."""
     import torch.nn.functional as F
 
     from whisper_trtllm_tpu_torch.ops.kernels import (
@@ -240,12 +272,6 @@ def check_flash(torch, rng, card):
         flash_fwd,
     )
 
-    cases = [  # (name, B, H, Hkv, S=T, dh, causal)
-        ("encoder", 4, 6, 6, 1500, 64, False),
-        ("gqa", 4, 6, 2, 1500, 64, False),
-        ("causal", 4, 6, 6, 1500, 64, True),
-        ("dh128", 1, 2, 2, 300, 128, False),
-    ]
     headline = None
     for name, b, h, hkv, s, dh, causal in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -284,13 +310,14 @@ def check_flash(torch, rng, card):
                   f"(tol {TOLERANCE[dn]}) ms={ms:.4f} plain_ms={plain:.4f} "
                   f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
                   f"[{card}]")
-            if name == "encoder":
+            if (name, b) == ("encoder", 4):
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
                 if dtype == torch.float32:
                     headline = row
                 else:
                     headline["bfloat16"] = row
+            del sets
     return headline
 
 
@@ -383,11 +410,29 @@ def check_decode(torch, rng, card, parent=None):
     return headline
 
 
-def check_decode_quant(torch, rng, card, parent=None):
+# (name, B, H, T, valid lengths checked, valid length timed): a per-lane
+# sweep, lane i reading (v + 9 i) mod 34 rows, v = 0..33, so that every
+# lane meets every length 0..33 (0: the uniform softmax); the full cache at
+# batch 32; the cross case at batch 4 and 32
+QUANT_CASES = [("self", 4, 6, 33, [[(v + 9 * i) % 34 for i in range(4)]
+                                   for v in range(34)], [33] * 4),
+               ("self", 32, 6, 33, [[33] * 32], [33] * 32),
+               ("cross", 4, 6, 1504, [1500], 1500),
+               ("cross", 32, 6, 1504, [1500], 1500)]
+# the bench's: its self caches of 49 rows (48 tokens) and its cross caches
+# at tiny.en's batch 32 and medium.en's and large-v3's batch 16
+BENCH_QUANT_CASES = [("self", 32, 6, 49, [[49] * 32], [49] * 32),
+                     ("self", 16, 20, 49, [[49] * 16], [49] * 16),
+                     ("cross", 16, 16, 1504, [1500], 1500),
+                     ("cross", 16, 20, 1504, [1500], 1500)]
+
+
+def check_decode_quant(torch, rng, card, parent=None, cases=QUANT_CASES):
     """K2 with int8/fp8 caches (scales folded in), both cache layouts, fp32
     and bf16 q: a per-lane valid_len sweep at the self-attention shape
     (batch 4; the full cache at batch 32) and the scalar cross case at
-    batch 4 and 32. No single PyTorch call computes it: no library time.
+    batch 4 and 32 (``QUANT_CASES``), or the bench's (``BENCH_QUANT_CASES``).
+    No single PyTorch call computes it: no library time.
     Each case is timed beside the ``parent``'s K2 where one is given.
     Returns the serving precision's numbers (int8 T-minor cache, bf16 q,
     the batch-4 cross case)."""
@@ -397,17 +442,10 @@ def check_decode_quant(torch, rng, card, parent=None):
         decode_attn,
     )
 
-    h, dh = 6, 64
-    # per-lane sweep: lane i reads (v + 9 i) mod 34 rows, v = 0..33, so every
-    # lane meets every length 0..33 (0: the uniform softmax)
-    cases = [("self", 4, 33, [[(v + 9 * i) % 34 for i in range(4)]
-                              for v in range(34)], [33] * 4),
-             ("self", 32, 33, [[33] * 32], [33] * 32),
-             ("cross", 4, 1504, [1500], 1500),
-             ("cross", 32, 1504, [1500], 1500)]
+    dh = 64
     kinds = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
     serving = None
-    for name, b, t, sweep, vl_timed in cases:
+    for name, b, h, t, sweep, vl_timed in cases:
         for kind, qdt in kinds.items():
             for t_major in (False, True):
                 for dtype in (torch.float32, torch.bfloat16):
@@ -474,13 +512,21 @@ def check_decode_quant(torch, rng, card, parent=None):
                         serving = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                        bound_ms=b_ms, bound_by=b_by,
                                        library_ms=None)
+                    del sets
     return serving
 
 
-def check_stft(torch, rng, card, parent=None):
-    """K3 at the frontend's shapes, batch 4, 80 and 128 mels, half of one
-    utterance silent; timed beside the ``parent``'s K3 where one is
-    given."""
+# (batch, mels): the bundled batch's frontend at tiny.en's 80 mels and at
+# large-v3's 128; the bench's: the headline's batch of 32 utterances
+STFT_CASES = [(4, 80), (4, 128)]
+BENCH_STFT_CASES = [(32, 80)]
+
+
+def check_stft(torch, rng, card, parent=None, cases=STFT_CASES):
+    """K3 at the frontend's shapes, 3003 blocks of 160 samples, half of one
+    utterance silent (``STFT_CASES``, or the bench's ``BENCH_STFT_CASES``);
+    timed beside the ``parent``'s K3 where one is given. Returns the
+    batch-4, 80-mel numbers, None where ``cases`` has no such case."""
     from whisper_trtllm_tpu_torch.audio.features import (
         HOP_LENGTH,
         N_FFT,
@@ -491,9 +537,9 @@ def check_stft(torch, rng, card, parent=None):
         stft_log_mel_reference,
     )
 
-    b, n_blocks = 4, 3003
+    n_blocks = 3003
     headline = None
-    for n_mels in (80, 128):
+    for b, n_mels in cases:
         fe = LogMelSpectrogram(n_mels, device=DEVICE)
         basis, mel_fb = fe.dft_basis[:N_FFT], fe.mel_fb
         sets = []
@@ -506,7 +552,7 @@ def check_stft(torch, rng, card, parent=None):
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         if not math.isfinite(err) or err > STFT_TOLERANCE:
-            fail(f"stft_log_mel M={n_mels}: max |kernel - plain| = {err} > "
+            fail(f"stft_log_mel B={b} M={n_mels}: max |kernel - plain| = {err} > "
                  f"{STFT_TOLERANCE}")
         ms, p_ms = time_beside(
             torch, lambda x: stft_log_mel(x, basis, mel_fb),
@@ -531,7 +577,7 @@ def check_stft(torch, rng, card, parent=None):
               f"(tol {STFT_TOLERANCE}) ms={ms:.4f} {parent_note(p_ms)}"
               f"plain_ms={plain:.4f} library_ms=none bound_ms={b_ms:.4f} "
               f"({b_by}) [{card}]")
-        if n_mels == 80:
+        if (b, n_mels) == (4, 80):
             headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return headline
@@ -545,10 +591,20 @@ def launch_floor(torch, card) -> float:
     return ms
 
 
-def check_layer_norm(torch, rng, card, floor_ms, parent=None):
+# (name, x's shape): the bundled batch's encoder and decode rows at tiny.en's
+# width; the bench's: tiny.en at batch 32, medium.en and large-v3 at 16
+NORM_CASES = [("encoder", (4, 1500, 384)), ("decode", (4, 1, 384))]
+BENCH_NORM_CASES = [("encoder", (32, 1500, 384)), ("decode", (32, 1, 384)),
+                    ("encoder", (16, 1500, 1024)), ("decode", (16, 1, 1024)),
+                    ("encoder", (16, 1500, 1280)), ("decode", (16, 1, 1280))]
+
+
+def check_layer_norm(torch, rng, card, floor_ms, parent=None,
+                     cases=NORM_CASES):
     """K5 at the encoder's rows (batch 4) and the decode step's, both
-    dtypes, with and without bias; timed beside the ``parent``'s K5 where
-    one is given. Returns the encoder's fp32 numbers, with its bf16 ones
+    dtypes, with and without bias (``NORM_CASES``), or at the bench's
+    (``BENCH_NORM_CASES``); timed beside the ``parent``'s K5 where one is
+    given. Returns the encoder's fp32 numbers, with its bf16 ones
     under "bfloat16" and the decode step's under "decode"."""
     import torch.nn.functional as F
 
@@ -558,10 +614,9 @@ def check_layer_norm(torch, rng, card, floor_ms, parent=None):
     )
     from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import norm_plan
 
-    d = 384
-    cases = [("encoder", (4, 1500, d)), ("decode", (4, 1, d))]
     headline = None
     for name, shape in cases:
+        d = shape[-1]
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
             item = torch.tensor([], dtype=dtype).element_size()
@@ -615,22 +670,31 @@ def check_layer_norm(torch, rng, card, floor_ms, parent=None):
     return headline
 
 
-def check_fused(torch, rng, card, parent=None):
-    """K6 at tiny.en's decoder-layer shapes, batch 4: self cache of 33 rows
-    at positions 0, 16 and 32, cross cache of 1504 rows of which 1500 are
-    valid; timed beside the ``parent``'s K6 where one is given. No single
-    PyTorch call computes it: no library time."""
+# (batch, self cache rows, positions checked; the last is timed): the
+# bundled batch's 17 steps; the benchmark grid's float rows, batch 1 and 8
+# (its 8 rows fill the kernel's 8-row padding), 48 steps
+FUSED_CASES = [(4, 33, (0, 16, 32))]
+BENCH_FUSED_CASES = [(1, 49, (0, 24, 48)), (8, 49, (0, 24, 48))]
+
+
+def check_fused(torch, rng, card, parent=None, cases=FUSED_CASES):
+    """K6 at tiny.en's decoder-layer shapes, over ``cases`` (or the bench's
+    ``BENCH_FUSED_CASES``): a self cache swept over positions, a cross
+    cache of 1504 rows of which 1500 are valid; timed beside the
+    ``parent``'s K6 where one is given. No single PyTorch call computes it:
+    no library time. Returns the batch-4 fp32 numbers, None where ``cases``
+    has no batch 4."""
     from whisper_trtllm_tpu_torch.ops.kernels import (
         fused_decoder_layer_step,
         fused_decoder_layer_step_reference,
     )
     from whisper_trtllm_tpu_torch.ops.kernels.fused_decoder_step import PHASES
 
-    b, d, h, ffn, ts, tc, enc_len = 4, 384, 6, 1536, 33, 1504, 1500
+    d, h, ffn, tc, enc_len = 384, 6, 1536, 1504, 1500
     dh = d // h
-    positions = (0, 16, 32)
     headline = None
-    for dtype in (torch.float32, torch.bfloat16):
+    for (b, ts, positions), dtype in itertools.product(
+            cases, (torch.float32, torch.bfloat16)):
         dn = str(dtype).split(".")[1]
         item = torch.tensor([], dtype=dtype).element_size()
         weights = 4 * d * d + 2 * d * ffn
@@ -674,7 +738,7 @@ def check_fused(torch, rng, card, parent=None):
                 bad = (diff / ref.float().abs().clamp(min=1)).max().item() > tol
             e = diff.max().item()
             if not math.isfinite(e) or bad:
-                fail(f"fused_decoder_layer_step {dn} pos={pos}: max |kernel - "
+                fail(f"fused_decoder_layer_step {dn} B={b} pos={pos}: max |kernel - "
                      f"plain| = {e} beyond its tolerance {tol}")
             err = max(err, e)
         pos = positions[-1]
@@ -697,7 +761,7 @@ def check_fused(torch, rng, card, parent=None):
             fused_decoder_layer_step(x, h1, pt, lp, *c, el, timeline=timeline)
             marks.append(timeline.diff().double().cpu())
         phase_us = (torch.stack(marks).mean(0) / 1e3).tolist()
-        print(f"kernel fused_decoder_layer_step {dn} phases (us, mean of 50, "
+        print(f"kernel fused_decoder_layer_step {dn} B={b} phases (us, mean of 50, "
               f"{len(PHASES) - 1} waits) [{card}]: "
               + ", ".join(f"{n} {t:.2f}" for n, t in zip(PHASES, phase_us)))
         # this run's work: the self rows t <= pos and the cross rows
@@ -713,7 +777,7 @@ def check_fused(torch, rng, card, parent=None):
               f"{tol}) at pos={pos}: ms={ms:.4f} {parent_note(p_ms)}"
               f"plain_ms={plain:.4f} "
               f"library_ms=none bound_ms={b_ms:.4f} ({b_by}) [{card}]")
-        if dtype == torch.float32:
+        if (b, dtype) == (4, torch.float32):
             headline = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return headline
@@ -946,13 +1010,14 @@ def check_gelu(torch, rng, card, floor_ms, parent=None):
 # phase 3: the hardware check and the custom-kernel example
 # --------------------------------------------------------------------------
 
-def run_module(module: str, timeout: int):
-    """``python -m module`` from the repository's root; fails the run
-    unless it exits 0. Returns its standard output."""
+def run_module(module: str, timeout: int, args=()):
+    """``python -m module args`` from the repository's root; fails the run
+    unless it exits 0. Returns its standard output and its wall seconds."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", module], capture_output=True,
-                         text=True, timeout=timeout, cwd=ROOT, env=env)
+    out = subprocess.run([sys.executable, "-m", module, *args],
+                         capture_output=True, text=True, timeout=timeout,
+                         cwd=ROOT, env=env)
     wall = time.perf_counter() - t0
     if out.returncode != 0:
         fail(f"{module} exited {out.returncode}:\n{out.stdout[-4000:]}\n"
@@ -1102,6 +1167,40 @@ def k6_host_costs(torch, session, cfg, enc, step_ms, card):
           f"({per_step / step_ms / 10:.2f}%)")
 
 
+def timed(torch, fn, reps=5):
+    """(fn's result, median ms, min ms, max ms) of ``reps`` calls, each
+    between two syncs of the card (the bench's ``timed_calls``)."""
+    from whisper_trtllm_tpu_torch.benchmarks.benchmark import timed_calls
+
+    out, times = timed_calls(fn, torch.device(DEVICE), reps, warmup=0)
+    return out, statistics.median(times), min(times), max(times)
+
+
+def transcribe_launches(cfg, gen_tokens: int, batches: int, fused: bool,
+                        frontend: bool) -> dict:
+    """Kernel launches of ``batches`` transcribes of ``gen_tokens`` decode
+    steps each: per batch K3 once with the frontend, K1 once an encoder
+    layer and K5 twice an encoder layer and once after; per step, unfused,
+    K2 twice a layer (self and cross attention) and K5 three times a layer
+    and once after; fused (float weights and KV caches), K5 for each
+    layer's LN1 and the final LN and one K6 a layer for the rest."""
+    le, ld = cfg.encoder_layers, cfg.decoder_layers
+    if fused:
+        step = {"decode_attn": 0, "fused_decoder_layer_step": ld,
+                "layer_norm": ld + 1}
+    else:
+        step = {"decode_attn": 2 * ld, "fused_decoder_layer_step": 0,
+                "layer_norm": 3 * ld + 1}
+    return {"flash_fwd": le * batches, "flash_bwd": 0,
+            "decode_attn": step["decode_attn"] * gen_tokens * batches,
+            "stft_log_mel": batches if frontend else 0,
+            "layer_norm": (2 * le + 1 + step["layer_norm"] * gen_tokens)
+            * batches,
+            "fused_decoder_layer_step":
+                step["fused_decoder_layer_step"] * gen_tokens * batches,
+            "cross_decode_mha": 0}
+
+
 def end_to_end(torch, np, card):
     """Returns each configuration's kernel launch counts."""
     from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
@@ -1126,16 +1225,6 @@ def end_to_end(torch, np, card):
     trees = {"int8": (params, params_cpu),
              "float": (float_tree(params), float_tree(params_cpu))}
     trees["chain"] = trees["float"]
-
-    def timed(fn, reps=5):
-        out, times = None, []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return out, statistics.median(times), min(times), max(times)
 
     counts = {}
     for name, (weights, compute, kv, layout, vs_cpu, timing) in CONFIGS.items():
@@ -1167,21 +1256,8 @@ def end_to_end(torch, np, card):
             print(f"{tag}: {'ok  ' if got == want else 'BAD '} {got!r}")
         if texts != expected:
             fail(f"{tag}: transcripts differ from artifacts/expected.json")
-        layers = cfg.decoder_layers
-        want = {"flash_fwd": cfg.encoder_layers, "flash_bwd": 0,
-                "stft_log_mel": 1, "cross_decode_mha": 0}
-        if weights == "float":
-            # per step: LN1 of each layer and the final LN; one fused launch
-            # a layer does the rest, attention included
-            want.update(decode_attn=0,
-                        layer_norm=2 * cfg.encoder_layers + 1
-                        + (layers + 1) * steps,
-                        fused_decoder_layer_step=layers * steps)
-        else:
-            want.update(decode_attn=2 * layers * steps,
-                        layer_norm=2 * cfg.encoder_layers + 1
-                        + (3 * layers + 1) * steps,
-                        fused_decoder_layer_step=0)
+        want = transcribe_launches(cfg, steps, 1, fused=weights == "float",
+                                   frontend=True)
         if launches != want:
             fail(f"{tag}: kernel launches {launches}, expected {want}")
         counts[name] = launches
@@ -1198,14 +1274,18 @@ def end_to_end(torch, np, card):
             continue
         audio_t = torch.from_numpy(audio)
         with torch.inference_mode():
-            mel, fe_ms, fe_lo, fe_hi = timed(lambda: session.frontend(audio_t))
-            enc, en_ms, en_lo, en_hi = timed(lambda: session.encode(mel))
+            mel, fe_ms, fe_lo, fe_hi = timed(
+                torch, lambda: session.frontend(audio_t))
+            enc, en_ms, en_lo, en_hi = timed(
+                torch, lambda: session.encode(mel))
             _, de_ms, de_lo, de_hi = timed(
+                torch,
                 lambda: gen_rt.greedy_decode(session.params, cfg, enc, gen))
             if name == "E":
                 k6_host_costs(torch, session, cfg, enc, de_ms / steps, card)
         torch.cuda.reset_peak_memory_stats()
-        _, tr_ms, tr_lo, tr_hi = timed(lambda: session.transcribe(audio))
+        _, tr_ms, tr_lo, tr_hi = timed(torch,
+                                       lambda: session.transcribe(audio))
         stats = session.memory_stats()
         print(f"{tag} timing (median of 5, min..max) batch 4, {steps} decode "
               f"steps [{card}]: frontend {fe_ms:.2f} ms ({fe_lo:.2f}..{fe_hi:.2f}), "
@@ -1397,6 +1477,155 @@ def training(torch, np, card):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 6: the bench
+# --------------------------------------------------------------------------
+
+# a share of a bound above 1 means a wrong count or a wrong timer
+MAX_BOUND_SHARE = 1.05
+
+
+def _numbers(tree, path=""):
+    """(path, value) of every number in a JSON tree, booleans apart."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _numbers(v, f"{path}/{k}")
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield path, tree
+
+
+def bench_phase(torch, np, card):
+    """Runs ``cli.bench --fp32`` and ``benchmarks.benchmark`` as
+    subprocesses and checks their lines; then one headline pass in this
+    process with the launches counted, the headline's batch split into its
+    stages, and the card's idle share: one pass's device time under
+    ``torch.profiler`` over the median of three passes not traced. Returns the launches of the headline pass (K1, K2, K3, K5) and of the
+    benchmark CLI's batch-8 float32 row (K6)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_trtllm_tpu_torch.benchmarks.benchmark import timed_calls
+    from whisper_trtllm_tpu_torch.cli import bench
+    from whisper_trtllm_tpu_torch.config import WhisperConfig
+    from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        KERNELS,
+        reset_launch_counts,
+    )
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+    from whisper_trtllm_tpu_torch.utils.profile_transcribe import _device_us
+
+    # (a) the one-line bench; phase 3 wrote a fresh gpu_check record
+    stdout, wall = run_module("whisper_trtllm_tpu_torch.cli.bench", 900,
+                              ["--fp32"])
+    line = json.loads(stdout.strip().splitlines()[-1])
+    print(f"bench ({wall:.1f} s of wall time): {json.dumps(line)}")
+    bad = [f"{p}={v}" for p, v in _numbers(line)
+           if not (math.isfinite(v) and v > 0)]
+    if bad:
+        fail(f"bench: numbers not finite and positive: {bad}")
+    if line["gpu_check"]["status"] != "pass":
+        fail(f"bench: the gate did not pass: {line['gpu_check']}")
+    for key in ("medium", "large"):
+        sec = line.get(key)
+        if not isinstance(sec, dict) or "skipped" in sec:
+            fail(f"bench: the {key} section is missing or skipped: {sec}")
+        if not sec["decode_roofline_frac"] <= MAX_BOUND_SHARE:
+            fail(f"bench: {key} decode_roofline_frac "
+                 f"{sec['decode_roofline_frac']} > {MAX_BOUND_SHARE}")
+    if not (line["mfu"] is not None and 0 < line["mfu"] <= MAX_BOUND_SHARE):
+        fail(f"bench: mfu {line['mfu']} not in (0, {MAX_BOUND_SHARE}]")
+
+    # (b) the grid CLI: float weights and KV at batch <= 16 take K6 for
+    # every decode layer, in fp32 and in bf16
+    cfg = WhisperConfig.tiny_en()
+    stdout, wall = run_module(
+        "whisper_trtllm_tpu_torch.benchmarks.benchmark", 600,
+        ["--model", "tiny.en", "--batch", "1", "8", "--dtype", "float32",
+         "bfloat16"])
+    rows = [json.loads(x) for x in stdout.strip().splitlines()]
+    k6 = None
+    for row in rows:
+        print(f"benchmark: {json.dumps(row)}")
+        want = transcribe_launches(cfg, row["gen_tokens"], row["iters"],
+                                   fused=True, frontend=False)
+        want = {k: n for k, n in want.items() if n}
+        if row["launches"] != want:
+            fail(f"benchmark {row['dtype']} batch {row['batch']}: launches "
+                 f"{row['launches']}, expected {want}")
+        if (row["dtype"], row["batch"]) == ("float32", 8):
+            k6 = row["launches"]["fused_decoder_layer_step"]
+    if len(rows) != 4 or k6 is None:
+        fail(f"benchmark: expected 4 rows with float32 batch 8, got {rows}")
+    print(f"benchmark: {len(rows)} rows in {wall:.1f} s of wall time; K6 "
+          f"{cfg.decoder_layers} launches a decode step in every row")
+
+    # (c) one headline pass in this process, counted
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED)
+    audio = [torch.from_numpy(
+        rng.standard_normal((bench.BATCH, bench.N_SAMPLES)).astype(np.float32)
+        * np.float32(0.1)).to(dev) for _ in range(bench.N_BATCHES)]
+    session = bench.bench_session(cfg, "int8", "bfloat16", device=dev)
+
+    def one_pass():
+        return bench.run_pass(session, audio, frontend=True)
+
+    one_pass()  # warm-up
+    reset_launch_counts()
+    _, pass_ms = timed_calls(one_pass, dev, 1, warmup=0)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    want = transcribe_launches(cfg, bench.GEN_TOKENS, bench.N_BATCHES,
+                               fused=False, frontend=True)
+    if launches != want:
+        fail(f"bench headline pass: launches {launches}, expected {want}")
+    # two more passes, none traced: the wall time of the idle share (e)
+    pass_ms += timed_calls(one_pass, dev, 2, warmup=0)[1]
+    untraced_ms = statistics.median(pass_ms)
+    print(f"bench headline pass in process ({bench.N_BATCHES} x batch "
+          f"{bench.BATCH}, {bench.GEN_TOKENS} steps): {pass_ms[0]:.2f} ms, "
+          f"launches {launches} as expected; 3 passes: median "
+          f"{untraced_ms:.2f} ms ({min(pass_ms):.2f}..{max(pass_ms):.2f}) "
+          f"[{card}]")
+
+    # (d) where the headline batch's time goes (the passes above warmed
+    # every stage up): median of 3 (min..max)
+    gen = session.generation
+    with torch.inference_mode():
+        mel, fe, fe_lo, fe_hi = timed(
+            torch, lambda: session.frontend(audio[0]), 3)
+        enc, en, en_lo, en_hi = timed(torch, lambda: session.encode(mel), 3)
+        _, cr, cr_lo, cr_hi = timed(torch, lambda: wmodel.compute_cross_kv(
+            session.params, session.cfg, enc), 3)
+        _, de, de_lo, de_hi = timed(torch, lambda: gen_rt.greedy_decode(
+            session.params, session.cfg, enc, gen), 3)
+    steps = bench.GEN_TOKENS
+    print(f"bench headline batch stages (batch {bench.BATCH}, median of 3, "
+          f"min..max) [{card}]: frontend {fe:.2f} ms ({fe_lo:.2f}..{fe_hi:.2f}), "
+          f"encode {en:.2f} ms ({en_lo:.2f}..{en_hi:.2f}), greedy decode "
+          f"{de:.2f} ms ({de_lo:.2f}..{de_hi:.2f}; cross K/V inside it "
+          f"{cr:.2f} ms, {cr_lo:.2f}..{cr_hi:.2f}), {de / steps:.3f} ms a "
+          f"decode step")
+
+    # (e) the card's idle share over a headline pass: the device time of
+    # one traced pass over the median untraced pass of (c), whose host
+    # time the profiler's own does not inflate; the share against the
+    # traced pass's wall beside it
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, traced_ms = timed_calls(one_pass, dev, 1, warmup=0)
+    busy_ms = sum(_device_us(e) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("Activity Buffer")) / 1e3
+    if not busy_ms > 0:
+        fail("bench: the profiler traced no device time")
+    print(f"bench headline pass [{card}]: device busy {busy_ms:.2f} ms "
+          f"(traced), idle share {1 - busy_ms / untraced_ms:.3f} of the "
+          f"median untraced pass ({untraced_ms:.2f} ms); "
+          f"{1 - busy_ms / traced_ms[0]:.3f} of the traced pass's wall "
+          f"({traced_ms[0]:.2f} ms, the profiler's cost included)")
+    return launches, k6
+
 def main() -> None:
     import argparse
 
@@ -1421,9 +1650,11 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    phase_s = {}
     t0 = time.perf_counter()
     _build.build(SOURCES)
-    print(f"build: {time.perf_counter() - t0:.2f} s for {len(SOURCES)} "
+    phase_s["build"] = time.perf_counter() - t0
+    print(f"build: {phase_s['build']:.2f} s for {len(SOURCES)} "
           f"sources (nvcc -gencode arch=compute_90a,code=sm_90a)")
     for src in SOURCES:
         log = _build.library_path(src).with_suffix(".log").read_text()
@@ -1433,6 +1664,7 @@ def main() -> None:
 
     parent = load_parent(args.parent) if args.parent else None
     set_fp32_precision()
+    t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
     flash = check_flash(torch, rng, card)
     decode = check_decode(torch, rng, card, parent)
@@ -1445,14 +1677,37 @@ def main() -> None:
     cross = check_cross(torch, rng, card, parent)
     gelu = check_gelu(torch, rng, card, floor_ms, parent)
     norm["floor_ms"] = gelu["floor_ms"] = floor_ms
+    # every kernel of the bench's paths at their shapes, after the cases
+    # above and from a stream of their own, so that neither's inputs hang
+    # on the other's: K1, K2 (quantized), K3 and K5 at the headline's and
+    # the sections' widths, K6 at the benchmark grid's
+    rng = np.random.default_rng(SEED + 1)
+    check_flash(torch, rng, card, BENCH_FLASH_CASES)
+    check_decode_quant(torch, rng, card, parent, BENCH_QUANT_CASES)
+    check_stft(torch, rng, card, parent, BENCH_STFT_CASES)
+    check_layer_norm(torch, rng, card, floor_ms, parent, BENCH_NORM_CASES)
+    check_fused(torch, rng, card, parent, BENCH_FUSED_CASES)
+    phase_s["kernels"] = time.perf_counter() - t0
     # each kernel's launches from a path that runs it: configuration B, the
     # serving precision, for K1, K2, K3 and K5; E, the float-weight path,
     # for K6; one training step for K4; the hardware check's
     # cross_attn_kernel for K7; the example's main() for K8
     counts = {}
+    t0 = time.perf_counter()
     counts["gpu_check"], counts["example"] = hardware_check(card)
+    phase_s["hardware check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     counts.update(end_to_end(torch, np, card))
+    phase_s["end to end"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     counts["train"] = training(torch, np, card)
+    phase_s["training"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts["bench"], bench_k6 = bench_phase(torch, np, card)
+    counts["bench"]["fused_decoder_layer_step"] = bench_k6
+    phase_s["bench"] = time.perf_counter() - t0
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in phase_s.items()))
 
     rows = [
         dict(name="flash_fwd", route="cuda",
@@ -1490,6 +1745,10 @@ def main() -> None:
             "cross_decode_mha": "gpu_check", "fused_bias_gelu": "example"}
     for r in rows:
         r["launches"] = counts[path.get(r["name"], "B")][r["name"]]
+        # the bench's path: its headline pass (K1, K2, K3, K5) and the
+        # benchmark CLI's float32 batch-8 row (K6)
+        if counts["bench"].get(r["name"]):
+            r["bench_launches"] = counts["bench"][r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # K1, K4 and K5 also carry their bf16 numbers at the encoder's shape;
@@ -1497,9 +1756,10 @@ def main() -> None:
     # q) at the cross case; K5 its decode step's, K8 the encoder MLP's
     # shape, both beside the launch floor
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + [x for x in ("bfloat16", "serving",
-                                              "decode", "encoder_mlp",
-                                              "floor_ms") if x in r]}
+        {k: r[k] for k in keys + [x for x in ("bench_launches", "bfloat16",
+                                              "serving", "decode",
+                                              "encoder_mlp", "floor_ms")
+                                  if x in r]}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

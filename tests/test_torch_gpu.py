@@ -265,6 +265,57 @@ def test_decode_kernel_per_lane_mix_matches_plain(cuda, dtype, tol, kind,
     _k2_once(q, ck, cv, vl, t_major, scales, tol)
 
 
+# (B, H, T, lane lengths, V's scale, whether kernel and plain must part by
+# more than 0.02): chip_smoke.py's int8 T-minor self sweep at batch 4, with
+# V scaled so that a lane of one row gives outputs in [4, 8) and beyond,
+# where one bf16 step (0.03125) is past the check's 0.02; the bench's self
+# cases at tiny.en's batch 32 and large-v3's batch 16, as chip_smoke.py
+# draws them, where every output averages 49 rows
+_BF16_GAP_CASES = [(4, 6, 33, [1, 10, 19, 28], 4.0, True),
+                   (32, 6, 49, [49] * 32, 1.0, False),
+                   (16, 20, 49, [49] * 16, 1.0, False)]
+
+
+@pytest.mark.parametrize("b,h,t,lens,v_scale,parts", _BF16_GAP_CASES,
+                         ids=["sweep-b4", "bench-b32-h6", "bench-b16-h20"])
+def test_decode_kernel_bf16_gap_is_the_plain_versions_rounding(
+        cuda, b, h, t, lens, v_scale, parts):
+    """K2 with an int8 T-minor cache and bf16 q, held with its plain version
+    against a witness: the plain version's formulas on q widened to fp64
+    with fp64 V scales, so that the softmax weights times the scales are
+    not rounded to bf16 before P·V, as the plain version rounds them and
+    the kernel does not. The kernel lies within half a bf16 step of the
+    witness (it rounds once, at its output), and wherever kernel and plain
+    part by more than 0.02 the plain version is the farther: that gap is
+    the plain version's rounding. In the sweep case they do part (the
+    observation chip_smoke.py's check made once its inputs shifted)."""
+    rng = np.random.default_rng(b * h + t)
+    q = _normal(rng, (b, h, 1, 64), 0.125, cuda, torch.bfloat16)
+    ck = _normal(rng, (b, h, t, 64), 1.0, cuda, torch.float32)
+    cv = _normal(rng, (b, h, t, 64), v_scale, cuda, torch.float32)
+    ck, ks = quantize_kv(ck, torch.int8)
+    cv, vs = quantize_kv(cv, torch.int8)
+    ck = ck.transpose(-1, -2).contiguous()
+    cv = cv.transpose(-1, -2).contiguous()
+    vl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = decode_attn(q, ck, cv, vl, ks, vs, True).double()
+    plain = decode_attention_reference(q, ck, cv, vl, k_scale=ks, v_scale=vs,
+                                       t_major=True).double()
+    witness = decode_attention_reference(q.double(), ck, cv, vl, k_scale=ks,
+                                         v_scale=vs.double(), t_major=True)
+    assert witness.dtype == torch.float64
+    # half a bf16 step (8 significant bits) of the witness, and the fp32
+    # sums' own order
+    half_step = torch.ldexp(torch.ones_like(witness),
+                            torch.frexp(witness)[1] - 9)
+    k_err = (out - witness).abs()
+    assert (k_err <= half_step + 1e-5 * witness.abs() + 1e-6).all(), (
+        (k_err - half_step).max().item())
+    gap = (out - plain).abs() > 0.02
+    assert gap.any().item() == parts
+    assert ((plain - witness).abs()[gap] > k_err[gap]).all()
+
+
 @pytest.mark.parametrize("kind,t_major", [("float", False), ("int8", True)])
 def test_decode_kernel_replays_in_a_cuda_graph(cuda, kind, t_major):
     """A captured launch stays right when valid_len is rewritten in place:
@@ -325,20 +376,21 @@ def test_decode_kernels_are_one_device_launch_a_call(cuda):
     assert "decode_t_minor" in names[0] and "cross_kernel" in names[1], names
 
 
-@pytest.mark.parametrize("n_mels", [80, 128])
-def test_stft_kernel_matches_plain(cuda, n_mels):
+@pytest.mark.parametrize("n_mels,b", [(80, 2), (128, 2), (80, 32)])
+def test_stft_kernel_matches_plain(cuda, n_mels, b):
+    """At batch 2 and at the bench headline's batch of 32 utterances."""
     from whisper_trtllm_tpu_torch.audio.features import LogMelSpectrogram
 
     fe = LogMelSpectrogram(n_mels, device=cuda)
     rng = np.random.default_rng(n_mels)
-    blocks = _normal(rng, (2, 3003, 160), 0.1, cuda, torch.float32)
+    blocks = _normal(rng, (b, 3003, 160), 0.1, cuda, torch.float32)
     blocks[1, 1500:] = 0.0  # silence: power at the 1e-10 floor
     basis = fe.dft_basis[:400]
     before = stft_log_mel.launches
     out = stft_log_mel(blocks, basis, fe.mel_fb)
     assert stft_log_mel.launches == before + 1
     ref = stft_log_mel_reference(blocks, basis, fe.mel_fb)
-    assert out.shape == (2, 3001, n_mels)
+    assert out.shape == (b, 3001, n_mels)
     assert (out - ref).abs().max().item() <= 2e-4
 
 
@@ -684,11 +736,12 @@ def _fused_close(out, ref, dtype, tol):
 
 @pytest.mark.parametrize("dtype,tol", FUSED_DTYPES)
 @pytest.mark.parametrize("b,enc_len", [(4, 1500), (1, 1504), (9, 700),
-                                       (16, 1500), (4, 0)])
+                                       (16, 1500), (4, 0), (8, 1500)])
 def test_fused_decoder_step_matches_plain(cuda, dtype, tol, b, enc_len):
     """K6 at tiny.en's widths over the position sweep of a 33-row self
     cache, at batch 4 (the main path's), 1, 9 and 16 (the gate's largest),
-    and with no valid cross row (a uniform softmax over all of them)."""
+    8 (the benchmark grid's, which pads the projections' rows to 8), and
+    with no valid cross row (a uniform softmax over all of them)."""
     rng = np.random.default_rng(b)
     x, h1, lp, caches = _fused_inputs(rng, dtype, cuda, b=b)
     el = torch.tensor(enc_len, dtype=torch.int32, device=cuda)
@@ -1106,3 +1159,60 @@ def test_gpu_check_passes_on_the_card(cuda, tmp_path, monkeypatch, capsys):
     record = json.loads(state.read_text())
     assert record["pass"] is True
     assert record["kernel_tree_digest"] == gpu_check.kernel_tree_digest()
+
+
+# the bench's timed pipeline (cli/bench.py) on the card against the CPU, in
+# fp32: float KV (K6 at this batch), int8 KV, and int8 weights through the
+# session's chain with int8 KV on mels; int8 KV on audio through K3
+@pytest.mark.parametrize("kv,weights,frontend", [
+    ("auto", "native", False), ("int8", "native", False),
+    ("int8", "int8", False), ("int8", "native", True)])
+def test_bench_pipeline_on_the_card_equals_the_cpu(cuda, kv, weights,
+                                                   frontend):
+    from whisper_trtllm_tpu_torch.cli import bench
+    from whisper_trtllm_tpu_torch.config import WhisperConfig
+
+    cfg = WhisperConfig.testing(d_model=128, encoder_attention_heads=2,
+                                decoder_attention_heads=2,
+                                encoder_ffn_dim=256, decoder_ffn_dim=256,
+                                vocab_size=128,
+                                max_source_positions=1500 if frontend else 40,
+                                num_mel_bins=80 if frontend else 16)
+    rng = np.random.default_rng(6)
+    if frontend:
+        x = rng.standard_normal((2, 480000)).astype(np.float32) * 0.1
+    else:
+        x = rng.standard_normal((3, 2 * cfg.max_source_positions,
+                                 cfg.num_mel_bins)).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        session = bench.bench_session(cfg, kv, "float32", weight_dtype=weights,
+                                      gen_tokens=12, seed=3, device=dev)
+        reset_launch_counts()
+        out[dev.type] = bench.run_pass(
+            session, [torch.from_numpy(x).to(dev)], frontend)
+        if dev.type == "cuda":
+            launches = {k: f.launches for k, f in KERNELS.items()}
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])
+    steps, layers = 12, cfg.decoder_layers
+    fused = kv == "auto" and weights == "native"
+    assert launches["flash_fwd"] == cfg.encoder_layers
+    assert launches["stft_log_mel"] == int(frontend)
+    assert launches["fused_decoder_layer_step"] == (layers * steps
+                                                    if fused else 0)
+    assert launches["decode_attn"] == (0 if fused else 2 * layers * steps)
+
+
+def test_memory_monitor_reports_the_peak_of_an_allocation(cuda):
+    from whisper_trtllm_tpu_torch.benchmarks.mem_monitor import (
+        MemoryMonitor,
+        get_memory_info,
+    )
+
+    total, _, _ = get_memory_info()
+    assert total > 1.0
+    mon = MemoryMonitor().start()
+    x = torch.empty(1 << 28, dtype=torch.uint8, device=cuda)  # 0.25 GiB
+    del x
+    peak = mon.stop()
+    assert peak >= 0.25 and mon.stop() == peak

@@ -71,7 +71,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for name in ("training", "training.train", "cli", "cli.finetune",
                  "cli.gpu_check", "layers.init", "models.whisper.convert",
                  "ops.kernels.cross_attention",
-                 "examples.custom_kernel.custom_gelu_kernel"):
+                 "examples.custom_kernel.custom_gelu_kernel",
+                 "benchmarks.roofline", "benchmarks.mem_monitor",
+                 "benchmarks.benchmark", "cli.bench"):
         assert f"whisper_trtllm_tpu_torch.{name}" in _port_modules()
 
 
