@@ -54,8 +54,19 @@ Six phases, each timed; any failure raises and the script exits non-zero:
    artifact's. Each must give the exact texts of ``artifacts/expected.json``
    and the expected launch count of every kernel, counted from zero over
    that one transcribe; A, C and E must give the same tokens as the plain
-   path on the CPU. A, B and E are timed stage by stage, and for E the
-   host time a decode step spends in K6's gate and wrapper;
+   path on the CPU. Every decode goes through the captured CUDA graph of
+   the step (``runtime/generation.py``): the launch counts take the loop's
+   steps (the warm-up step, then the replays, up to
+   ``FINISH_CHECK_EVERY - 1`` past the last EOS). A, B and E are timed
+   stage by stage, with the host µs of a step replayed and run eagerly,
+   the card's idle share over an untraced transcribe (one traced
+   transcribe's device time over the median untraced one), whose trace
+   must hold as many launches of K2, K5 and K6 as the counters say, and
+   for E the host cost of K6's gate, once a decode call. Then the decode
+   features, on E (each greedy variant token-equal to the CPU's) and B:
+   timestamps, a prompted decode, bad and stop words, min-new-tokens, and
+   a sampled decode (one draw a seed; ``SAMPLED_AGREEMENT`` of its tokens
+   equal to the CPU's in E);
 5. training — on the float tree with the bundled batch of 4 and their
    ground-truth tokens (32 positions): (a) the loss and every leaf's
    gradient on the card against the CPU's (each nonzero), and one
@@ -76,9 +87,10 @@ Six phases, each timed; any failure raises and the script exits non-zero:
    section's decode roofline share at most 1.05, both sections present,
    and each grid row must show K6 once a decode layer; then one headline
    pass in this process with exact K1, K2, K3 and K5 launch counts and no
-   K6, the headline batch's stages timed one by one, and the card's idle
-   share: the device time of one pass under ``torch.profiler`` over the
-   median wall time of three passes not traced.
+   K6, the headline batch's stages timed one by one with the host µs of a
+   step, and the card's idle share: the device time of one pass under
+   ``torch.profiler`` over the median wall time of three passes not
+   traced.
 
 The line before the last is one JSON object with every ported kernel's
 numbers (K1's, K4's and K5's also in bf16, under "bfloat16"; K5's decode
@@ -1111,60 +1123,124 @@ def check_int8_equal(torch, got, want, tag):
     print(f"{tag}: {n} int8 tensors bit-equal to the artifact's")
 
 
-def k6_host_costs(torch, session, cfg, enc, step_ms, card):
-    """The host time a K6 decode step spends choosing and calling K6: the
-    gate (``_fused_decode_ok``) once a step and the wrapper once a layer,
-    its launch checks apart. Each is timed over many calls on the host
-    clock. The wrapper's loop runs behind a spin of the card far longer
-    than its 200 kernels, so a launch that returns at once only queues and
-    the loop's time is the host's; one that waits for the card shows as
-    a loop as long as the spin, and the line says which it was."""
+def host_us(torch, fn, n, spin_cycles=0):
+    """Host µs a call of ``fn`` over ``n`` calls, after one untimed call.
+    With ``spin_cycles`` the calls queue behind a spin of the card far
+    longer than their work, so a launch that returns at once only queues
+    and the time is the host's; the second value says whether the spin
+    was still running at the end (no call waited for the card)."""
+    fn()
+    torch.cuda.synchronize()
+    spun = torch.cuda.Event()
+    if spin_cycles:
+        torch.cuda._sleep(spin_cycles)
+    spun.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / n
+    queued = not spun.query()
+    torch.cuda.synchronize()
+    return us, queued
+
+
+def step_host_costs(torch, session, enc, gen, tag, card):
+    """The host time of one decode step, two ways, on the decode's own
+    captured entry (the one just run) from a reset state: a replay of the
+    captured step (what every step of the loop costs now), queued behind a
+    spin of the card so that none waits for it; and the same step run
+    eagerly (what it cost before the graph, its host reads apart), with no
+    spin: its hundred-odd launches a step would fill the launch queue
+    behind one and wait, and the card, idle most of an eager step, keeps
+    up with them. At most ``max_len - 1`` steps a state. Returns the
+    replay's µs."""
     from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
-    from whisper_trtllm_tpu_torch.ops.kernels import fused_decoder_step as k6
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
 
-    params = session.params
-    dec = params["decoder"]
-    b, d = enc.shape[0], cfg.d_model
-    cross = wmodel.compute_cross_kv(params, cfg, enc)
-    self_kv = wmodel.init_self_kv(cfg, b, 33, dtype=enc.dtype, device=DEVICE)
-    pos = torch.tensor(16, dtype=torch.int32, device=DEVICE)
-    lp = wmodel.layer(dec["layers"], 0)
-    x = torch.randn(b, d, device=DEVICE, dtype=enc.dtype)
-    enc_len = wmodel._encoder_length(cfg.max_source_positions, x.device)
-    args = (x, x, pos, lp, self_kv[0][0], self_kv[1][0], cross[0][0],
-            cross[1][0], enc_len)
-    caches, blocks = args[4:8], k6._blocks(lp)
+    entry = next(reversed(gen_rt._GRAPHS.values()))
+    s, cfg = entry.state, session.cfg
+    n = s.tokens.shape[1] - 1
+    fused = wmodel.decode_step_plan(session.params, cfg, s.self_kv,
+                                    entry.cross_kv)
 
-    def host_us(fn, n, spin_cycles=0):
+    def eager():
+        gen_rt.greedy_step(session.params, cfg, gen, s, entry.cross_kv,
+                           entry.rules, fused)
+
+    out = {}
+    with torch.inference_mode():
+        for name, fn, spin in (("replay", entry.replay, SPIN_CYCLES),
+                               ("eager", eager, 0)):
+            # one untimed call (host_us's) and n timed ones: n + 1 steps
+            # from pos 0 would pass the buffer's end, so n - 1 are timed
+            gen_rt.reset_state(s, cfg, entry.rules)
+            out[name] = host_us(torch, fn, n - 1, spin)
+        gen_rt.reset_state(s, cfg, entry.rules)
+    (rep, queued), (eag, _) = out["replay"], out["eager"]
+    print(f"{tag} host per decode step [{card}]: replay {rep:.2f} us "
+          f"(over {n - 1} replays behind a spin of the card, "
+          f"{'all queued' if queued else 'a replay waited'}), the same "
+          f"step eager {eag:.2f} us")
+    return rep
+
+
+def k6_gate_cost(torch, session, enc, gen, card):
+    """What the fused-step gate costs now: ``decode_step_plan`` (it walks
+    the weight tree) runs once a decode call, before the loop."""
+    from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+
+    params, cfg = session.params, session.cfg
+    with torch.inference_mode():
+        cross = gen_rt.build_cross_kv(params, cfg, enc, gen)
+        self_kv = wmodel.init_self_kv(cfg, enc.shape[0], 33, dtype=enc.dtype,
+                                      device=DEVICE)
+    if not wmodel.decode_step_plan(params, cfg, self_kv, cross):
+        fail("e2e E: the float tree does not take the fused step")
+    gate, _ = host_us(torch, lambda: wmodel.decode_step_plan(
+        params, cfg, self_kv, cross), 2000)
+    print(f"e2e E host cost of K6's gate [{card}]: {gate:.2f} us once a "
+          f"decode call (decode_step_plan); the K6 wrapper runs at the "
+          f"warm-up step and the capture only, a replay calls no Python")
+
+
+# the kernels a captured decode step launches, by the names the profiler
+# traces (csrc/decode_attention.cu, layer_norm.cu, fused_decoder_step.cu)
+KERNEL_SYMBOLS = {"decode_attn": ("decode_dh_minor", "decode_direct",
+                                  "decode_t_minor"),
+                  "layer_norm": ("layer_norm_kernel",),
+                  "fused_decoder_layer_step": ("fused_step_kernel",)}
+
+
+def traced_run(torch, fn):
+    """``fn`` under ``torch.profiler``, counted from zero: (the card's busy
+    ms, the kernel launches the trace holds of each wrapper in
+    ``KERNEL_SYMBOLS``, the wrappers' own counts of them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        KERNELS,
+        reset_launch_counts,
+    )
+    from whisper_trtllm_tpu_torch.utils.profile_transcribe import _device_us
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-        spun = torch.cuda.Event()
-        if spin_cycles:
-            torch.cuda._sleep(spin_cycles)
-        spun.record()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        us = (time.perf_counter() - t0) * 1e6 / n
-        # the spin still running: no launch of the loop waited for it
-        queued = not spun.query()
-        torch.cuda.synchronize()
-        return us, queued
-
-    gate, _ = host_us(lambda: wmodel._fused_decode_ok(
-        dec, self_kv[0], cross[0], pos), 2000)
-    checks, _ = host_us(
-        lambda: k6._check(x, x, pos, enc_len, blocks, caches), 2000)
-    call, queued = host_us(lambda: k6.fused_decoder_layer_step(*args), 200,
-                           spin_cycles=SPIN_CYCLES)
-    layers = cfg.decoder_layers
-    per_step = gate + layers * call
-    how = "only queued behind" if queued else "waited for or outlasted"
-    print(f"e2e E host per decode step [{card}]: gate {gate:.2f} us once, "
-          f"K6 wrapper {call:.2f} us a call (launch checks {checks:.2f} us "
-          f"of it; its launches {how} the card's spin) x {layers} layers "
-          f"= {per_step:.2f} us of the {step_ms * 1e3:.2f} us decode step "
-          f"({per_step / step_ms / 10:.2f}%)")
+    counted = {k: KERNELS[k].launches for k in KERNEL_SYMBOLS}
+    traced = {k: 0 for k in KERNEL_SYMBOLS}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k, names in KERNEL_SYMBOLS.items():
+                traced[k] += any(n in e.name for n in names)
+    busy = sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")) / 1e3
+    return busy, traced, counted
 
 
 def timed(torch, fn, reps=5):
@@ -1241,17 +1317,30 @@ def end_to_end(torch, np, card):
         if chain:
             check_int8_equal(torch, session.params, params, tag)
 
-        # this path, counted: launches made from here to the read below
+        # this path, counted: launches made from here to the read below;
+        # the decode's steps are the loop's (its warm-up steps, then the
+        # replays of the step it captured): up to FINISH_CHECK_EVERY - 1
+        # past the last EOS
         reset_launch_counts()
+        gen_rt.reset_loop_counts()
         tokens, lengths = session.transcribe(audio)
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in KERNELS.items()}
+        loop = gen_rt.LOOP
+        steps = loop.steps
+        if not (loop.captures == 1 and loop.eager_steps == gen_rt.WARMUP_STEPS
+                and 0 <= steps - (int(lengths.max()) - 1)
+                < gen_rt.FINISH_CHECK_EVERY):
+            fail(f"{tag}: the decode ran {loop.eager_steps} eager steps, "
+                 f"{loop.replays} replays, {loop.captures} captures for "
+                 f"lengths {lengths.tolist()}")
 
         texts = [ids_to_text(tokens[i, :lengths[i]])
                  for i in range(len(expected))]
-        steps = int(lengths.max()) - 1
         print(f"{tag}: tokens {tokens.shape} lengths {lengths.tolist()} "
-              f"decode steps {steps} launches {launches}")
+              f"decode steps {steps} ({loop.eager_steps} warm-up, "
+              f"{loop.replays} replays, {loop.host_reads} host reads; "
+              f"capture {loop.capture_ms:.2f} ms) launches {launches}")
         for got, want in zip(texts, expected):
             print(f"{tag}: {'ok  ' if got == want else 'BAD '} {got!r}")
         if texts != expected:
@@ -1278,27 +1367,171 @@ def end_to_end(torch, np, card):
                 torch, lambda: session.frontend(audio_t))
             enc, en_ms, en_lo, en_hi = timed(
                 torch, lambda: session.encode(mel))
+            gen_rt.reset_loop_counts()
             _, de_ms, de_lo, de_hi = timed(
                 torch,
                 lambda: gen_rt.greedy_decode(session.params, cfg, enc, gen))
-            if name == "E":
-                k6_host_costs(torch, session, cfg, enc, de_ms / steps, card)
+            # every step of the timed decodes was a replay
+            de_steps = gen_rt.LOOP.replays / 5
+            if gen_rt.LOOP.eager_steps or gen_rt.LOOP.captures:
+                fail(f"{tag}: a timed decode did not only replay")
+        step_host_costs(torch, session, enc, gen, tag, card)
+        if name == "E":
+            k6_gate_cost(torch, session, enc, gen, card)
         torch.cuda.reset_peak_memory_stats()
         _, tr_ms, tr_lo, tr_hi = timed(torch,
                                        lambda: session.transcribe(audio))
         stats = session.memory_stats()
-        print(f"{tag} timing (median of 5, min..max) batch 4, {steps} decode "
-              f"steps [{card}]: frontend {fe_ms:.2f} ms ({fe_lo:.2f}..{fe_hi:.2f}), "
+        print(f"{tag} timing (median of 5, min..max) batch 4, {de_steps:g} "
+              f"decode steps [{card}]: frontend {fe_ms:.2f} ms ({fe_lo:.2f}..{fe_hi:.2f}), "
               f"encode {en_ms:.2f} ms ({en_lo:.2f}..{en_hi:.2f}), "
               f"decode {de_ms:.2f} ms ({de_lo:.2f}..{de_hi:.2f}), "
               f"transcribe {tr_ms:.2f} ms ({tr_lo:.2f}..{tr_hi:.2f}), "
-              f"per decode step {de_ms / steps:.3f} ms")
+              f"per decode step {de_ms / de_steps:.3f} ms")
+        # the card's idle share over an untraced transcribe: one traced
+        # transcribe's device time over the median of the five above; and
+        # its launches of the captured step's kernels against the trace
+        busy, traced, counted = traced_run(
+            torch, lambda: session.transcribe(audio))
+        if traced != counted:
+            fail(f"{tag}: the counters {counted} differ from the profiler's "
+                 f"launches {traced}")
+        print(f"{tag} idle share [{card}]: device busy {busy:.2f} ms of a "
+              f"traced transcribe, idle {1 - busy / tr_ms:.3f} of the "
+              f"median untraced transcribe ({tr_ms:.2f} ms); the traced "
+              f"launches {traced} equal the counters")
         print(f"{tag} throughput [{card}]: {audio_s / (tr_ms / 1e3):.2f} "
               f"audio-s/s of speech ({audio_s:.2f} s in 4 utterances), "
               f"{4 * 30.0 / (tr_ms / 1e3):.2f} audio-s/s of 30 s windows; "
               f"peak device memory over the transcribes "
               f"{stats['peak_bytes_in_use']} bytes (weights included)")
     return counts
+
+
+# the sampled decode against the CPU's: the same counter-based draw on both,
+# but the card's logits and Gumbel noise differ from the CPU's in the last
+# bits, so a near tie may break the other way and the rest of that lane
+# follow it; at least this share of the generated tokens must agree
+SAMPLED_AGREEMENT = 0.6
+SAMPLED = dict(temperature=2.0, top_k=40, top_p=0.95, seed=1)
+
+
+def decode_features(torch, np, card):
+    """The JAX loop's processors through the captured step on the trained
+    artifact, in E (fp32, float tree; each greedy variant token-equal to
+    the CPU's) and B (the serving precision): timestamps (the tiny.en
+    <|notimestamps|> id 50362 set in an in-memory copy of the config), a
+    prompted decode (previous-text conditioning, and the plain prefix as a
+    prompt, which must give the plain decode), bad and stop words taken
+    from the plain decode, min-new-tokens, and a sampled decode (the same
+    seed twice: the same tokens; against the CPU: ``SAMPLED_AGREEMENT``)."""
+    import dataclasses
+
+    from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
+    from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    audio = np.stack([pad_or_trim(read_wav(os.path.join(
+        EVAL_DIR, f"utt{i:02d}.wav"))) for i in range(4)])
+    params, cfg = load_checkpoint(ARTIFACT, device="cpu")
+    cfg = dataclasses.replace(cfg, no_timestamps_token_id=50362)
+    ts_begin = cfg.no_timestamps_token_id + 1
+    sot, notime = cfg.decoder_start_token_id, cfg.no_timestamps_token_id
+    for name, tree, compute, kv, vs_cpu in (
+            ("E", float_tree(params), "float32", "auto", True),
+            ("B", params, "bfloat16", "int8", False)):
+        tag = f"decode features {name}"
+        rt = RuntimeConfig(compute_dtype=compute)
+        devs = (DEVICE, "cpu") if vs_cpu else (DEVICE,)
+        sessions = {d: WhisperSession(tree, cfg, runtime=rt, device=d)
+                    for d in devs}
+        with torch.inference_mode():
+            enc = {d: ss.encode(ss.frontend(audio))
+                   for d, ss in sessions.items()}
+
+        def run(dev, prompt=None, **kw):
+            ss = sessions[dev]
+            gen = GenerationConfig(max_new_tokens=32, kv_cache_dtype=kv, **kw)
+            if prompt is None:
+                out = gen_rt.greedy_decode(ss.params, cfg, enc[dev], gen)
+            else:
+                out = gen_rt.greedy_decode_prompted(ss.params, cfg, enc[dev],
+                                                    prompt, gen)
+            return tuple(x.cpu().numpy() for x in out)
+
+        base, base_lens = run(DEVICE)
+        prev = [int(t) for t in base[3, 2:base_lens[3] - 1]]
+        prompt = np.asarray([[50360] + prev + [sot, notime]] * 4, np.int32)
+        variants = {
+            "timestamps": dict(return_timestamps=True),
+            "prompted": dict(prompt=prompt),
+            "bad words": dict(bad_words=((int(base[0, 2]),),
+                                         (int(base[1, 2]), int(base[1, 3])))),
+            "stop words": dict(stop_words=((int(base[2, 3]),
+                                            int(base[2, 4])),)),
+            "min new tokens": dict(min_new_tokens=int(base_lens.max())),
+        }
+        results = {}
+        for what, kw in variants.items():
+            toks, lens = run(DEVICE, **kw)
+            results[what] = (toks, lens)
+            if vs_cpu:
+                ctoks, clens = run("cpu", **kw)
+                if not (np.array_equal(toks, ctoks)
+                        and np.array_equal(lens, clens)):
+                    fail(f"{tag} {what}: card tokens differ from the CPU's")
+            print(f"{tag} {what}: lengths {lens.tolist()}, lane 0 "
+                  f"{toks[0, :lens[0]].tolist()}"
+                  + (", tokens equal the CPU's" if vs_cpu else ""))
+        # what each rule must show whatever the precision
+        toks, lens = results["timestamps"]
+        if not (ts_begin <= toks[:, 1]).all() or (toks == notime).any() or \
+                (toks[:, 1] > ts_begin + cfg.max_initial_timestamp_index).any():
+            fail(f"{tag} timestamps: the first token is no timestamp within "
+                 f"the initial bound, or <|notimestamps|> appears")
+        toks, lens = results["bad words"]
+        if (toks[:, 2:] == base[0, 2]).any():
+            fail(f"{tag} bad words: the banned token was generated")
+        toks, lens = results["stop words"]
+        if lens[2] > 5:
+            fail(f"{tag} stop words: lane 2 ran on past its stop word")
+        toks, lens = results["min new tokens"]
+        if (lens < 2 + int(base_lens.max()) + 1).any():
+            fail(f"{tag} min new tokens: a lane ended before "
+                 f"{int(base_lens.max())} new tokens")
+        toks, lens = results["prompted"]
+        if not np.array_equal(toks[:, :prompt.shape[1]], prompt):
+            fail(f"{tag} prompted: the prompt is not the buffer's head")
+        # the plain prefix as a prompt, one token shorter a budget: the
+        # plain decode's buffer
+        gen_p = GenerationConfig(max_new_tokens=31, kv_cache_dtype=kv)
+        ptoks, plens = (x.cpu().numpy() for x in gen_rt.greedy_decode_prompted(
+            sessions[DEVICE].params, cfg, enc[DEVICE],
+            np.asarray([[sot, notime]] * 4, np.int32), gen_p))
+        if not (np.array_equal(ptoks, base) and np.array_equal(plens,
+                                                               base_lens)):
+            fail(f"{tag} prompted: the plain prefix as a prompt does not "
+                 f"give the plain decode")
+        # sampled: one draw a seed; against the CPU's, a stated share
+        a, alens = run(DEVICE, **SAMPLED)
+        b, blens = run(DEVICE, **SAMPLED)
+        other, _ = run(DEVICE, **{**SAMPLED, "seed": 2})
+        if not (np.array_equal(a, b) and np.array_equal(alens, blens)):
+            fail(f"{tag} sampled: the same seed gave other tokens")
+        line = (f"{tag} sampled {SAMPLED}: lengths {alens.tolist()}, the "
+                f"same seed twice equal, seed 2 "
+                f"{'differs' if not np.array_equal(a, other) else 'equal'}")
+        if vs_cpu:
+            c, _ = run("cpu", **SAMPLED)
+            agree = float((a[:, 2:] == c[:, 2:]).mean())
+            if agree < SAMPLED_AGREEMENT:
+                fail(f"{tag} sampled: {agree:.3f} of the tokens agree with "
+                     f"the CPU's, below {SAMPLED_AGREEMENT}")
+            line += f", {agree:.3f} of the generated tokens equal the CPU's"
+        print(line)
+        del sessions, enc
 
 
 # --------------------------------------------------------------------------
@@ -1571,14 +1804,21 @@ def bench_phase(torch, np, card):
     def one_pass():
         return bench.run_pass(session, audio, frontend=True)
 
-    one_pass()  # warm-up
+    one_pass()  # warm-up: captures the step
     reset_launch_counts()
+    gen_rt.reset_loop_counts()
     _, pass_ms = timed_calls(one_pass, dev, 1, warmup=0)
     launches = {k: fn.launches for k, fn in KERNELS.items()}
     want = transcribe_launches(cfg, bench.GEN_TOKENS, bench.N_BATCHES,
                                fused=False, frontend=True)
     if launches != want:
         fail(f"bench headline pass: launches {launches}, expected {want}")
+    # EOS disabled: each batch runs exactly its 48 steps, all replays
+    if (gen_rt.LOOP.replays != bench.GEN_TOKENS * bench.N_BATCHES
+            or gen_rt.LOOP.eager_steps):
+        fail(f"bench headline pass: {gen_rt.LOOP.replays} replays and "
+             f"{gen_rt.LOOP.eager_steps} eager steps, not "
+             f"{bench.GEN_TOKENS} replays a batch")
     # two more passes, none traced: the wall time of the idle share (e)
     pass_ms += timed_calls(one_pass, dev, 2, warmup=0)[1]
     untraced_ms = statistics.median(pass_ms)
@@ -1606,6 +1846,7 @@ def bench_phase(torch, np, card):
           f"{de:.2f} ms ({de_lo:.2f}..{de_hi:.2f}; cross K/V inside it "
           f"{cr:.2f} ms, {cr_lo:.2f}..{cr_hi:.2f}), {de / steps:.3f} ms a "
           f"decode step")
+    step_host_costs(torch, session, enc, gen, "bench headline", card)
 
     # (e) the card's idle share over a headline pass: the device time of
     # one traced pass over the median untraced pass of (c), whose host
@@ -1624,6 +1865,22 @@ def bench_phase(torch, np, card):
           f"median untraced pass ({untraced_ms:.2f} ms); "
           f"{1 - busy_ms / traced_ms[0]:.3f} of the traced pass's wall "
           f"({traced_ms[0]:.2f} ms, the profiler's cost included)")
+
+    # (f) what the captured steps hold on the card: their static buffers
+    # (state and cross cache), and the allocated bytes their drop frees
+    leaves = gen_rt._decoder_leaves(session.params)
+    static = sum(t.numel() * t.element_size()
+                 for e in gen_rt._GRAPHS.values() if e.matches(leaves)
+                 for t in (*e.state[:4], *e.state.self_kv, *e.cross_kv))
+    del leaves
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    dropped = gen_rt.drop_graphs(session.params)
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated(dev)
+    print(f"bench headline session [{card}]: {dropped} captured steps held "
+          f"{static / 2 ** 30:.3f} GiB of static buffers; dropping them "
+          f"freed {freed / 2 ** 30:.3f} GiB allocated")
     return launches, k6
 
 def main() -> None:
@@ -1699,6 +1956,19 @@ def main() -> None:
     t0 = time.perf_counter()
     counts.update(end_to_end(torch, np, card))
     phase_s["end to end"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode_features(torch, np, card)
+    phase_s["decode features"] = time.perf_counter() - t0
+    # what the decode phases leave on the card: their sessions are gone, and
+    # with them every captured step (an entry goes with its weights)
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+
+    torch.cuda.synchronize()
+    print(f"after the decode phases: {len(gen_rt._GRAPHS)} captured steps "
+          f"cached, {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+          f"allocated on the card")
+    if gen_rt._GRAPHS:
+        fail("captured steps outlived the sessions whose weights they read")
     t0 = time.perf_counter()
     counts["train"] = training(torch, np, card)
     phase_s["training"] = time.perf_counter() - t0

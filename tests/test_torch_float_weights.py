@@ -37,6 +37,7 @@ from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
 from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
 from whisper_trtllm_tpu_torch.models.whisper import model
 from whisper_trtllm_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+from whisper_trtllm_tpu_torch.runtime import generation
 from whisper_trtllm_tpu_torch.runtime.generation import transcribe_tokens
 from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
 from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
@@ -181,10 +182,14 @@ def test_float_tree_transcribes_exactly_through_the_fused_step(
     monkeypatch.setattr(model, "fused_decode_enabled", lambda device: True)
     monkeypatch.setattr(model, "fused_decoder_layer_step", counting)
     reset_launch_counts()
+    generation.reset_loop_counts()
     toks, lens = session.transcribe(audio)
     assert _texts(toks, lens) == _texts(*ref) == expected
     np.testing.assert_array_equal(toks, ref[0])
-    steps = int(lens.max()) - 1
+    # the loop reads `finished` once every FINISH_CHECK_EVERY steps: it
+    # runs the steps the longest lane needs and at most that many more - 1
+    steps = generation.LOOP.steps
+    assert 0 <= steps - (int(lens.max()) - 1) < generation.FINISH_CHECK_EVERY
     assert len(calls) == artifact[1].decoder_layers * steps
     assert all(f.launches == 0 for f in KERNELS.values())
 

@@ -1,7 +1,10 @@
 """PyTorch port on a CUDA card: each kernel against its plain version, the
 trained artifact end to end through the kernels (configuration E, the
 artifact dequantized in memory, through the fused decoder-layer kernel K6),
-and one training step's gradients against the CPU's.
+one training step's gradients against the CPU's, and the decode loop's
+captured step: its replays against the same step run eagerly on the card
+(exactly: the same kernels on the same inputs), a capture that must
+raise, the launch counters against the profiler, and ``refit``.
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is False. The file imports no JAX, so it runs
@@ -57,6 +60,7 @@ from whisper_trtllm_tpu_torch.ops.kernels import (
     stft_log_mel,
     stft_log_mel_reference,
 )
+from whisper_trtllm_tpu_torch.runtime import generation
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 pytestmark = pytest.mark.gpu
@@ -682,10 +686,13 @@ def test_artifact_transcribes_exactly_through_the_kernels(cuda, compute, kv):
         params, cfg, GenerationConfig(max_new_tokens=32, kv_cache_dtype=kv),
         RuntimeConfig(compute_dtype=compute))
     reset_launch_counts()
+    generation.reset_loop_counts()
     toks, lens = session.transcribe(np.stack([read(i) for i in range(4)]))
     texts = [ids_to_text(toks[i, :lens[i]]) for i in range(4)]
     assert texts == expected
-    steps = int(lens.max()) - 1
+    # the loop's steps: warm-up steps and replays of the captured step
+    steps = generation.LOOP.steps
+    assert 0 <= steps - (int(lens.max()) - 1) < generation.FINISH_CHECK_EVERY
     assert {n: f.launches for n, f in KERNELS.items()} == {
         "flash_fwd": cfg.encoder_layers, "flash_bwd": 0,
         "decode_attn": 2 * cfg.decoder_layers * steps,
@@ -883,9 +890,11 @@ def test_float_tree_transcribes_exactly_through_k6(cuda):
     audio = np.stack([pad_or_trim(read_wav(os.path.join(
         ROOT, "artifacts", "eval", f"utt{i:02d}.wav"))) for i in range(4)])
     reset_launch_counts()
+    generation.reset_loop_counts()
     toks, lens = session.transcribe(audio)
     assert [ids_to_text(toks[i, :lens[i]]) for i in range(4)] == expected
-    steps = int(lens.max()) - 1
+    steps = generation.LOOP.steps
+    assert 0 <= steps - (int(lens.max()) - 1) < generation.FINISH_CHECK_EVERY
     assert {n: f.launches for n, f in KERNELS.items()} == {
         "flash_fwd": cfg.encoder_layers, "flash_bwd": 0, "decode_attn": 0,
         "stft_log_mel": 1,
@@ -1216,3 +1225,199 @@ def test_memory_monitor_reports_the_peak_of_an_allocation(cuda):
     del x
     peak = mon.stop()
     assert peak >= 0.25 and mon.stop() == peak
+
+
+# -- the decode loop on the card: the captured step -------------------------
+
+def _artifact_encoder_states(cuda, float_weights, compute):
+    """The trained artifact (int8, or dequantized in memory) on the card in
+    ``compute``, and the encoder states of the four bundled utterances."""
+    from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
+    from whisper_trtllm_tpu_torch.config import RuntimeConfig
+    from whisper_trtllm_tpu_torch.quantization import dequantize_params
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    params, cfg = load_checkpoint(
+        os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"), device="cpu")
+    if float_weights:
+        params = dequantize_params(params)
+    session = WhisperSession(params, cfg,
+                             runtime=RuntimeConfig(compute_dtype=compute))
+    audio = np.stack([pad_or_trim(read_wav(os.path.join(
+        ROOT, "artifacts", "eval", f"utt{i:02d}.wav"))) for i in range(4)])
+    with torch.inference_mode():
+        enc = session.encode(session.frontend(audio))
+    return session, enc
+
+
+def _eager_decode(params, cfg, enc, gen):
+    """The same step function run step by step on the card, every one of
+    the ``max_len - 1`` steps, with no graph."""
+    from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+
+    max_len = min(cfg.max_target_positions, gen.max_new_tokens + 1)
+    with torch.inference_mode():
+        s = generation.init_state(cfg, gen, enc.shape[0], max_len, enc.dtype,
+                                  enc.device)
+        cross = generation.build_cross_kv(params, cfg, enc, gen)
+        rules = generation.make_rules(cfg, gen, max_len, enc.device)
+        generation.reset_state(s, cfg, rules)
+        fused = wmodel.decode_step_plan(params, cfg, s.self_kv, cross)
+        for _ in range(max_len - 1):
+            generation.greedy_step(params, cfg, gen, s, cross, rules, fused)
+    return s.tokens.clone(), s.lengths.clone(), fused
+
+
+@pytest.mark.parametrize("weights,compute,kv,layout,fused", [
+    ("int8", "float32", "auto", "auto", False),
+    ("int8", "float32", "auto", "bhdt", False),
+    ("int8", "bfloat16", "int8", "auto", False),
+    ("int8", "float32", "int8", "bhtd", False),
+    ("int8", "bfloat16", "fp8", "auto", False),
+    ("int8", "float32", "fp8", "bhtd", False),
+    ("float", "float32", "auto", "auto", True),
+    ("float", "bfloat16", "auto", "auto", True),
+])
+def test_replayed_step_equals_the_eager_steps(cuda, weights, compute, kv,
+                                              layout, fused):
+    """The captured step replayed (twice: the capturing decode, then a
+    decode that only replays) gives the tokens and lengths of the same
+    step run eagerly on the card, every cache kind and layout, fused (K6)
+    and unfused."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+
+    session, enc = _artifact_encoder_states(cuda, weights == "float", compute)
+    gen = GenerationConfig(max_new_tokens=24, kv_cache_dtype=kv,
+                           cross_kv_layout=layout)
+    ref_toks, ref_lens, took_fused = _eager_decode(session.params,
+                                                   session.cfg, enc, gen)
+    assert took_fused == fused
+    for _ in range(2):
+        generation.reset_loop_counts()
+        toks, lens = generation.greedy_decode(session.params, session.cfg,
+                                              enc, gen)
+        torch.testing.assert_close(toks, ref_toks, rtol=0, atol=0)
+        torch.testing.assert_close(lens, ref_lens, rtol=0, atol=0)
+    # the second decode replayed every step
+    assert generation.LOOP.eager_steps == 0 and generation.LOOP.replays > 0
+    assert generation.LOOP.captures == 0
+
+
+@pytest.mark.parametrize("gen_kw", [
+    dict(return_timestamps=True), dict(presence_penalty=0.5, min_new_tokens=4,
+                                       bad_words=((13,), (262, 11))),
+    dict(temperature=0.8, top_k=20, top_p=0.9, seed=5),
+], ids=["timestamps", "word-rules", "sampled"])
+def test_replayed_processors_equal_the_eager_steps(cuda, gen_kw):
+    """The processors inside the graph: timestamp rules, penalties and word
+    rules, and the counter-based draw (one draw a seed and position)."""
+    import dataclasses as dc
+
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+
+    session, enc = _artifact_encoder_states(cuda, False, "float32")
+    cfg = dc.replace(session.cfg, no_timestamps_token_id=50362)
+    gen = GenerationConfig(max_new_tokens=24, **gen_kw)
+    ref_toks, ref_lens, _ = _eager_decode(session.params, cfg, enc, gen)
+    toks, lens = generation.greedy_decode(session.params, cfg, enc, gen)
+    torch.testing.assert_close(toks, ref_toks, rtol=0, atol=0)
+    torch.testing.assert_close(lens, ref_lens, rtol=0, atol=0)
+
+
+def test_capture_raises_when_the_step_would_sync(cuda, monkeypatch):
+    """A step that reads a device value on the host cannot be captured: the
+    decode raises, no entry is kept, the counters are not moved by the
+    failed capture, and nothing falls back to an eager loop."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+
+    session, enc = _artifact_encoder_states(cuda, False, "float32")
+    gen = GenerationConfig(max_new_tokens=6, seed=17)
+    real = generation.greedy_step
+
+    def syncing(params, cfg, g, s, *rest):
+        int(s.pos)  # a host read of a device value
+        return real(params, cfg, g, s, *rest)
+
+    generation.drop_graphs()
+    monkeypatch.setattr(generation, "greedy_step", syncing)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        generation.greedy_decode(session.params, session.cfg, enc, gen)
+    torch.cuda.synchronize()
+    assert not generation._GRAPHS
+    warm = {n: f.launches for n, f in KERNELS.items()}
+    assert warm["decode_attn"] == 2 * session.cfg.decoder_layers  # 1 step
+    monkeypatch.setattr(generation, "greedy_step", real)
+    toks, _ = generation.greedy_decode(session.params, session.cfg, enc, gen)
+    assert toks.shape == (4, 7)
+
+
+_KERNEL_SYMBOLS = {"decode_attn": ("decode_dh_minor", "decode_direct",
+                                   "decode_t_minor"),
+                   "layer_norm": ("layer_norm_kernel",),
+                   "fused_decoder_layer_step": ("fused_step_kernel",)}
+
+
+@pytest.mark.parametrize("weights,compute,kv", [
+    ("int8", "bfloat16", "int8"), ("float", "float32", "auto")])
+def test_counters_equal_a_profiler_count_of_one_replayed_decode(
+        cuda, weights, compute, kv):
+    """Over a decode that only replays, each wrapper's counter equals the
+    kernel launches the profiler traces by the kernel's name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+
+    session, enc = _artifact_encoder_states(cuda, weights == "float", compute)
+    gen = GenerationConfig(max_new_tokens=20, kv_cache_dtype=kv)
+    generation.greedy_decode(session.params, session.cfg, enc, gen)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    generation.reset_loop_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        generation.greedy_decode(session.params, session.cfg, enc, gen)
+        torch.cuda.synchronize()
+    assert generation.LOOP.replays > 0 and generation.LOOP.eager_steps == 0
+    traced = {k: 0 for k in _KERNEL_SYMBOLS}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k, names in _KERNEL_SYMBOLS.items():
+            traced[k] += any(n in e.name for n in names)
+    counted = {k: KERNELS[k].launches for k in _KERNEL_SYMBOLS}
+    assert counted == traced and sum(counted.values()) > 0
+
+
+def test_refit_leaves_no_graph_replaying_old_weights(cuda):
+    """A session captures its step, refits to other weights, and then
+    transcribes as a fresh session on those weights does: no entry of the
+    old weights is left."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.quantization import dequantize_params
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    params, cfg = load_checkpoint(
+        os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"), device="cpu")
+    other = dequantize_params(params)
+    bias = other["decoder"]["layer_norm"]["bias"]
+    other["decoder"]["layer_norm"]["bias"] = bias + 0.5 * torch.from_numpy(
+        np.random.default_rng(9).standard_normal(bias.shape).astype(
+            np.float32))
+    gen = GenerationConfig(max_new_tokens=16)
+    rng = np.random.default_rng(10)
+    mel = rng.standard_normal((2, 3000, 80)).astype(np.float32)
+    generation.drop_graphs()
+    session = WhisperSession(dequantize_params(params), cfg, gen)
+    before, _ = session.transcribe_features(mel)
+    old = generation._decoder_leaves(session.params)
+    assert any(e.matches(old) for e in generation._GRAPHS.values())
+    session.refit(other)
+    assert not any(e.matches(old) for e in generation._GRAPHS.values())
+    after, after_lens = session.transcribe_features(mel)
+    fresh, fresh_lens = WhisperSession(other, cfg, gen).transcribe_features(mel)
+    np.testing.assert_array_equal(after, fresh)
+    np.testing.assert_array_equal(after_lens, fresh_lens)
+    assert not np.array_equal(before, after)

@@ -241,8 +241,25 @@ def test_greedy_stops_at_eos_and_pads_like_jax():
     ("repetition_penalty", 1.2),
 ])
 def test_greedy_refuses_unported_generation_options(field, value):
-    jcfg, cfg = _configs()
-    _, p = _params(jcfg)
+    """Beam search is the one field the greedy loop still refuses. Every
+    other field it once refused is taken now: a deterministic option gives
+    the JAX loop's tokens and lengths exactly, a sampling knob tokens of
+    the loop's shape that keep the forced prefix (the JAX draw cannot be
+    reproduced)."""
+    jcfg, cfg = _configs(no_timestamps_token_id=60)
+    ref_p, p = _params(jcfg)
+    mel = _mel(cfg, 1, 0)
     gen = torch_config.GenerationConfig(max_new_tokens=3, **{field: value})
-    with pytest.raises(NotImplementedError):
-        generation.transcribe_tokens(p, cfg, _mel(cfg, 1, 0), gen, device="cpu")
+    if field == "num_beams":
+        with pytest.raises(NotImplementedError):
+            generation.transcribe_tokens(p, cfg, mel, gen, device="cpu")
+        return
+    toks, lens = generation.transcribe_tokens(p, cfg, mel, gen, device="cpu")
+    if field in ("temperature", "top_k", "top_p"):
+        assert tuple(toks.shape) == (1, 4) and int(toks[0, 1]) == 11
+        return
+    ref_toks, ref_lens = jax_gen.transcribe_tokens(
+        ref_p, jcfg, jnp.asarray(mel),
+        jax_config.GenerationConfig(max_new_tokens=3, **{field: value}))
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(ref_toks))
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(ref_lens))

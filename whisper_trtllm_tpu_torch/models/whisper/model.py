@@ -310,18 +310,28 @@ def cross_attention_q(lp: dict, h: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def compute_cross_kv(params: dict, cfg: WhisperConfig,
-                     enc_states: torch.Tensor
+                     enc_states: torch.Tensor,
+                     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V for all layers, once per utterance:
     (L, B, H, Tp, dh) ×2 with T padded to a multiple of 8 (1500 → 1504);
-    the padding rows are zero and masked by the true length."""
+    the padding rows are zero and masked by the true length. ``out``: a
+    pair of that shape and dtype whose padding rows are zero, written in
+    place (a captured decode step reads its cross cache there)."""
     heads = cfg.decoder_attention_heads
     layers = params["decoder"]["layers"]
     b, t, d = enc_states.shape
     tp = -(-t // CROSS_PAD) * CROSS_PAD
     shape = (cfg.decoder_layers, b, heads, tp, d // heads)
-    ks = enc_states.new_zeros(shape)
-    vs = enc_states.new_zeros(shape)
+    if out is not None:
+        ks, vs = out
+        if ks.shape != shape or vs.shape != shape or \
+                ks.dtype != enc_states.dtype or vs.dtype != enc_states.dtype:
+            raise ValueError(f"compute_cross_kv: out must be two {shape} "
+                             f"{enc_states.dtype} tensors")
+    else:
+        ks = enc_states.new_zeros(shape)
+        vs = enc_states.new_zeros(shape)
     for i in range(cfg.decoder_layers):
         ca = layer(layers, i)["encoder_attn"]
         ks[i, :, :, :t] = split_heads(dense(ca["k"], enc_states), heads)
@@ -414,12 +424,14 @@ _FUSED_BLOCKS = (("self_attn", "q"), ("self_attn", "k"), ("self_attn", "v"),
 
 
 def _fused_decode_ok(dec: dict, self_k: torch.Tensor, cross_k: torch.Tensor,
-                     pos: torch.Tensor) -> bool:
+                     pos: Optional[torch.Tensor] = None) -> bool:
     """Gate of the fused decode step: the CUDA card, float caches (the
     caller checks the tuple lengths and the layout), a lockstep 0-d
-    ``pos``, unfused float projections of one dtype with the caches, and
-    the kernel's shape limits (``fused_layer_supported``)."""
-    if not fused_decode_enabled(self_k.device) or pos.dim() != 0:
+    ``pos`` (None: the caller's loop keeps one), unfused float projections
+    of one dtype with the caches, and the kernel's shape limits
+    (``fused_layer_supported``)."""
+    if not fused_decode_enabled(self_k.device) or (
+            pos is not None and pos.dim() != 0):
         return False
     lp = dec["layers"]
     if "qkv" in lp["self_attn"]:
@@ -438,6 +450,20 @@ def _fused_decode_ok(dec: dict, self_k: torch.Tensor, cross_k: torch.Tensor,
     return fused_layer_supported(b, h, ts, dh, cross_k.shape[3], h * dh,
                                  lp["fc1"]["kernel"].shape[-1],
                                  self_k.element_size())
+
+
+def decode_step_plan(params: dict, cfg: WhisperConfig,
+                     self_kv: Tuple[torch.Tensor, ...],
+                     cross_kv: Tuple[torch.Tensor, ...]) -> bool:
+    """True when ``decode_step_kv`` takes the fused step (K6) for these
+    caches: float self and cross tuples, the cross cache dh-minor, and the
+    gate ``_fused_decode_ok``. It depends on the tree and the caches' shapes
+    only, so a decode loop decides it once, before its first step (the
+    gate walks the weight tree)."""
+    if len(self_kv) == 4 or len(cross_kv) == 4 or cross_kv_t_major(
+            cfg, cross_kv):
+        return False
+    return _fused_decode_ok(params["decoder"], self_kv[0], cross_kv[0])
 
 
 @functools.lru_cache(maxsize=None)
@@ -478,10 +504,15 @@ def decode_step_kv(
     pos,
     self_kv: Tuple[torch.Tensor, ...],
     cross_kv: Tuple[torch.Tensor, ...],
+    fused: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """One decode step: tokens (B,) at position ``pos`` (an int or a 0-d
-    tensor) → (logits (B, V) fp32, self_kv). Each cache tuple is float
-    (k, v) or quantized (kq, ks, vq, vs); the cross tuple may be T-minor.
+    """One decode step: tokens (B,) at position ``pos`` → (logits (B, V)
+    fp32, self_kv). ``pos`` is an int or a 0-d integer tensor; a 0-d int32
+    tensor on the tokens' device is read there, never on the host, so the
+    step can be captured in a CUDA graph. Each cache tuple is float (k, v)
+    or quantized (kq, ks, vq, vs); the cross tuple may be T-minor.
+    ``fused``: ``decode_step_plan``'s answer for these caches, which a loop
+    computes once; None asks it here.
 
     The self-attention caches, values and scales, are updated IN PLACE and
     returned; the JAX version returns new arrays."""
@@ -491,13 +522,20 @@ def decode_step_kv(
     quant_cross = len(cross_kv) == 4
     t_major = cross_kv_t_major(cfg, cross_kv)
     dev = tokens.device
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    elif pos.dtype != torch.int32 or pos.device != dev:
+        pos = pos.to(device=dev, dtype=torch.int32)
+    if pos.dim() != 0:
+        raise NotImplementedError("per-lane decode positions are not ported "
+                                  "yet")
+    if fused is None:
+        fused = decode_step_plan(params, cfg, self_kv, cross_kv)
 
     x = embedding(dec["embed_tokens"], tokens[:, None])
     x = x + dec["embed_positions"].index_select(0, pos.long().reshape(1)).to(
         x.dtype)[None]
-    if not (quant_self or quant_cross or t_major) and _fused_decode_ok(
-            dec, self_kv[0], cross_kv[0], pos):
+    if fused:
         return _decode_step_fused(dec, cfg, x, pos, self_kv, cross_kv)
     self_len = pos + 1
     enc_len = _encoder_length(cfg.max_source_positions, dev)

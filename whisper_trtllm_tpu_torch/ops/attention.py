@@ -87,7 +87,9 @@ def update_kv_cache(
     tensor they may be views of) and returns them. ``pos`` is a scalar,
     an int or a 0-d tensor (lockstep batch); per-lane positions are a
     later slice."""
-    idx = torch.as_tensor(pos, device=cache_k.device)
+    idx = pos if isinstance(pos, torch.Tensor) and \
+        pos.device == cache_k.device else torch.as_tensor(
+            pos, device=cache_k.device)
     if idx.dim() != 0:
         raise NotImplementedError("per-lane cache positions are not ported yet")
     idx = idx.long().reshape(1)
@@ -149,7 +151,11 @@ def mha_decode_step(
     raises."""
     if bias is not None:
         raise NotImplementedError("attention bias is not ported yet")
-    valid_len = torch.as_tensor(valid_len, dtype=torch.int32, device=q.device)
+    if not (isinstance(valid_len, torch.Tensor)
+            and valid_len.dtype == torch.int32
+            and valid_len.device == q.device):
+        valid_len = torch.as_tensor(valid_len, dtype=torch.int32,
+                                    device=q.device)
     if valid_len.dim() > 1:
         raise ValueError(f"valid_len must be a scalar or (B,), got shape "
                          f"{tuple(valid_len.shape)}")

@@ -14,7 +14,8 @@ erf because Mosaic has none; here it is the exact erf on both sides.
 
 The wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches the kernel or raises. Which steps come here is the
-model's gate's decision (``_fused_decode_ok``, once a step), and
+model's gate's decision (``_fused_decode_ok``, once a decode call through
+``decode_step_plan``), and
 ``fused_layer_supported`` states the kernel's shape limits for it; the
 wrapper checks only what keeps the launch inside the tensors it is given,
 and the kernel itself refuses a launch outside its limits.

@@ -29,14 +29,16 @@ _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _check_runtime(rt: RuntimeConfig) -> None:
     """Refuse every RuntimeConfig option the port does not implement yet,
-    so none is silently ignored."""
+    so none is silently ignored. ``donate_caches`` is not among them: the
+    port's decode writes its caches in place, one set a decode (or a
+    captured step's), which is what donation buys the JAX loop, so either
+    value runs the same decode."""
     unported = {
         "compute_dtype": rt.compute_dtype not in _COMPUTE_DTYPES,
         "weight_dtype": rt.weight_dtype not in ("native", "int8"),
         "fp32_attention_softmax": not rt.fp32_attention_softmax,
         "fp32_logits": not rt.fp32_logits,
         "use_pallas": rt.use_pallas is False,
-        "donate_caches": not rt.donate_caches,
         "persistent_cache_dir": rt.persistent_cache_dir is not None,
     }
     bad = [name for name, hit in unported.items() if hit]
@@ -117,8 +119,12 @@ class WhisperSession:
     def refit(self, params: dict) -> None:
         """Swap in new weights: the tree goes through the same load-time
         chain (``_prepare_params``), so it has the structure the session
-        runs, then replaces the old weights."""
-        self.params = self._prepare_params(params)
+        runs, then replaces the old weights. The decode steps captured
+        against the old weights are dropped: a CUDA graph reads the
+        weights it was captured with, and the next decode captures anew."""
+        new = self._prepare_params(params)
+        gen_rt.drop_graphs(self.params)
+        self.params = new
 
     def memory_stats(self) -> dict:
         """Device memory in use, its peak, and the card's size (None for
@@ -135,7 +141,8 @@ class WhisperSession:
         }
 
     def warmup(self, batch: int = 1) -> None:
-        """Build the kernels and run the pipeline once at this batch size."""
+        """Build the kernels and run the pipeline once at this batch size;
+        on the card that captures the decode step's CUDA graph for it."""
         mel = torch.zeros((batch, 2 * self.cfg.max_source_positions,
                            self.cfg.num_mel_bins), device=self.device)
         self._run(mel)
