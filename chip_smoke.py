@@ -30,7 +30,9 @@ Six phases, each timed; any failure raises and the script exits non-zero:
    cross attention's, a causal and a GQA shape; the head-contiguous cross
    attention at the hardware check's shape over valid lengths 1500, 1 and
    T, at batch 4 and 32; the example's bias+GELU at its (512, 384) and at
-   the encoder MLP's (6000, 1536)), and times the kernel, the plain
+   the encoder MLP's (6000, 1536); and, from a third stream, the beam
+   phase's 16 lanes: the quantized decode attention, the decode step's
+   LayerNorm and the fused decoder-layer step), and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
    same function (the yardstick; the port never calls it), and the launch
    floor: PyTorch's spin kernel given nothing to do,
@@ -66,7 +68,16 @@ Six phases, each timed; any failure raises and the script exits non-zero:
    features, on E (each greedy variant token-equal to the CPU's) and B:
    timestamps, a prompted decode, bad and stop words, min-new-tokens, and
    a sampled decode (one draw a seed; ``SAMPLED_AGREEMENT`` of its tokens
-   equal to the CPU's in E);
+   equal to the CPU's in E). Then beam search (``runtime/beam.py``, K =
+   ``BEAM_K`` = 4 at batch 4) through the session, in E (B·K = 16 lanes:
+   K6) and B (K2): the best hypotheses give the expected texts, launch
+   counts exact from the loop's steps (one warm-up step and one capture,
+   then a repeat transcribe that only replays, its counters equal to the
+   profiler's), and in E every hypothesis and ``beam_decode_prompted``
+   token-equal to the CPU's, scores within ``BEAM_SCORE_TOLERANCE``; and
+   ``transcribe_long_conditioned`` in E over the four utterances in one
+   44.6 s stream (two chunks), greedy and K = 2, per-chunk ids equal to
+   the CPU's;
 5. training — on the float tree with the bundled batch of 4 and their
    ground-truth tokens (32 positions): (a) the loss and every leaf's
    gradient on the card against the CPU's (each nonzero), and one
@@ -85,17 +96,21 @@ Six phases, each timed; any failure raises and the script exits non-zero:
    8 --dtype float32 bfloat16`` as subprocesses and prints their lines: the
    gate must pass, every number be finite and positive, MFU and each
    section's decode roofline share at most 1.05, both sections present,
-   and each grid row must show K6 once a decode layer; then one headline
-   pass in this process with exact K1, K2, K3 and K5 launch counts and no
-   K6, the headline batch's stages timed one by one with the host µs of a
-   step, and the card's idle share: the device time of one pass under
-   ``torch.profiler`` over the median wall time of three passes not
-   traced.
+   and each grid row must show K6 once a decode layer; the grid's beam
+   row (``--num-beams 4``, tiny.en bf16 batch 8, 32 lanes a step) beside
+   its greedy twin, with exact launch counts, and in this process its ms
+   a step, host µs a replay, idle share, peak memory and the cache
+   reorder's share of a step; then one headline pass in this process
+   with exact K1, K2, K3 and K5 launch counts and no K6, the headline
+   batch's stages timed one by one with the host µs of a step, and the card's idle
+   share: the device time of one pass under ``torch.profiler`` over the
+   median wall time of three passes not traced.
 
 The line before the last is one JSON object with every ported kernel's
 numbers (K1's, K4's and K5's also in bf16, under "bfloat16"; K5's decode
 step under "decode", K8's (6000, 1536) under "encoder_mlp", both with the
-launch floor as "floor_ms"; the bench path's launches as "bench_launches");
+launch floor as "floor_ms"; the bench path's launches as "bench_launches",
+the beam path's first transcribe's (B; E for K6) as "beam_launches");
 the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -438,6 +453,11 @@ BENCH_QUANT_CASES = [("self", 32, 6, 49, [[49] * 32], [49] * 32),
                      ("cross", 16, 16, 1504, [1500], 1500),
                      ("cross", 16, 20, 1504, [1500], 1500)]
 
+# the beam phase's, B·K = 16 lanes (batch 4, K 4): the self cache of 33
+# rows (32 tokens) and the tiled cross cache
+BEAM_QUANT_CASES = [("self", 16, 6, 33, [[33] * 16], [33] * 16),
+                    ("cross", 16, 6, 1504, [1500], 1500)]
+
 
 def check_decode_quant(torch, rng, card, parent=None, cases=QUANT_CASES):
     """K2 with int8/fp8 caches (scales folded in), both cache layouts, fp32
@@ -609,6 +629,8 @@ NORM_CASES = [("encoder", (4, 1500, 384)), ("decode", (4, 1, 384))]
 BENCH_NORM_CASES = [("encoder", (32, 1500, 384)), ("decode", (32, 1, 384)),
                     ("encoder", (16, 1500, 1024)), ("decode", (16, 1, 1024)),
                     ("encoder", (16, 1500, 1280)), ("decode", (16, 1, 1280))]
+# the beam phase's decode rows, B·K = 16 lanes
+BEAM_NORM_CASES = [("decode", (16, 1, 384))]
 
 
 def check_layer_norm(torch, rng, card, floor_ms, parent=None,
@@ -677,7 +699,7 @@ def check_layer_norm(torch, rng, card, floor_ms, parent=None,
                 headline = row
             elif name == "encoder":
                 headline["bfloat16"] = row
-            else:
+            elif headline is not None:
                 headline.setdefault("decode", {})[dn] = row
     return headline
 
@@ -687,6 +709,8 @@ def check_layer_norm(torch, rng, card, floor_ms, parent=None,
 # (its 8 rows fill the kernel's 8-row padding), 48 steps
 FUSED_CASES = [(4, 33, (0, 16, 32))]
 BENCH_FUSED_CASES = [(1, 49, (0, 24, 48)), (8, 49, (0, 24, 48))]
+# the beam phase's E: B·K = 16 lanes, the kernel's largest batch
+BEAM_FUSED_CASES = [(16, 33, (0, 16, 32))]
 
 
 def check_fused(torch, rng, card, parent=None, cases=FUSED_CASES):
@@ -1049,7 +1073,7 @@ def hardware_check(card):
         print(f"gpu_check {name}: pass={r['pass']} "
               + " ".join(f"{k}={r[k]}" for k in r if k != "pass")
               + f" [{card}]")
-    if not (report["pass"] is True and len(checks) == 10
+    if not (report["pass"] is True and len(checks) == 11
             and all(r["pass"] is True for r in checks.values())):
         fail(f"gpu_check: not every check passed: {report}")
     print(f"gpu_check: all {len(checks)} checks passed in {wall:.1f} s of "
@@ -1534,6 +1558,205 @@ def decode_features(torch, np, card):
         del sessions, enc
 
 
+# beams a lane in the beam phase: at the bundled batch of 4, B·K = 16
+# lanes, the fused step's limit (K6's MAX_B) in E
+BEAM_K = 4
+# the card's beam scores against the CPU's, both fp32: the card's
+# log-probabilities differ in the last bits (sums reordered), summed over
+# up to 32 steps, then divided by the length
+BEAM_SCORE_TOLERANCE = 1e-3
+# tiny.en's <|startofprev|>: two below <|notimestamps|> (50362, the
+# artifact's forced id) in the .en vocabulary, which has no word there
+PREV_SOT = 50360
+# where each bundled utterance starts in the long-form stream (s): two in
+# the first 30 s window, two in the second
+LONGFORM_OFFSETS_S = (0.0, 10.0, 30.0, 40.0)
+
+
+def _beam_match(np, card_out, cpu_out, tag):
+    """Every hypothesis token-equal, lengths equal, the scores at NEG_INF
+    scale exactly and the others within ``BEAM_SCORE_TOLERANCE``; returns
+    the largest score difference."""
+    (t, s, l), (ct, cs, cl) = card_out, cpu_out
+    if not (np.array_equal(t, ct) and np.array_equal(l, cl)):
+        fail(f"{tag}: card hypotheses differ from the CPU's (lengths "
+             f"{l.tolist()} vs {cl.tolist()})")
+    big = np.abs(cs) >= 1e8
+    err = float(np.abs(s[~big] - cs[~big]).max()) if (~big).any() else 0.0
+    if not (np.array_equal(s[big], cs[big]) and err <= BEAM_SCORE_TOLERANCE):
+        fail(f"{tag}: scores {s.tolist()} vs the CPU's {cs.tolist()}")
+    return err
+
+
+def beams_and_longform(torch, np, card):
+    """Beam search (K = ``BEAM_K`` at batch 4) through the session on the
+    trained artifact, in E (fp32, float tree: B·K = 16 lanes, K6) and B
+    (bf16, int8 KV, T-minor: K2): the best hypotheses give the expected
+    texts (the port's CPU beam output, equal to JAX's, gives them too);
+    launch counts exact from the loop's steps, the first decode one
+    warm-up step and one capture, a repeat decode replays only and its
+    counters equal the profiler's; in E every hypothesis token-equal to the
+    CPU's, scores within ``BEAM_SCORE_TOLERANCE``, and
+    ``beam_decode_prompted`` too. Then ``transcribe_long_conditioned`` in E
+    over the four utterances in one stream of more than 30 s, greedy and
+    K = 2, per-chunk ids equal to the CPU's. Returns B's and E's launch
+    counts of the first beam transcribe."""
+    from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
+    from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        KERNELS,
+        reset_launch_counts,
+    )
+    from whisper_trtllm_tpu_torch.runtime import beam, longform
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+    from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
+
+    with open(os.path.join(ROOT, "artifacts", "expected.json")) as f:
+        expected = json.load(f)["texts"]
+    waves = [read_wav(os.path.join(EVAL_DIR, f"utt{i:02d}.wav"))
+             for i in range(len(expected))]
+    audio = np.stack([pad_or_trim(w) for w in waves])
+    params, cfg = load_checkpoint(ARTIFACT, device="cpu")
+    specials = {cfg.eos_token_id, cfg.pad_token_id,
+                cfg.decoder_start_token_id,
+                *[t for _, t in cfg.forced_decoder_ids]}
+    if not (PREV_SOT < cfg.vocab_size and PREV_SOT not in specials
+            and ids_to_text([PREV_SOT]) == ""
+            and (1, PREV_SOT + 2) in cfg.forced_decoder_ids):
+        fail(f"beams: {PREV_SOT} is not <|startofprev|> in the artifact's "
+             f"vocabulary")
+    sot, notime = cfg.decoder_start_token_id, PREV_SOT + 2
+    counts = {}
+    for name, tree, compute, kv, vs_cpu in (
+            ("E", float_tree(params), "float32", "auto", True),
+            ("B", params, "bfloat16", "int8", False)):
+        tag = f"beams {name} (K {BEAM_K}, batch 4, {compute}, kv {kv})"
+        gen = GenerationConfig(max_new_tokens=32, num_beams=BEAM_K,
+                               kv_cache_dtype=kv)
+        rt = RuntimeConfig(compute_dtype=compute)
+        session = WhisperSession(tree, cfg, gen, rt, device=DEVICE)
+        max_len = 33
+
+        # the beam path, counted from zero: one transcribe
+        reset_launch_counts()
+        gen_rt.reset_loop_counts()
+        tokens, lengths = session.transcribe(audio)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        loop = gen_rt.LOOP
+        steps = loop.steps
+        pos = int(next(reversed(gen_rt._GRAPHS.values())).state.pos)
+        # the loop stops at the first host read after go fell (when pos
+        # stopped moving), or after max_len - 1 steps
+        if not (loop.captures == 1 and loop.eager_steps == gen_rt.WARMUP_STEPS
+                and (0 <= steps - pos < gen_rt.FINISH_CHECK_EVERY
+                     or steps == max_len - 1)):
+            fail(f"{tag}: the decode ran {loop.eager_steps} eager steps, "
+                 f"{loop.replays} replays, {loop.captures} captures, pos "
+                 f"{pos}")
+        texts = [ids_to_text(tokens[i, :lengths[i]])
+                 for i in range(len(expected))]
+        print(f"{tag}: best lengths {lengths.tolist()}, decode steps {steps} "
+              f"({loop.eager_steps} warm-up, {loop.replays} replays, "
+              f"{loop.host_reads} host reads; the last step that moved pos: "
+              f"{pos}; capture {loop.capture_ms:.2f} ms) launches {launches}")
+        for got, want in zip(texts, expected):
+            print(f"{tag}: {'ok  ' if got == want else 'BAD '} {got!r}")
+        if texts != expected:
+            fail(f"{tag}: the best hypotheses' transcripts differ from "
+                 f"artifacts/expected.json")
+        want = transcribe_launches(cfg, steps, 1, fused=name == "E",
+                                   frontend=True)
+        if launches != want:
+            fail(f"{tag}: kernel launches {launches}, expected {want}")
+        counts[name] = launches
+
+        # a repeat decode replays only; its counters against the profiler
+        gen_rt.reset_loop_counts()
+        busy, traced, counted = traced_run(
+            torch, lambda: session.transcribe(audio))
+        if gen_rt.LOOP.eager_steps or gen_rt.LOOP.captures:
+            fail(f"{tag}: a repeat decode did not only replay")
+        want = transcribe_launches(cfg, gen_rt.LOOP.steps, 1,
+                                   fused=name == "E", frontend=True)
+        if traced != counted or any(counted[k] != want[k] for k in counted):
+            fail(f"{tag}: the counters {counted} differ from the "
+                 f"profiler's launches {traced} or from {want}")
+        print(f"{tag}: a repeat transcribe replayed {gen_rt.LOOP.replays} "
+              f"steps; the traced launches {traced} equal the counters "
+              f"[{card}]")
+        with torch.inference_mode():
+            enc = session.encode(session.frontend(audio))
+        gen_rt.reset_loop_counts()
+        _, de, de_lo, de_hi = timed(torch, lambda: beam.beam_decode(
+            session.params, cfg, enc, gen), 3)
+        de_steps = gen_rt.LOOP.replays / 3
+        print(f"{tag} beam decode (median of 3, min..max) [{card}]: "
+              f"{de:.2f} ms ({de_lo:.2f}..{de_hi:.2f}), {de_steps:g} steps "
+              f"at {4 * BEAM_K} lanes, {de / de_steps:.4f} ms a step")
+        if not vs_cpu:
+            del session, enc
+            continue
+
+        # every hypothesis against the CPU's, plain and prompted
+        cpu = WhisperSession(tree, cfg, gen, rt, device="cpu")
+        with torch.inference_mode():
+            enc_cpu = cpu.encode(cpu.frontend(audio))
+
+        def both(fn, *args):
+            return [tuple(x.cpu().numpy() for x in fn(ss.params, cfg, e,
+                                                     *args, gen))
+                    for ss, e in ((session, enc), (cpu, enc_cpu))]
+
+        card_out, cpu_out = both(beam.beam_decode)
+        err = _beam_match(np, card_out, cpu_out, tag)
+        if not np.array_equal(card_out[0][:, 0], tokens):
+            fail(f"{tag}: beam_decode's best differs from the session's")
+        best = card_out[0][3, 0]
+        prev = [int(t) for t in best[2:card_out[2][3, 0] - 1]]
+        prompt = np.asarray([[PREV_SOT] + prev + [sot, notime]] * 4,
+                            np.int32)
+        p_card, p_cpu = both(beam.beam_decode_prompted, prompt)
+        p_err = _beam_match(np, p_card, p_cpu, f"{tag} prompted")
+        if not (p_card[0][:, :, :prompt.shape[1]]
+                == prompt[:, None]).all():
+            fail(f"{tag} prompted: the prompt is not every beam's head")
+        print(f"{tag}: all {BEAM_K} hypotheses of each utterance equal the "
+              f"CPU's, scores within {err:.2e} (limit "
+              f"{BEAM_SCORE_TOLERANCE}); beam_decode_prompted (prompt of "
+              f"{prompt.shape[1]}) lengths {p_card[2][:, 0].tolist()} equal "
+              f"the CPU's, scores within {p_err:.2e}")
+        del session, cpu, enc, enc_cpu
+
+    # long-form, conditioned, in E: the four utterances in one stream
+    rate = 16000
+    offsets = [int(o * rate) for o in LONGFORM_OFFSETS_S]
+    stream = np.zeros(offsets[-1] + len(waves[-1]), np.float32)
+    for o, w in zip(offsets, waves):
+        stream[o:o + len(w)] = w
+    tree = float_tree(params)
+    for k in (1, 2):
+        tag = f"long-form E (conditioned, num_beams {k})"
+        gen = GenerationConfig(max_new_tokens=32, num_beams=k)
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            session = WhisperSession(tree, cfg, gen, device=dev)
+            outs[dev] = longform.transcribe_long_conditioned(
+                session, stream, PREV_SOT, prev_context_tokens=4)
+            del session
+        (ids, n), (cpu_ids, cpu_n) = outs[DEVICE], outs["cpu"]
+        if n != cpu_n or n < 2 or any(
+                not np.array_equal(a, b) for a, b in zip(ids, cpu_ids)):
+            fail(f"{tag}: the card's chunks {ids} differ from the CPU's "
+                 f"{cpu_ids}")
+        print(f"{tag}: {len(stream) / rate:.1f} s in {n} chunks, ids equal "
+              f"the CPU's: " + " | ".join(ids_to_text(x) for x in ids))
+    torch.cuda.synchronize()
+    return counts
+
+
 # --------------------------------------------------------------------------
 # phase 5: training
 # --------------------------------------------------------------------------
@@ -1727,6 +1950,131 @@ def _numbers(tree, path=""):
         yield path, tree
 
 
+# the benchmark grid's beam row: tiny.en, bf16, this batch and K
+BENCH_BEAM_BATCH = 8
+BENCH_BEAMS = 4
+
+
+def beam_step_stats(torch, np, card):
+    """The beam row's session in this process beside its greedy twin
+    (tiny.en, bf16, batch ``BENCH_BEAM_BATCH``, EOS disabled: 48 steps):
+    ms a decode step, host µs a replay (queued behind a spin of the card),
+    the idle share over a transcribe (one traced call's device time over
+    the median untraced one), peak device memory over the transcribes;
+    for the beams, the cache reorder's share of a step: the reorder alone
+    (``beam.reorder_caches`` on the entry's caches) timed with events,
+    over the ms a step, and the index_select kernels' device time in a
+    traced decode."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_trtllm_tpu_torch.config import (
+        GenerationConfig,
+        RuntimeConfig,
+        WhisperConfig,
+    )
+    from whisper_trtllm_tpu_torch.models.whisper import init_params
+    from whisper_trtllm_tpu_torch.runtime import beam
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.utils.profile_transcribe import _device_us
+
+    cfg = dataclasses.replace(WhisperConfig.tiny_en(), eos_token_id=-1)
+    params = init_params(cfg, seed=0, device="cpu")
+    mel = np.random.default_rng(SEED).standard_normal(
+        (BENCH_BEAM_BATCH, 2 * cfg.max_source_positions, cfg.num_mel_bins)
+    ).astype(np.float32)
+    for k in (1, BENCH_BEAMS):
+        tag = f"bench beams K {k} (tiny.en, bf16, batch {BENCH_BEAM_BATCH})"
+        gen = GenerationConfig(max_new_tokens=48, num_beams=k)
+        session = WhisperSession(params, cfg, gen,
+                                 RuntimeConfig(compute_dtype="bfloat16"),
+                                 device=DEVICE)
+        session.transcribe_features(mel)  # warm-up: captures the step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, tr, tr_lo, tr_hi = timed(
+            torch, lambda: session.transcribe_features(mel), 3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with torch.inference_mode():
+            enc = session.encode(mel)
+        if k > 1:
+            def decode():
+                return beam.beam_decode(session.params, cfg, enc, gen)
+        else:
+            def decode():
+                return gen_rt.greedy_decode(session.params, cfg, enc, gen)
+        gen_rt.reset_loop_counts()
+        _, de, de_lo, de_hi = timed(torch, decode, 3)
+        steps = gen_rt.LOOP.replays / 3
+        if steps != 48 or gen_rt.LOOP.eager_steps:
+            fail(f"{tag}: {gen_rt.LOOP.replays} replays and "
+                 f"{gen_rt.LOOP.eager_steps} eager steps in 3 decodes")
+        step_ms = de / steps
+        entry = next(reversed(gen_rt._GRAPHS.values()))
+        reset = beam.reset_beam_state if k > 1 else gen_rt.reset_state
+        with torch.inference_mode():
+            reset(entry.state, cfg, entry.rules)
+            rep, queued = host_us(torch, entry.replay, 40, SPIN_CYCLES)
+            reset(entry.state, cfg, entry.rules)
+        busy, _, _ = traced_run(torch,
+                                lambda: session.transcribe_features(mel))
+        print(f"{tag} [{card}]: transcribe {tr:.2f} ms ({tr_lo:.2f}.."
+              f"{tr_hi:.2f}), decode {de:.2f} ms ({de_lo:.2f}..{de_hi:.2f}), "
+              f"{step_ms:.4f} ms a step at {BENCH_BEAM_BATCH * k} lanes; host "
+              f"{rep:.2f} us a replay "
+              f"({'all queued' if queued else 'a replay waited'}); "
+              f"idle share {1 - busy / tr:.3f} (device busy {busy:.2f} ms of "
+              f"a traced transcribe); peak {peak:.3f} GiB allocated")
+        if k > 1:
+            # the reorder alone: 50 of them captured in one graph, so that
+            # the time is the card's and not the launches' gaps
+            s = entry.state
+            src = torch.arange(BENCH_BEAM_BATCH * k, device=DEVICE)
+            graph = torch.cuda.CUDAGraph()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            with torch.inference_mode():
+                beam.reorder_caches(s.self_kv, src)
+                torch.cuda.synchronize()
+                with torch.cuda.graph(graph):
+                    for _ in range(50):
+                        beam.reorder_caches(s.self_kv, src)
+                graph.replay()
+                start.record()
+                graph.replay()
+                end.record()
+                torch.cuda.synchronize()
+            reorder_ms = start.elapsed_time(end) / 50
+            del graph
+            cache_bytes = sum(c.numel() * c.element_size() for c in s.self_kv)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                decode()
+                torch.cuda.synchronize()
+            dev_events = [e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA
+                          and not e.key.startswith("Activity Buffer")]
+            total = sum(_device_us(e) for e in dev_events) / 1e3
+            gather = sum(_device_us(e) for e in dev_events
+                         if "indexSelect" in e.key) / 1e3
+            print(f"{tag} cache reorder [{card}]: {reorder_ms:.4f} ms a step "
+                  f"(graph-timed, {cache_bytes / 2 ** 20:.2f} MiB of self "
+                  f"caches gathered, then copied back), "
+                  f"{reorder_ms / step_ms:.3f} of a {step_ms:.4f} ms step; "
+                  f"index_select kernels {gather:.2f} ms of {total:.2f} ms "
+                  f"device time in a traced decode ({gather / total:.3f})")
+            top = sorted(dev_events, key=_device_us, reverse=True)[:10]
+            print(f"{tag} traced decode, device ms by kernel (of "
+                  f"{total:.2f}) [{card}]: " + "; ".join(
+                      f"{e.key[:60]} {_device_us(e) / 1e3:.2f} "
+                      f"x{e.count}" for e in top))
+        del session, enc, entry
+        gen_rt.drop_graphs()
+
+
 def bench_phase(torch, np, card):
     """Runs ``cli.bench --fp32`` and ``benchmarks.benchmark`` as
     subprocesses and checks their lines; then one headline pass in this
@@ -1792,6 +2140,30 @@ def bench_phase(torch, np, card):
         fail(f"benchmark: expected 4 rows with float32 batch 8, got {rows}")
     print(f"benchmark: {len(rows)} rows in {wall:.1f} s of wall time; K6 "
           f"{cfg.decoder_layers} launches a decode step in every row")
+
+    # (b') the grid CLI's beam row beside its --num-beams 1 twin (bf16,
+    # batch 8): B·K = 32 lanes a step, past K6's 16, so K2 and K5
+    stdout, wall = run_module(
+        "whisper_trtllm_tpu_torch.benchmarks.benchmark", 600,
+        ["--model", "tiny.en", "--batch", str(BENCH_BEAM_BATCH), "--dtype",
+         "bfloat16", "--num-beams", str(BENCH_BEAMS)])
+    beam_row = json.loads(stdout.strip().splitlines()[-1])
+    print(f"benchmark: {json.dumps(beam_row)}")
+    want = transcribe_launches(cfg, beam_row["gen_tokens"], beam_row["iters"],
+                               fused=False, frontend=False)
+    want = {k: n for k, n in want.items() if n}
+    if beam_row["num_beams"] != BENCH_BEAMS or beam_row["launches"] != want:
+        fail(f"benchmark beams: launches {beam_row['launches']}, expected "
+             f"{want}")
+    twin = next(r for r in rows if (r["dtype"], r["batch"])
+                == ("bfloat16", BENCH_BEAM_BATCH))
+    print(f"benchmark beams ({wall:.1f} s of wall time) [{card}]: K "
+          f"{BENCH_BEAMS} p50 {beam_row['latency_ms_p50']:.2f} ms, "
+          f"{beam_row['audio_s_per_s']:.2f} audio-s/s, peak "
+          f"{beam_row['peak_mem_gib']:.3f} GiB; its greedy twin p50 "
+          f"{twin['latency_ms_p50']:.2f} ms, {twin['audio_s_per_s']:.2f} "
+          f"audio-s/s, peak {twin['peak_mem_gib']:.3f} GiB")
+    beam_step_stats(torch, np, card)
 
     # (c) one headline pass in this process, counted
     dev = torch.device(DEVICE)
@@ -1944,6 +2316,11 @@ def main() -> None:
     check_stft(torch, rng, card, parent, BENCH_STFT_CASES)
     check_layer_norm(torch, rng, card, floor_ms, parent, BENCH_NORM_CASES)
     check_fused(torch, rng, card, parent, BENCH_FUSED_CASES)
+    # and the beam phase's (K2, K5 and K6 at B·K = 16 lanes), from a third
+    rng = np.random.default_rng(SEED + 2)
+    check_decode_quant(torch, rng, card, parent, BEAM_QUANT_CASES)
+    check_layer_norm(torch, rng, card, floor_ms, parent, BEAM_NORM_CASES)
+    check_fused(torch, rng, card, parent, BEAM_FUSED_CASES)
     phase_s["kernels"] = time.perf_counter() - t0
     # each kernel's launches from a path that runs it: configuration B, the
     # serving precision, for K1, K2, K3 and K5; E, the float-weight path,
@@ -1959,6 +2336,9 @@ def main() -> None:
     t0 = time.perf_counter()
     decode_features(torch, np, card)
     phase_s["decode features"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    beam_counts = beams_and_longform(torch, np, card)
+    phase_s["beams and long-form"] = time.perf_counter() - t0
     # what the decode phases leave on the card: their sessions are gone, and
     # with them every captured step (an entry goes with its weights)
     from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
@@ -2019,6 +2399,11 @@ def main() -> None:
         # benchmark CLI's float32 batch-8 row (K6)
         if counts["bench"].get(r["name"]):
             r["bench_launches"] = counts["bench"][r["name"]]
+        # the beam path's first transcribe: B for K1, K2, K3, K5; E for K6
+        beam_path = beam_counts["E" if r["name"] == "fused_decoder_layer_step"
+                                else "B"]
+        if beam_path.get(r["name"]):
+            r["beam_launches"] = beam_path[r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # K1, K4 and K5 also carry their bf16 numbers at the encoder's shape;
@@ -2026,7 +2411,8 @@ def main() -> None:
     # q) at the cross case; K5 its decode step's, K8 the encoder MLP's
     # shape, both beside the launch floor
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + [x for x in ("bench_launches", "bfloat16",
+        {k: r[k] for k in keys + [x for x in ("bench_launches",
+                                              "beam_launches", "bfloat16",
                                               "serving", "decode",
                                               "encoder_mlp", "floor_ms")
                                   if x in r]}

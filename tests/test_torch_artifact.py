@@ -173,14 +173,26 @@ def test_session_load_time_option_on_the_float_tree(audio, expected, artifact,
     dict(runtime=RuntimeConfig(weight_dtype="fp8")),
     dict(runtime=RuntimeConfig(compute_dtype="float16")),
     dict(runtime=RuntimeConfig(persistent_cache_dir="cache")),
-    dict(generation=GenerationConfig(num_beams=2)),
     dict(mesh=object()),
-], ids=["weight_int4", "weight_fp8", "float16", "persistent_cache", "beams",
-        "mesh"])
+], ids=["weight_int4", "weight_fp8", "float16", "persistent_cache", "mesh"])
 def test_session_refuses_options_of_later_slices(artifact, option):
     params, cfg = artifact
     with pytest.raises(NotImplementedError):
         WhisperSession(params, cfg, device="cpu", **option)
+
+
+def test_session_beam_search_transcribes_all_four_utterances_exactly(
+        audio, expected, artifact):
+    """``num_beams=4``: the best hypothesis of each utterance, in greedy's
+    signature, gives the expected texts."""
+    params, cfg = artifact
+    session = WhisperSession(
+        params, cfg, GenerationConfig(max_new_tokens=32, num_beams=4),
+        device="cpu")
+    toks, lens = session.transcribe(audio)
+    assert toks.shape == (4, 33) and toks.dtype == np.int32
+    assert [ids_to_text(toks[i, :lens[i]])
+            for i in range(len(expected))] == expected
 
 
 def test_session_refuses_engine_export(artifact):

@@ -311,7 +311,6 @@ def test_entry_points_exit_nonzero_without_a_card(main, monkeypatch, capsys,
     (dict(model="gpt_350m"), "item 11"),
     (dict(model="llama_7b"), "item 11"),
     (dict(model="tiny.en", quant="int8"), "item 11"),
-    (dict(model="tiny.en", num_beams=4), "item 4"),
 ])
 def test_unported_inputs_raise_naming_their_roadmap_item(kwargs, item):
     args = dict(batch=1, dtype="float32", gen_tokens=2, iters=1,
@@ -330,3 +329,14 @@ def test_bench_config_row_has_the_jax_rows_keys_on_the_cpu():
     assert row["backend"] == "cpu" and row["device"] is None
     assert row["peak_mem_gib"] == -1.0 and row["launches"] == {}
     assert row["audio_s_per_s"] > 0 and row["iters"] == 2
+
+
+def test_bench_config_runs_beams_on_the_cpu():
+    """``--num-beams`` K > 1: the session's beam branch, the JAX row's keys
+    and formulas (tokens counted for the best hypothesis)."""
+    row = benchmark.bench_config("tiny.en", 1, "float32", gen_tokens=2,
+                                 iters=1, num_beams=2, device="cpu")
+    assert row["num_beams"] == 2 and row["backend"] == "cpu"
+    batch_s = row["latency_ms_p50"] / 1e3
+    assert row["tokens_per_s"] == pytest.approx(1 * 2 / batch_s)
+    assert row["audio_s_per_s"] == pytest.approx(30.0 / batch_s)

@@ -21,6 +21,7 @@ Python and is checked here.
 
 import dataclasses
 import gc
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -263,7 +264,8 @@ def test_sampling_with_one_token_left_is_greedy(plain, plain_tokens, gen):
 
 
 def test_session_takes_every_non_beam_field(plain):
-    """The session's greedy pipeline: any GenerationConfig but beams."""
+    """The session's greedy pipeline takes any GenerationConfig; with
+    ``num_beams=2`` the same fields run the beam branch."""
     gen = torch_config.GenerationConfig(
         max_new_tokens=5, temperature=0.9, top_k=4, top_p=0.9,
         repetition_penalty=1.1, presence_penalty=0.2, min_new_tokens=1,
@@ -275,9 +277,11 @@ def test_session_takes_every_non_beam_field(plain):
         (2, 2 * plain.cfg.max_source_positions, plain.cfg.num_mel_bins))
     toks, lens = session.transcribe_features(mel.astype(np.float32))
     assert toks.shape == (2, 6) and (lens <= 6).all()
-    with pytest.raises(NotImplementedError):
-        WhisperSession(plain.params, plain.cfg,
-                       dataclasses.replace(gen, num_beams=2), device="cpu")
+    beams = WhisperSession(plain.params, plain.cfg,
+                           dataclasses.replace(gen, num_beams=2), rt,
+                           device="cpu")
+    toks, lens = beams.transcribe_features(mel.astype(np.float32))
+    assert toks.shape == (2, 6) and (lens <= 6).all()
 
 
 # -- the graph cache's bookkeeping (no capture on the CPU) ------------------
@@ -316,6 +320,24 @@ def test_an_entry_goes_when_a_weight_it_reads_dies(graphs):
     p["decoder"]["b"]["c"] = torch.ones(3)
     gc.collect()
     assert ("k",) not in graphs
+
+
+def test_an_entry_goes_with_its_weights_without_a_collection(graphs):
+    """Walking the weights leaves no reference cycle behind: the entry goes
+    the moment its weights do, not at a later garbage collection (which,
+    during a capture, would destroy its graph mid-capture)."""
+    p = _tree()
+    e, leaves = _entry(p)
+    generation._store(("k",), e, leaves)
+    ref = weakref.ref(p["decoder"]["b"]["c"])
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del e, leaves, p
+        assert ref() is None and ("k",) not in graphs
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def test_drop_graphs_and_refit_drop_the_old_weights_entries(graphs, plain):

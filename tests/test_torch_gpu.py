@@ -1353,6 +1353,34 @@ def test_capture_raises_when_the_step_would_sync(cuda, monkeypatch):
     assert toks.shape == (4, 7)
 
 
+def test_capture_survives_garbage_that_holds_a_graph(cuda):
+    """A captured graph left in a reference cycle is freed by the garbage
+    collector; a collection while another step is being captured would
+    destroy it mid-capture, which CUDA refuses (the capture fails). The
+    capture collects first and holds the collector off."""
+    import gc
+
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+
+    session, enc = _artifact_encoder_states(cuda, False, "float32")
+    gen = GenerationConfig(max_new_tokens=6, seed=23)
+    generation.drop_graphs()
+    x = torch.zeros(4, device=cuda)
+    junk = [torch.cuda.CUDAGraph()]
+    with torch.cuda.graph(junk[0]):
+        x.add_(1)
+    junk.append(junk)
+    del junk
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)  # a collection at nearly every allocation
+    try:
+        toks, _ = generation.greedy_decode(session.params, session.cfg, enc,
+                                           gen)
+    finally:
+        gc.set_threshold(*threshold)
+    assert toks.shape == (4, 7) and len(generation._GRAPHS) == 1
+
+
 _KERNEL_SYMBOLS = {"decode_attn": ("decode_dh_minor", "decode_direct",
                                    "decode_t_minor"),
                    "layer_norm": ("layer_norm_kernel",),
@@ -1421,3 +1449,155 @@ def test_refit_leaves_no_graph_replaying_old_weights(cuda):
     np.testing.assert_array_equal(after, fresh)
     np.testing.assert_array_equal(after_lens, fresh_lens)
     assert not np.array_equal(before, after)
+
+
+# -- beam search on the card: the captured beam step ------------------------
+
+def _eager_beam(params, cfg, enc, gen):
+    """The beam step run step by step on the card, every one of the
+    ``max_len - 1`` steps (those after ``go`` fell are no-ops), with no
+    graph; then the finalization."""
+    from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+    from whisper_trtllm_tpu_torch.runtime import beam
+
+    max_len = min(cfg.max_target_positions, gen.max_new_tokens + 1)
+    with torch.inference_mode():
+        s = beam.init_beam_state(cfg, gen, enc.shape[0], max_len, enc.dtype,
+                                 enc.device)
+        cross = beam.tile_cross(
+            generation.build_cross_kv(params, cfg, enc, gen), gen.num_beams)
+        rules = generation.make_rules(cfg, gen, max_len, enc.device)
+        beam.reset_beam_state(s, cfg, rules)
+        fused = wmodel.decode_step_plan(params, cfg, s.self_kv, cross)
+        for _ in range(max_len - 1):
+            beam.beam_step(params, cfg, gen, s, cross, rules, fused)
+        out = beam.finalize(s, gen, rules.prompt_len)
+    return out, fused
+
+
+@pytest.mark.parametrize("weights,compute,kv,layout,k,fused", [
+    ("float", "float32", "auto", "auto", 4, True),
+    ("float", "bfloat16", "auto", "auto", 4, True),
+    ("float", "float32", "auto", "auto", 5, False),
+    ("int8", "float32", "int8", "bhtd", 2, False),
+    ("int8", "bfloat16", "int8", "auto", 4, False),
+    ("int8", "bfloat16", "fp8", "auto", 2, False),
+])
+def test_replayed_beam_step_equals_the_eager_steps(cuda, weights, compute,
+                                                   kv, layout, k, fused):
+    """The captured beam step replayed (the capturing decode, then one
+    that only replays) gives every hypothesis, score and length of the
+    same step run eagerly on the card: float and quantized caches, fused
+    (K6, B·K <= 16) and unfused (K2) steps."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.runtime import beam
+
+    session, enc = _artifact_encoder_states(cuda, weights == "float", compute)
+    gen = GenerationConfig(max_new_tokens=24, num_beams=k, kv_cache_dtype=kv,
+                           cross_kv_layout=layout, early_stopping=False)
+    ref, took_fused = _eager_beam(session.params, session.cfg, enc, gen)
+    assert took_fused == fused
+    generation.drop_graphs()
+    for i in range(2):
+        generation.reset_loop_counts()
+        out = beam.beam_decode(session.params, session.cfg, enc, gen)
+        for got, want in zip(out, ref):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if i == 0:
+            assert generation.LOOP.eager_steps == generation.WARMUP_STEPS
+            assert generation.LOOP.captures == 1
+    assert generation.LOOP.eager_steps == 0 and generation.LOOP.captures == 0
+    assert generation.LOOP.replays > 0
+
+
+def test_beam_replays_after_go_fell_change_nothing(cuda):
+    """Once ``go`` falls (every pool full), further replays leave the
+    pools, the alive beams, ``pos`` and what ``finalize`` returns as they
+    were."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.runtime import beam
+
+    session, enc = _artifact_encoder_states(cuda, True, "float32")
+    gen = GenerationConfig(max_new_tokens=40, num_beams=2)
+    generation.drop_graphs()
+    out = beam.beam_decode(session.params, session.cfg, enc, gen)
+    entry = next(reversed(generation._GRAPHS.values()))
+    s = entry.state
+    assert not bool(s.go) and int(s.pos) < 40
+    before = [t.clone() for t in (s.alive_tokens, s.alive_scores,
+                                  s.finished_tokens, s.finished_scores,
+                                  s.finished_lengths, s.pos, s.es_unsat)]
+    for _ in range(12):
+        entry.replay()
+    after = (s.alive_tokens, s.alive_scores, s.finished_tokens,
+             s.finished_scores, s.finished_lengths, s.pos, s.es_unsat)
+    for got, want in zip(after, before):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with torch.inference_mode():
+        again = beam.finalize(s, gen, entry.rules.prompt_len)
+    for got, want in zip(again, out):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_beam_capture_raises_when_the_step_would_sync(cuda, monkeypatch):
+    """A beam step that reads a device value on the host cannot be
+    captured: the decode raises and keeps no entry."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.runtime import beam
+
+    session, enc = _artifact_encoder_states(cuda, False, "float32")
+    gen = GenerationConfig(max_new_tokens=6, num_beams=2)
+    real = beam.beam_step
+
+    def syncing(params, cfg, g, s, *rest):
+        bool(s.go)  # a host read of a device value
+        return real(params, cfg, g, s, *rest)
+
+    generation.drop_graphs()
+    monkeypatch.setattr(beam, "beam_step", syncing)
+    with pytest.raises(RuntimeError):
+        beam.beam_decode(session.params, session.cfg, enc, gen)
+    torch.cuda.synchronize()
+    assert not generation._GRAPHS
+    monkeypatch.setattr(beam, "beam_step", real)
+    toks, _, _ = beam.beam_decode(session.params, session.cfg, enc, gen)
+    assert toks.shape == (4, 2, 7)
+
+
+@pytest.mark.parametrize("weights,compute,kv", [
+    ("int8", "bfloat16", "int8"), ("float", "float32", "auto")])
+def test_counters_equal_a_profiler_count_of_one_replayed_beam_decode(
+        cuda, weights, compute, kv):
+    """Over a beam decode that only replays, at batch B·K = 16 (fused in
+    float, K2 with int8 caches), each wrapper's counter equals the kernel
+    launches the profiler traces by the kernel's name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.runtime import beam
+
+    session, enc = _artifact_encoder_states(cuda, weights == "float", compute)
+    gen = GenerationConfig(max_new_tokens=20, num_beams=4, kv_cache_dtype=kv)
+    beam.beam_decode(session.params, session.cfg, enc, gen)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    generation.reset_loop_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        beam.beam_decode(session.params, session.cfg, enc, gen)
+        torch.cuda.synchronize()
+    assert generation.LOOP.replays > 0 and generation.LOOP.eager_steps == 0
+    traced = {k: 0 for k in _KERNEL_SYMBOLS}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k, names in _KERNEL_SYMBOLS.items():
+            traced[k] += any(n in e.name for n in names)
+    counted = {k: KERNELS[k].launches for k in _KERNEL_SYMBOLS}
+    assert counted == traced and sum(counted.values()) > 0
+    layers = session.cfg.decoder_layers
+    steps = generation.LOOP.steps
+    if weights == "float":
+        assert counted["fused_decoder_layer_step"] == layers * steps
+    else:
+        assert counted["decode_attn"] == 2 * layers * steps

@@ -15,11 +15,14 @@ over them, and the card's name and power limit. Float weights with float
 KV caches at batch <= 16 run every decode layer as one fused launch (K6);
 that is the only bench path that takes K6.
 
-Not ported yet, and refused with ``NotImplementedError``: the causal-LM
-zoo's names (``allowed_configs.py``, ``bench_zoo``; ROADMAP Queue 1 item
-11), ``--quant`` (the zoo's weight-only modes) and ``--num-beams`` > 1
-(beam search; ROADMAP Queue 1 item 4). Without a card it exits non-zero
-and prints no row.
+``--num-beams`` K > 1 runs the session's beam branch (K beams a
+lane: decode steps at batch B·K, K6 while B·K <= 16); the row's
+formulas stay the JAX row's, ``tokens_per_s`` counting the best
+hypothesis' ``batch * gen_tokens``. Not ported yet, and refused with
+``NotImplementedError``: the causal-LM zoo's names
+(``allowed_configs.py``, ``bench_zoo``; ROADMAP Queue 1 item 11) and
+``--quant`` (the zoo's weight-only modes). Without a card it exits
+non-zero and prints no row.
 """
 
 from __future__ import annotations
@@ -104,9 +107,6 @@ def bench_config(model: str, batch: int, dtype: str, gen_tokens: int,
         raise NotImplementedError(
             "--quant selects the causal-LM zoo's weight-only modes; the zoo "
             "is not ported yet (ROADMAP Queue 1 item 11)")
-    if num_beams > 1:
-        raise NotImplementedError(
-            "beam search is not ported yet (ROADMAP Queue 1 item 4)")
     if checkpoint:
         params, cfg = load_checkpoint(checkpoint, device="cpu")
     else:

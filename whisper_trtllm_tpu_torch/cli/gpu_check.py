@@ -15,9 +15,9 @@ the card writes the state record (``ts``, ``git_head``, ``pass``,
 ``results``, ``kernel_tree_digest``) to ``build/gpu_check_last.json``, or
 to ``$WHISPER_TORCH_CHECK_STATE``; subset and CPU runs write nothing.
 
-Not ported yet, so not among the checks: ``ifb_quantized_lanes`` (the
-in-flight batcher), ``paged_vs_contiguous`` (the paged KV cache) and
-``beam_path`` (beam search).
+Eleven of ``tpu_check``'s thirteen checks. Not ported yet, so not among
+them: ``ifb_quantized_lanes`` (the in-flight batcher) and
+``paged_vs_contiguous`` (the paged KV cache).
 """
 
 from __future__ import annotations
@@ -285,6 +285,37 @@ def check_stft_kernel(dev):
     return err < 5e-4, {"max_err": err}
 
 
+def check_beam_path(dev):
+    """Beam search at tiny.en's widths: ``num_beams=1`` reproduces the
+    greedy tokens on their common prefix (argmax does not move under the
+    beam loop's log-softmax), and K = 2 returns sorted, finite scores."""
+    from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+    from whisper_trtllm_tpu_torch.runtime.beam import beam_decode
+    from whisper_trtllm_tpu_torch.runtime.generation import greedy_decode
+
+    cfg = WhisperConfig.tiny_en()
+    params = wmodel.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(6)
+    mel = _normal(rng, (2, 2 * cfg.max_source_positions, cfg.num_mel_bins),
+                  0.5, dev)
+    with torch.no_grad():
+        enc = wmodel.encode(params, cfg, mel)
+    g_tokens, g_lens = greedy_decode(params, cfg, enc,
+                                     GenerationConfig(max_new_tokens=12))
+    b_tokens, _, b_lens = beam_decode(
+        params, cfg, enc, GenerationConfig(max_new_tokens=12, num_beams=1))
+    n = int(min(g_lens.min(), b_lens[:, 0].min()))
+    tok_eq = bool((b_tokens[:, 0, :n] == g_tokens[:, :n]).all())
+    _, s2, _ = beam_decode(params, cfg, enc,
+                           GenerationConfig(max_new_tokens=12, num_beams=2))
+    s2 = s2.cpu().numpy()
+    sorted_ok = bool((np.diff(s2, axis=1) <= 1e-6).all())
+    finite_ok = bool(np.isfinite(s2[:, 0]).all())
+    return tok_eq and sorted_ok and finite_ok, {
+        "beam1_eq_greedy": tok_eq, "k2_sorted": sorted_ok,
+        "k2_finite": finite_ok, "prefix_len": n}
+
+
 # name: (check, the kernel it holds, or None for a check of a path that
 # also runs on the CPU)
 CHECKS = {
@@ -298,6 +329,7 @@ CHECKS = {
     "step_equals_full": (check_step_equals_full, None),
     "cross_attn_kernel": (check_cross_attn_kernel, "cross_decode_mha"),
     "stft_kernel": (check_stft_kernel, "stft_log_mel"),
+    "beam_path": (check_beam_path, None),
 }
 
 # the kernel sources the checks run, built together before the first check

@@ -21,7 +21,9 @@ On the CPU the same step runs eagerly. Both follow one schedule
 (``_run``): the host reads ``finished`` once every ``FINISH_CHECK_EVERY``
 steps and never runs more than ``max_len - 1``; a step after every lane
 has finished writes pad and leaves ``lengths`` alone, so tokens and lengths
-equal the JAX loop's, which stops at once.
+equal the JAX loop's, which stops at once. The beam search
+(``runtime/beam.py``) runs its own step through the same loop and cache
+(``run_decode``).
 
 The token-buffer semantics are the JAX package's: the start token (or the
 prompt) first, the forced prefix after it, pad after EOS, ``lengths`` =
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import gc
 import time
 import weakref
 from dataclasses import dataclass
@@ -94,11 +97,13 @@ def apply_cross_layout(cross_kv, layout: str):
 
 
 def check_greedy_config(gen: GenerationConfig) -> None:
-    """Refuse what the greedy loop does not implement: beam search
-    (``num_beams > 1``) is a later slice. Every other field is taken."""
+    """Refuse what the greedy loop does not implement: it is the
+    single-beam loop, and ``num_beams > 1`` runs in ``runtime/beam.py``
+    (``beam_decode``). Every other field is taken."""
     if gen.num_beams != 1:
         raise NotImplementedError(
-            "GenerationConfig fields not ported yet: num_beams (beam search)")
+            "greedy_decode is the single-beam loop; beam search "
+            "(num_beams > 1) is runtime.beam.beam_decode")
 
 
 class GreedyState(NamedTuple):
@@ -175,22 +180,35 @@ def build_cross_kv(params: dict, cfg: WhisperConfig, enc_states: torch.Tensor,
     return apply_cross_layout(cross_kv, gen.cross_kv_layout)
 
 
+def init_self_cache(cfg: WhisperConfig, gen: GenerationConfig, batch: int,
+                    max_len: int, dtype, device) -> Tuple[torch.Tensor, ...]:
+    """The self caches of a decode's ``batch`` lanes: float (k, v) in
+    ``dtype``, or quantized (kq, ks, vq, vs) for an int8/fp8
+    ``kv_cache_dtype``; ``reset_caches`` gives them their first values."""
+    kv_qdtype = kv_quant_dtype(gen.kv_cache_dtype)
+    if kv_qdtype is not None:
+        return wmodel.init_self_kv_quant(cfg, batch, max_len, kv_qdtype,
+                                         device=device)
+    return wmodel.init_self_kv(cfg, batch, max_len, dtype=dtype,
+                               device=device)
+
+
+def reset_caches(self_kv: Tuple[torch.Tensor, ...]) -> None:
+    """Zero caches in place; a quantized tuple's scales (its second and
+    fourth tensors) one."""
+    for i, cache in enumerate(self_kv):
+        cache.fill_(1 if len(self_kv) == 4 and i % 2 else 0)
+
+
 def init_state(cfg: WhisperConfig, gen: GenerationConfig, batch: int,
                max_len: int, dtype, device) -> GreedyState:
     """A state's buffers; ``reset_state`` gives them their first values."""
-    kv_qdtype = kv_quant_dtype(gen.kv_cache_dtype)
-    if kv_qdtype is not None:
-        self_kv = wmodel.init_self_kv_quant(cfg, batch, max_len, kv_qdtype,
-                                            device=device)
-    else:
-        self_kv = wmodel.init_self_kv(cfg, batch, max_len, dtype=dtype,
-                                      device=device)
     return GreedyState(
         tokens=torch.empty((batch, max_len), dtype=torch.int32, device=device),
         pos=torch.zeros((), dtype=torch.int32, device=device),
         finished=torch.zeros(batch, dtype=torch.bool, device=device),
         lengths=torch.empty(batch, dtype=torch.int32, device=device),
-        self_kv=self_kv)
+        self_kv=init_self_cache(cfg, gen, batch, max_len, dtype, device))
 
 
 def reset_state(s: GreedyState, cfg: WhisperConfig, rules: Rules) -> None:
@@ -205,9 +223,7 @@ def reset_state(s: GreedyState, cfg: WhisperConfig, rules: Rules) -> None:
     s.pos.zero_()
     s.finished.zero_()
     s.lengths.fill_(s.tokens.shape[1])
-    for i, cache in enumerate(s.self_kv):
-        # quantized tuples hold (values, scales, values, scales)
-        cache.fill_(1 if len(s.self_kv) == 4 and i % 2 else 0)
+    reset_caches(s.self_kv)
 
 
 def greedy_step(params: dict, cfg: WhisperConfig, gen: GenerationConfig,
@@ -297,15 +313,16 @@ def reset_loop_counts() -> None:
     LOOP.reset()
 
 
-def _run(step, finished: torch.Tensor, limit: int, done: int = 0) -> None:
+def _run(step, stopped, limit: int, done: int = 0) -> None:
     """The loop's schedule: ``step()`` until ``limit`` steps ran in all,
-    the host reading whether every lane finished once every
+    the host calling ``stopped()`` (a read of the state on the device:
+    every lane finished, or the beam search's ``go`` fell) once every
     ``FINISH_CHECK_EVERY`` steps (and before the first step only when
     ``done`` steps already ran)."""
     while done < limit:
         if done:
             LOOP.host_reads += 1
-            if bool(finished.all()):
+            if stopped():
                 return
         n = min(FINISH_CHECK_EVERY, limit - done)
         for _ in range(n):
@@ -344,11 +361,19 @@ class _StepGraph:
         before = _launch_counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        # no garbage collection while the stream captures: a collection
+        # that frees another entry (its weights were garbage in a cycle)
+        # destroys that entry's graph, which a capture does not permit
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
         try:
             with torch.cuda.graph(graph):
                 step()
             after = _launch_counts()
         finally:
+            if collecting:
+                gc.enable()
             for name, fn in KERNELS.items():
                 fn.launches = before[name]
         LOOP.capture_ms += (time.perf_counter() - t0) * 1e3
@@ -369,16 +394,17 @@ _GRAPHS: "collections.OrderedDict[tuple, _StepGraph]" = \
 
 
 def _decoder_leaves(params: dict) -> list:
-    out = []
-
-    def walk(tree):
+    """The decoder's tensors, in a fixed order. Walked with a stack: a
+    nested function that calls itself is a reference cycle, which would
+    keep the list (and so every weight) alive until the next garbage
+    collection, and run the entries' finalizers there."""
+    out, stack = [], [params["decoder"]]
+    while stack:
+        tree = stack.pop()
         if isinstance(tree, dict):
-            for k in sorted(tree):
-                walk(tree[k])
+            stack.extend(tree[k] for k in sorted(tree, reverse=True))
         elif isinstance(tree, torch.Tensor):
             out.append(tree)
-
-    walk(params["decoder"])
     return out
 
 
@@ -431,48 +457,50 @@ def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
-def _decode_card(params, cfg, gen, enc_states, max_len, prompt):
-    """The decode on the card: through the cached captured step, or a new
-    one (warm-up steps, then the capture)."""
-    batch, dev = enc_states.shape[0], enc_states.device
+def run_decode(key: tuple, params: dict, device: torch.device, limit: int,
+               make, load, bind, stopped) -> _StepGraph:
+    """The decode loop of the greedy and the beam search, on the card
+    through a cached captured step, on the CPU eagerly; returns the entry
+    whose state the loop left. ``make()`` gives a new entry's (state,
+    cross cache, rules); ``load(entry)`` puts this decode's cross cache and
+    prompt into a cached entry's buffers; ``bind(entry)`` resets the state
+    and returns the step; ``stopped(state)`` is the host's read, a bool.
+    On the card an entry's first decode runs ``WARMUP_STEPS`` eager steps
+    on the warm-up stream, then captures; later decodes only replay.
+    ``key`` is the decode's configuration; the decoder weights' identity
+    is added here."""
+    if device.type != "cuda":
+        entry = _StepGraph(*make(), [])
+        step = bind(entry)
+
+        def eager():
+            step()
+            LOOP.eager_steps += 1
+
+        _run(eager, lambda: stopped(entry.state), limit)
+        return entry
     leaves = _decoder_leaves(params)
-    key = (cfg, gen, batch, max_len, enc_states.dtype, dev,
-           None if prompt is None else prompt.shape[1],
-           tuple(id(t) for t in leaves))
-    limit = max_len - 1
+    key = key + (tuple(id(t) for t in leaves),)
     entry = _graph_entry(key, leaves)
     if entry is None:
-        entry = _StepGraph(
-            init_state(cfg, gen, batch, max_len, enc_states.dtype, dev),
-            build_cross_kv(params, cfg, enc_states, gen),
-            make_rules(cfg, gen, max_len, dev,
-                       None if prompt is None else prompt.clone()),
-            leaves)
+        entry = _StepGraph(*make(), leaves)
     else:
-        _load_cross(entry.cross_kv, params, cfg, enc_states, gen)
-        if prompt is not None:
-            entry.rules.prompt.copy_(prompt)
-    s = entry.state
-    reset_state(s, cfg, entry.rules)
-    fused = wmodel.decode_step_plan(params, cfg, s.self_kv, entry.cross_kv)
-
-    def step():
-        greedy_step(params, cfg, gen, s, entry.cross_kv, entry.rules, fused)
-
+        load(entry)
+    step = bind(entry)
     done = 0
     if entry.graph is None and limit > 0:
         done = min(WARMUP_STEPS, limit)
-        side = _warmup_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
+        side = _warmup_stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(done):
                 step()
-        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.current_stream(device).wait_stream(side)
         LOOP.eager_steps += done
         entry.capture(step)
         _store(key, entry, leaves)
-    _run(entry.replay, s.finished, limit, done)
-    return s.tokens.clone(), s.lengths.clone()
+    _run(entry.replay, lambda: stopped(entry.state), limit, done)
+    return entry
 
 
 def _load_cross(static, params, cfg, enc_states, gen) -> None:
@@ -485,31 +513,36 @@ def _load_cross(static, params, cfg, enc_states, gen) -> None:
         dst.copy_(src)
 
 
-def _decode_eager(params, cfg, gen, enc_states, max_len, prompt):
-    """The decode on the CPU: the same state, step and schedule, each step
-    run eagerly."""
-    dev = enc_states.device
-    s = init_state(cfg, gen, enc_states.shape[0], max_len, enc_states.dtype,
-                   dev)
-    cross_kv = build_cross_kv(params, cfg, enc_states, gen)
-    rules = make_rules(cfg, gen, max_len, dev, prompt)
-    reset_state(s, cfg, rules)
-    fused = wmodel.decode_step_plan(params, cfg, s.self_kv, cross_kv)
-
-    def step():
-        greedy_step(params, cfg, gen, s, cross_kv, rules, fused)
-        LOOP.eager_steps += 1
-
-    _run(step, s.finished, max_len - 1)
-    return s.tokens, s.lengths
-
-
 @torch.inference_mode()
 def _decode(params, cfg, enc_states, gen, max_len, prompt=None):
+    """The greedy decode through ``run_decode``: tokens and lengths."""
     check_greedy_config(gen)
-    if enc_states.device.type == "cuda":
-        return _decode_card(params, cfg, gen, enc_states, max_len, prompt)
-    return _decode_eager(params, cfg, gen, enc_states, max_len, prompt)
+    batch, dev, dtype = enc_states.shape[0], enc_states.device, \
+        enc_states.dtype
+
+    def make():
+        return (init_state(cfg, gen, batch, max_len, dtype, dev),
+                build_cross_kv(params, cfg, enc_states, gen),
+                make_rules(cfg, gen, max_len, dev,
+                           None if prompt is None else prompt.clone()))
+
+    def load(entry):
+        _load_cross(entry.cross_kv, params, cfg, enc_states, gen)
+        if prompt is not None:
+            entry.rules.prompt.copy_(prompt)
+
+    def bind(entry):
+        s, cross_kv, rules = entry.state, entry.cross_kv, entry.rules
+        reset_state(s, cfg, rules)
+        fused = wmodel.decode_step_plan(params, cfg, s.self_kv, cross_kv)
+        return lambda: greedy_step(params, cfg, gen, s, cross_kv, rules,
+                                   fused)
+
+    key = ("greedy", cfg, gen, batch, max_len, dtype, dev,
+           None if prompt is None else prompt.shape[1])
+    s = run_decode(key, params, dev, max_len - 1, make, load, bind,
+                   lambda s: bool(s.finished.all())).state
+    return s.tokens.clone(), s.lengths.clone()
 
 
 def greedy_decode(
@@ -544,8 +577,8 @@ def greedy_decode_prompted(
     gen = gen or GenerationConfig()
     if gen.num_beams > 1:
         raise NotImplementedError(
-            "greedy_decode_prompted is the single-beam loop; prompted beam "
-            "search is not ported yet")
+            "greedy_decode_prompted is the single-beam loop; use "
+            "runtime.beam.beam_decode_prompted for prompted beam search")
     prompt = to_tensor(prompt, enc_states.device, torch.int32)
     max_len = min(cfg.max_target_positions,
                   gen.max_new_tokens + prompt.shape[1])

@@ -16,6 +16,7 @@ from whisper_trtllm_tpu_torch.config import (
 )
 from whisper_trtllm_tpu_torch import quantization
 from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+from whisper_trtllm_tpu_torch.runtime import beam
 from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
 from whisper_trtllm_tpu_torch.utils.checkpoint import params_from_numpy
 from whisper_trtllm_tpu_torch.utils.device import (
@@ -68,7 +69,10 @@ class WhisperSession:
         self.generation = generation or GenerationConfig()
         self.runtime = runtime or RuntimeConfig()
         _check_runtime(self.runtime)
-        gen_rt.check_greedy_config(self.generation)
+        if self.generation.num_beams > 1:
+            beam.check_early_stopping(self.generation)
+        else:
+            gen_rt.check_greedy_config(self.generation)
         self._dtype = _COMPUTE_DTYPES[self.runtime.compute_dtype]
         self.params = self._prepare_params(params)
         self.frontend = LogMelSpectrogram(cfg.num_mel_bins, dtype=self._dtype,
@@ -93,9 +97,17 @@ class WhisperSession:
 
     @torch.inference_mode()
     def _run(self, mel: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+        """Encode, then the greedy decode, or with ``num_beams > 1`` the
+        beam search's best hypothesis (greedy's signature, as in the JAX
+        session)."""
         enc = wmodel.encode(self.params, self.cfg, mel.to(self._dtype))
-        tokens, lengths = gen_rt.greedy_decode(self.params, self.cfg, enc,
-                                               self.generation)
+        if self.generation.num_beams > 1:
+            tokens, _, lengths = beam.beam_decode(self.params, self.cfg, enc,
+                                                  self.generation)
+            tokens, lengths = tokens[:, 0], lengths[:, 0]
+        else:
+            tokens, lengths = gen_rt.greedy_decode(self.params, self.cfg,
+                                                   enc, self.generation)
         return tokens.cpu().numpy(), lengths.cpu().numpy()
 
     # -- public API -----------------------------------------------------------
@@ -142,7 +154,8 @@ class WhisperSession:
 
     def warmup(self, batch: int = 1) -> None:
         """Build the kernels and run the pipeline once at this batch size;
-        on the card that captures the decode step's CUDA graph for it."""
+        on the card that captures the decode step's CUDA graph for it (the
+        beam step's with ``num_beams > 1``)."""
         mel = torch.zeros((batch, 2 * self.cfg.max_source_positions,
                            self.cfg.num_mel_bins), device=self.device)
         self._run(mel)
