@@ -11,12 +11,13 @@ K5, its fused decoder-layer step K6 and its bias+GELU K8 from its own
 (parent, this, this, parent), as ``parent_ms`` on their lines; without it
 nothing else is built.
 
-Six phases, each timed; any failure raises and the script exits non-zero:
+Seven phases, each timed; any failure raises and the script exits non-zero:
 
 1. build — compiles every kernel of the main paths from ``csrc/`` with
    ``nvcc`` for sm_90a (one ``nvcc`` per source, all at once: eight
-   sources) and prints the build time, ``nvcc``'s register/spill report and
-   the card's name and power limit;
+   sources) and, beside them, the serving path's native library
+   ``libwtpu.so`` from ``cpp/`` with ``g++``, and prints the build time,
+   ``nvcc``'s register/spill report and the card's name and power limit;
 2. kernels — holds each kernel against its plain PyTorch version on the
    card at the main paths' shapes, in fp32 and bf16 (and, from a random
    stream of their own, at the bench's: flash attention, the quantized
@@ -32,7 +33,9 @@ Six phases, each timed; any failure raises and the script exits non-zero:
    T, at batch 4 and 32; the example's bias+GELU at its (512, 384) and at
    the encoder MLP's (6000, 1536); and, from a third stream, the beam
    phase's 16 lanes: the quantized decode attention, the decode step's
-   LayerNorm and the fused decoder-layer step), and times the kernel, the plain
+   LayerNorm and the fused decoder-layer step; and from a fourth, the
+   decode attention at the in-flight batcher's shape, 8 lanes at lengths
+   1..225 in one launch, float and int8 caches, fp32 q), and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
    same function (the yardstick; the port never calls it), and the launch
    floor: PyTorch's spin kernel given nothing to do,
@@ -104,13 +107,33 @@ Six phases, each timed; any failure raises and the script exits non-zero:
    with exact K1, K2, K3 and K5 launch counts and no K6, the headline
    batch's stages timed one by one with the host µs of a step, and the card's idle
    share: the device time of one pass under ``torch.profiler`` over the
-   median wall time of three passes not traced.
+   median wall time of three passes not traced;
+7. serving — (a) the in-flight batcher (``runtime/ifb.py``, 2 lanes, its
+   step captured once when it is built) in process on the artifact in A,
+   C, int8 KV T-minor ("auto") and E: the 4 utterances drained at once and
+   staggered (two, one segment, two more) give the 4 texts; a
+   double-buffered batcher the same ids; in A, C and E the ids equal the
+   CPU batcher's and the card's lockstep session's; the launches exact
+   over the steps the segments ran (K2 2 and K5 3 a layer + 1 a step, no
+   K6; K3 once, K1 once and K5 twice an encoder layer + 1 a request),
+   equal to the profiler's on a traced drain, and replays only after the
+   one capture; (b) ``python -m whisper_trtllm_tpu_torch.cli.serve`` as a
+   subprocess for the slots, ifb and sched backends (int8 KV): the 4 WAVs
+   POSTed at once give the 4 texts, a malformed WAV 400; (c) the load
+   harness (``benchmarks/serve_loadtest.py``: 16 clients, 64 requests
+   over the 4 WAVs, 32 new tokens) on the ifb and slots backends, and in
+   process the batcher as ``cli.serve`` builds it (8 lanes, 16 steps a
+   segment) over a drain of 64 requests: host µs a segment, segments a
+   drain, and the idle share (a traced drain's device time over the
+   median of three untraced).
 
 The line before the last is one JSON object with every ported kernel's
 numbers (K1's, K4's and K5's also in bf16, under "bfloat16"; K5's decode
 step under "decode", K8's (6000, 1536) under "encoder_mlp", both with the
 launch floor as "floor_ms"; the bench path's launches as "bench_launches",
-the beam path's first transcribe's (B; E for K6) as "beam_launches");
+the beam path's first transcribe's (B; E for K6) as "beam_launches",
+the in-flight batcher's first drain in int8-auto as "serve_launches";
+K2's batcher shape under "batcher");
 the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -1073,7 +1096,7 @@ def hardware_check(card):
         print(f"gpu_check {name}: pass={r['pass']} "
               + " ".join(f"{k}={r[k]}" for k in r if k != "pass")
               + f" [{card}]")
-    if not (report["pass"] is True and len(checks) == 11
+    if not (report["pass"] is True and len(checks) == 13
             and all(r["pass"] is True for r in checks.values())):
         fail(f"gpu_check: not every check passed: {report}")
     print(f"gpu_check: all {len(checks)} checks passed in {wall:.1f} s of "
@@ -2255,6 +2278,516 @@ def bench_phase(torch, np, card):
           f"freed {freed / 2 ** 30:.3f} GiB allocated")
     return launches, k6
 
+# --------------------------------------------------------------------------
+# phase 7: serving — the in-flight batcher, the HTTP daemon, load numbers
+# --------------------------------------------------------------------------
+
+# K2 at the in-flight batcher's shape: cli.serve's default lanes (8) and
+# self cache (--max-new-tokens 224 + 1 rows), the lanes at lengths 1 + 32 i
+# (1..225) in one launch; float and int8 caches, fp32 q (the batcher's
+# precision: the weights as loaded)
+BATCHER_K2 = dict(b=8, h=6, t=225, dh=64,
+                  lens=[1 + 32 * i for i in range(8)])
+
+
+def check_decode_batcher(torch, rng, card):
+    """K2 at ``BATCHER_K2`` against its plain version; returns the float
+    case's numbers with the int8 case's under "int8"."""
+    import torch.nn.functional as F
+
+    from whisper_trtllm_tpu_torch.ops.attention import quantize_kv
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        decode_attention_reference,
+        decode_attn,
+    )
+
+    b, h, t, dh, lens = (BATCHER_K2[k] for k in ("b", "h", "t", "dh",
+                                                  "lens"))
+    vlt = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    mask = (torch.arange(t, device=DEVICE)[None, :]
+            < vlt[:, None])[:, None, None, :]            # (B, 1, 1, T)
+    rows = h * sum(lens)
+    out = {}
+    for kind in ("float", "int8"):
+        sets = []
+        for _ in range(n_sets(2 * b * h * t * dh * 4)):
+            q = torch.from_numpy(rng.standard_normal(
+                (b, h, 1, dh), dtype="float32") / math.sqrt(dh)).to(DEVICE)
+            k, v = (torch.from_numpy(rng.standard_normal(
+                (b, h, t, dh), dtype="float32")).to(DEVICE) for _ in "kv")
+            if kind == "int8":
+                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                sets.append((q, kq, vq, ks, vs))
+            else:
+                sets.append((q, k, v, None, None))
+
+        def kern(q, k, v, ks, vs):
+            return decode_attn(q, k, v, vlt, ks, vs, False)
+
+        def plain(q, k, v, ks, vs):
+            return decode_attention_reference(q, k, v, vlt, k_scale=ks,
+                                              v_scale=vs)
+
+        err = 0.0
+        for args in sets[:2]:
+            e = (kern(*args) - plain(*args)).abs().max().item()
+            if not math.isfinite(e) or e > TOLERANCE["float32"]:
+                fail(f"decode_attn batcher {kind}: max |kernel - plain| = "
+                     f"{e} > {TOLERANCE['float32']}")
+            err = max(err, e)
+        ms = time_ms(torch, kern, sets, 200)
+        plain_ms = time_ms(torch, plain, sets, 200)
+        lib = None
+        if kind == "float":
+            lib = time_ms(torch, lambda q, k, v, ks, vs:
+                          F.scaled_dot_product_attention(
+                              q, k, v, attn_mask=mask, scale=1.0),
+                          sets, 200)
+            item = 4
+            nbytes = 2 * b * h * dh * 4 + 2 * rows * dh * item + 4 * b
+        else:
+            nbytes = 2 * b * h * dh * 4 + 2 * rows * (dh + 4) + 4 * b
+        # the rows these lanes read: each lane's own length
+        b_ms, b_by = bound(nbytes, 4.0 * rows * dh, "float32")
+        print(f"kernel decode_attn batcher {kind} q=float32 B={b} H={h} "
+              f"T={t} dh={dh} valid_len={lens} "
+              f"{_split_note(sets[0][0], sets[0][1], False)}: "
+              f"max_abs_err={err:.3e} (tol {TOLERANCE['float32']}): "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f"{'none' if lib is None else f'{lib:.4f}'} "
+              f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+        out[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        del sets
+    row = out["float"]
+    row["int8"] = out["int8"]
+    return row
+
+
+# name: (weights, kv_cache_dtype, cross_kv_layout, ids held to the CPU
+# batcher's and the card's lockstep session's)
+SERVE_CONFIGS = {
+    "A": ("int8", "auto", "auto", True),
+    "C": ("int8", "int8", "bhtd", True),
+    "int8-auto": ("int8", "int8", "auto", False),
+    "E": ("float", "auto", "auto", True),
+}
+SERVE_LANES, SERVE_SEGMENT = 2, 8
+# the load numbers: the batcher as cli.serve builds it (8 lanes, 16 steps
+# a segment, the weights as loaded, int8 KV T-minor), 64 requests
+LOAD_LANES, LOAD_SEGMENT, LOAD_REQUESTS, LOAD_CLIENTS = 8, 16, 64, 16
+
+
+def serve_launches(cfg, steps: int, requests: int) -> dict:
+    """Kernel launches of a batcher that ran ``steps`` steps and served
+    ``requests`` requests: per request K3 once (its frontend), K1 once and
+    K5 twice an encoder layer and K5 once after; per step K2 twice and K5
+    three times a decoder layer and K5 once after; no K6."""
+    le, ld = cfg.encoder_layers, cfg.decoder_layers
+    return {"flash_fwd": le * requests, "flash_bwd": 0,
+            "decode_attn": 2 * ld * steps, "stft_log_mel": requests,
+            "layer_norm": (2 * le + 1) * requests + (3 * ld + 1) * steps,
+            "fused_decoder_layer_step": 0, "cross_decode_mha": 0}
+
+
+def _drain(b, waves, staggered=False):
+    """Submit ``waves`` (raw audio) to batcher ``b`` and run it to the end;
+    staggered: two, one segment, then the rest. Returns the rows."""
+    if staggered:
+        rids = [b.submit_audio(w) for w in waves[:2]]
+        b._retire_and_admit()
+        b._dispatch_segment()
+        rids += [b.submit_audio(w) for w in waves[2:]]
+    else:
+        rids = [b.submit_audio(w) for w in waves]
+    b.run()
+    return [b.fetch(r) for r in rids]
+
+
+def _same_rows(np, got, want) -> bool:
+    return len(got) == len(want) and all(
+        g is not None and np.array_equal(g, w) for g, w in zip(got, want))
+
+
+class Daemon:
+    """``python -m whisper_trtllm_tpu_torch.cli.serve`` on the artifact
+    (int8 KV, 32 new tokens) as a subprocess on a port the OS picks, its
+    output in ``build/smoke/serve_<backend>.log``; ``stop()`` ends it."""
+
+    def __init__(self, backend: str):
+        from whisper_trtllm_tpu_torch.benchmarks import serve_loadtest
+
+        self.backend = backend
+        os.makedirs(os.path.join(ROOT, "build", "smoke"), exist_ok=True)
+        self.log = os.path.join(ROOT, "build", "smoke",
+                                f"serve_{backend}.log")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        self.t0 = time.perf_counter()
+        self.proc = serve_loadtest.Daemon(
+            [sys.executable, "-m", "whisper_trtllm_tpu_torch.cli.serve",
+             "--checkpoint", ARTIFACT, "--backend", backend, "--port", "0",
+             "--kv-cache-dtype", "int8", "--max-new-tokens", "32"],
+            self.log, env)
+
+    def fail(self, msg: str) -> None:
+        with open(self.log) as f:
+            fail(f"serve {self.backend}: {msg}\n{f.read()[-4000:]}")
+
+    def stop(self) -> None:
+        self.proc.stop()
+
+
+def http_backend(card, daemon: Daemon, blobs, expected):
+    """The 4 WAVs POSTed at once to ``daemon`` must give the 4 texts, a
+    malformed WAV 400."""
+    import http.client
+    import threading
+
+    from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
+
+    backend = daemon.backend
+    try:
+        daemon.proc.wait_healthy(300)
+    except RuntimeError as e:
+        daemon.fail(str(e))
+    port = daemon.proc.port
+    up = time.perf_counter() - daemon.t0
+
+    def post(body):
+        c = http.client.HTTPConnection("localhost", port, timeout=300)
+        c.request("POST", "/transcribe", body=body)
+        r = c.getresponse()
+        return r.status, json.loads(r.read())
+
+    replies = [None] * len(blobs)
+
+    def client(i):
+        replies[i] = post(blobs[i])
+
+    t1 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(blobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t1
+    bad = post(b"RIFF not a wave")
+    if any(r is None or r[0] != 200 for r in replies) or bad[0] != 400:
+        daemon.fail(f"replies {replies}, malformed WAV {bad}")
+    texts = [ids_to_text(r[1]["tokens"]) for r in replies]
+    for got, want in zip(texts, expected):
+        print(f"serve {backend}: {'ok  ' if got == want else 'BAD '} "
+              f"{got!r}")
+    if texts != expected:
+        daemon.fail("transcripts differ from artifacts/expected.json")
+    print(f"serve {backend} (HTTP, int8 KV, 32 new tokens) [{card}]: "
+          f"healthy {up:.1f} s after its start, 4 concurrent requests "
+          f"{wall * 1e3:.1f} ms (the first batch's captures among them), a "
+          f"malformed WAV answered 400")
+
+
+def load_harness(card, backend: str):
+    """The load harness (``benchmarks/serve_loadtest.py``) on ``backend``:
+    ``LOAD_CLIENTS`` clients, ``LOAD_REQUESTS`` requests over the 4 WAVs,
+    32 new tokens, int8 KV; every request must succeed."""
+    log = os.path.join(ROOT, "build", "smoke", f"load_{backend}.log")
+    stdout, wall = run_module(
+        "whisper_trtllm_tpu_torch.benchmarks.serve_loadtest", 600,
+        ["--checkpoint", ARTIFACT, "--wav-dir", EVAL_DIR, "--backend",
+         backend, "--clients", str(LOAD_CLIENTS), "--requests",
+         str(LOAD_REQUESTS), "--max-new-tokens", "32",
+         "--kv-cache-dtype", "int8", "--daemon-log", log])
+    rep = json.loads(stdout.strip().splitlines()[-1])
+    if rep["requests_ok"] != LOAD_REQUESTS or rep["errors"]:
+        with open(log) as f:
+            fail(f"load {backend}: {rep}\n{f.read()[-4000:]}")
+    lat = rep["latency_ms"]
+    print(f"load {backend} ({LOAD_CLIENTS} clients, {LOAD_REQUESTS} "
+          f"requests over the 4 WAVs, 32 new tokens, int8 KV, "
+          f"{rep['num_slots']} slots) [{card}]: latency p50 {lat['p50']:.1f} "
+          f"p90 {lat['p90']:.1f} p95 {lat['p95']:.1f} p99 {lat['p99']:.1f} "
+          f"max {lat['max']:.1f} ms, {rep['throughput_req_s']:.2f} req/s, "
+          f"{rep['audio_s_per_s']:.1f} audio-s/s of 30 s windows, "
+          f"{rep['speech_s_per_s']:.1f} of speech; wall {rep['wall_s']:.2f} s "
+          f"({wall:.1f} s with the daemon's start); connecting "
+          f"{rep['connect_ms']['n']} times took p50 "
+          f"{rep['connect_ms']['p50']:.2f} max {rep['connect_ms']['max']:.1f} "
+          f"ms, {rep['connect_ms']['over_1s']} of them 1 s or more")
+    print(f"load {backend} line: {json.dumps(rep)}")
+    return rep
+
+
+def serving(torch, np, card):
+    """Phase 7. (a) The in-flight batcher in process on the artifact, 2
+    lanes, in ``SERVE_CONFIGS``: the 4 utterances drained at once and
+    staggered (2, one segment, 2 more), each giving the 4 texts, the
+    staggered ids equal to the first; a double-buffered batcher's ids
+    equal to the plain one's; in A, C and E the ids equal to the CPU
+    batcher's and to the card's lockstep session's; launches exact over the
+    steps the segments ran (K6 none), equal to the profiler's on one traced
+    drain; one capture a batcher, then replays only. (b) ``cli.serve`` as
+    a subprocess for each backend: the 4 WAVs at once give the 4 texts, a
+    malformed WAV 400. (c) The load harness on the ifb and slots backends,
+    and in process the host µs a segment, the segments a drain and the
+    idle share over an untraced drain of ``LOAD_REQUESTS`` requests.
+    Returns int8-auto's launches of its first drain."""
+    from whisper_trtllm_tpu_torch.audio import read_wav
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    with open(os.path.join(ROOT, "artifacts", "expected.json")) as f:
+        expected = json.load(f)["texts"]
+    paths = [os.path.join(EVAL_DIR, f"utt{i:02d}.wav")
+             for i in range(len(expected))]
+    waves = [read_wav(p) for p in paths]
+    params, cfg = load_checkpoint(ARTIFACT, device=DEVICE)
+    params_cpu, _ = load_checkpoint(ARTIFACT, device="cpu")
+    trees = {"int8": (params, params_cpu),
+             "float": (float_tree(params), float_tree(params_cpu))}
+    counts = None
+    part_s = {}
+    # (b)'s daemons start now, beside (a): their start-up overlaps it
+    daemons = [Daemon(backend) for backend in ("slots", "ifb", "sched")]
+    try:
+        t0 = time.perf_counter()
+        counts = _serve_in_process(torch, np, card, cfg, trees, waves,
+                                   expected)
+        part_s["batcher"] = time.perf_counter() - t0
+        # (b) the HTTP daemon, each backend
+        t0 = time.perf_counter()
+        blobs = []
+        for p in paths:
+            with open(p, "rb") as f:
+                blobs.append(f.read())
+        for d in daemons:
+            http_backend(card, d, blobs, expected)
+        part_s["http"] = time.perf_counter() - t0
+    finally:
+        for d in daemons:
+            d.stop()
+
+    # (c) load numbers: the harness on ifb and slots, then the batcher as
+    # cli.serve builds it, in process
+    t0 = time.perf_counter()
+    for backend in ("ifb", "slots"):
+        load_harness(card, backend)
+    part_s["load harness"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_drain(torch, card, params, cfg, waves, expected)
+    part_s["load drain"] = time.perf_counter() - t0
+    print("serving seconds: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in part_s.items()))
+    return counts
+
+
+def _serve_in_process(torch, np, card, cfg, trees, waves, expected):
+    """(a) of ``serving``; returns int8-auto's launches of its first
+    drain."""
+    from whisper_trtllm_tpu_torch.audio import pad_or_trim
+    from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        KERNELS,
+        reset_launch_counts,
+    )
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+    from whisper_trtllm_tpu_torch.runtime.ifb import InflightBatcher
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
+
+    counts = None
+    for name, (weights, kv, layout, held) in SERVE_CONFIGS.items():
+        tag = f"serve batcher {name} ({weights} weights, fp32, kv {kv}, " \
+              f"cross {layout}, {SERVE_LANES} lanes)"
+        gen = GenerationConfig(max_new_tokens=32, kv_cache_dtype=kv,
+                               cross_kv_layout=layout)
+        tree, tree_cpu = trees[weights]
+
+        def batcher(device=DEVICE, t=tree):
+            gen_rt.reset_loop_counts()
+            b = InflightBatcher(t, cfg, gen, num_lanes=SERVE_LANES,
+                                segment_steps=SERVE_SEGMENT, device=device)
+            if device == DEVICE and not (
+                    gen_rt.LOOP.captures == 1
+                    and gen_rt.LOOP.eager_steps == gen_rt.WARMUP_STEPS):
+                fail(f"{tag}: building the batcher ran "
+                     f"{gen_rt.LOOP.eager_steps} eager steps and "
+                     f"{gen_rt.LOOP.captures} captures")
+            return b
+
+        b = batcher()
+        reset_launch_counts()
+        gen_rt.reset_loop_counts()
+        rows = _drain(b, waves)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        steps = b.steps_run
+        loop = gen_rt.LOOP
+        if not (loop.replays == steps and loop.eager_steps == 0
+                and loop.captures == 0):
+            fail(f"{tag}: {loop.replays} replays, {loop.eager_steps} eager "
+                 f"steps, {loop.captures} captures for {steps} steps")
+        want = serve_launches(cfg, steps, len(waves))
+        if launches != want:
+            fail(f"{tag}: kernel launches {launches}, expected {want}")
+        texts = [ids_to_text(r) for r in rows]
+        for got, w in zip(texts, expected):
+            print(f"{tag}: {'ok  ' if got == w else 'BAD '} {got!r}")
+        if texts != expected:
+            fail(f"{tag}: transcripts differ from artifacts/expected.json")
+        segments = b._seg_idx
+        staggered = _drain(b, waves, staggered=True)
+        if not _same_rows(np, staggered, rows):
+            fail(f"{tag}: the staggered submission's ids differ")
+        busy, traced, counted = traced_run(torch, lambda: _drain(b, waves))
+        if traced != counted:
+            fail(f"{tag}: the counters {counted} differ from the profiler's "
+                 f"launches {traced}")
+        if gen_rt.LOOP.captures or gen_rt.LOOP.eager_steps:
+            fail(f"{tag}: a drain did not only replay")
+        del b
+        os.environ["WHISPER_TPU_IFB_DOUBLE_BUFFER"] = "1"
+        try:
+            db = batcher()
+            if not db._double_buffer:
+                fail(f"{tag}: the double-buffer switch was not read")
+            db_rows = _drain(db, waves)
+        finally:
+            del os.environ["WHISPER_TPU_IFB_DOUBLE_BUFFER"]
+        del db
+        if not _same_rows(np, db_rows, rows):
+            fail(f"{tag}: the double-buffered ids differ from the plain "
+                 f"ones")
+        note = ""
+        if held:
+            cpu_rows = _drain(batcher("cpu", tree_cpu), waves)
+            if not _same_rows(np, cpu_rows, rows):
+                fail(f"{tag}: card ids differ from the CPU batcher's")
+            tok, lens = WhisperSession(
+                tree, cfg, gen, RuntimeConfig(compute_dtype="float32"),
+                device=DEVICE).transcribe(
+                    np.stack([pad_or_trim(w) for w in waves]))
+            if not _same_rows(np, rows, [tok[i, :lens[i]]
+                                         for i in range(len(waves))]):
+                fail(f"{tag}: ids differ from the card's lockstep session's")
+            note = ", equal to the CPU batcher's and the lockstep session's"
+        print(f"{tag}: 4/4 texts, {steps} steps in {segments} segments "
+              f"(replays only after 1 capture), launches {launches} as "
+              f"expected and equal to the profiler's on a traced drain; "
+              f"staggered and double-buffered ids equal{note} [{card}]")
+        if name == "int8-auto":
+            counts = launches
+    return counts
+
+
+def load_drain(torch, card, params, cfg, waves, expected):
+    """(c) of ``serving`` in process: the batcher as ``cli.serve`` builds
+    it, plain and double-buffered, over drains of ``LOAD_REQUESTS``
+    requests (submit to drained), in turns (plain, double, double, plain,
+    plain, double): each one's median wall of three, the segments and
+    steps, the host µs a segment and a replay, and the idle share (a traced
+    drain's device time over the median untraced one)."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.runtime.ifb import InflightBatcher
+    from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
+
+    gen = GenerationConfig(max_new_tokens=32, kv_cache_dtype="int8")
+    load = [waves[i % len(waves)] for i in range(LOAD_REQUESTS)]
+    want = [expected[i % len(expected)] for i in range(LOAD_REQUESTS)]
+    runs = {}
+    for double in (False, True):
+        os.environ["WHISPER_TPU_IFB_DOUBLE_BUFFER"] = "1" if double else "0"
+        try:
+            b = InflightBatcher(params, cfg, gen, num_lanes=LOAD_LANES,
+                                segment_steps=LOAD_SEGMENT, device=DEVICE)
+        finally:
+            del os.environ["WHISPER_TPU_IFB_DOUBLE_BUFFER"]
+        if b._double_buffer != double:
+            fail("serve load drain: the double-buffer switch was not read")
+        host = {"segment": 0.0, "replay": 0.0}
+        runs[double] = {"b": b, "host": host, "walls": [], "segs": []}
+        dispatch, replay = b._dispatch_segment, b._graph.replay
+
+        def timed_dispatch(dispatch=dispatch, host=host):
+            t0 = time.perf_counter()
+            out = dispatch()
+            host["segment"] += time.perf_counter() - t0
+            return out
+
+        def timed_replay(replay=replay, host=host):
+            t0 = time.perf_counter()
+            replay()
+            host["replay"] += time.perf_counter() - t0
+
+        b._dispatch_segment, b._graph.replay = timed_dispatch, timed_replay
+        _drain(b, load)  # warm
+    for double in (False, True, True, False, False, True):
+        r = runs[double]
+        b, host = r["b"], r["host"]
+        seg0, steps0 = b._seg_idx, b.steps_run
+        host["segment"] = host["replay"] = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = _drain(b, load)
+        torch.cuda.synchronize()
+        r["walls"].append((time.perf_counter() - t0) * 1e3)
+        r["segs"].append((b._seg_idx - seg0, b.steps_run - steps0,
+                          host["segment"], host["replay"]))
+        if [ids_to_text(x) for x in rows] != want:
+            fail(f"serve load drain (double buffer {double}): transcripts "
+                 f"differ")
+    for double, r in runs.items():
+        b = r["b"]
+        busy, traced, counted = traced_run(torch, lambda: _drain(b, load))
+        if traced != counted:
+            fail(f"serve load drain: the counters {counted} differ from the "
+                 f"profiler's launches {traced}")
+        r["busy"] = busy
+    # where a plain drain's device time goes: one more traced drain, by
+    # kernel
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_trtllm_tpu_torch.utils.profile_transcribe import _device_us
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _drain(runs[False]["b"], load)
+        torch.cuda.synchronize()
+    by_kernel = sorted(((_device_us(e) / 1e3, e.key, e.count)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and not e.key.startswith("Activity Buffer")),
+                       reverse=True)
+    print(f"serve load drain, a traced drain's device ms by kernel "
+          f"[{card}]: " + "; ".join(f"{k[:48]} {ms:.2f} ({n})"
+                                     for ms, k, n in by_kernel[:10]))
+    for double, r in runs.items():
+        walls = r["walls"]
+        wall = statistics.median(walls)
+        n_seg, n_steps, seg_s, rep_s = r["segs"][walls.index(wall)]
+        busy = r["busy"]
+        # the instance's wrappers hold bound methods of b and of its graph:
+        # a reference cycle that would keep the weights (and so every
+        # captured step that reads them) alive until a collection
+        del r["b"]._dispatch_segment, r["b"]._graph.replay
+        mode = "double-buffered" if double else "plain"
+        print(f"serve batcher load drain ({mode}, int8 weights, fp32, "
+              f"int8 KV T-minor, {LOAD_LANES} lanes, {LOAD_SEGMENT} steps a "
+              f"segment, {LOAD_REQUESTS} requests, "
+              f"submit to drained) [{card}]: {wall:.2f} ms median of 3 "
+              f"({', '.join(f'{w:.2f}' for w in walls)} in turns), "
+              f"{n_seg} segments, {n_steps} steps, host "
+              f"{seg_s * 1e6 / n_seg:.2f} us a segment, of it the replays "
+              f"{rep_s * 1e6 / n_seg:.2f} ({rep_s * 1e6 / n_steps:.2f} us a "
+              f"replay) and the encodes queued behind it the most of the "
+              f"rest, {LOAD_REQUESTS / (wall / 1e3):.2f} req/s; device busy "
+              f"{busy:.2f} ms of a traced drain, idle share "
+              f"{1 - busy / wall:.3f} of the median untraced drain")
+    plain, dbl = (statistics.median(runs[d]["walls"]) for d in (False, True))
+    print(f"serve batcher load drain, double-buffered over plain [{card}]: "
+          f"{dbl / plain:.4f} of the median wall")
+
+
 def main() -> None:
     import argparse
 
@@ -2271,6 +2804,9 @@ def main() -> None:
     import numpy as np
 
     sys.path.insert(0, ROOT)
+    import threading
+
+    from whisper_trtllm_tpu_torch import native
     from whisper_trtllm_tpu_torch.ops.kernels import _build
     from whisper_trtllm_tpu_torch.utils.device import set_fp32_precision
 
@@ -2281,10 +2817,21 @@ def main() -> None:
 
     phase_s = {}
     t0 = time.perf_counter()
-    _build.build(SOURCES)
+    # libwtpu.so (g++, the serving path's native library) beside the kernels
+    native_build = {}
+    gpp = threading.Thread(target=lambda: native_build.update(
+        path=native.build_native(), s=time.perf_counter() - t0))
+    gpp.start()
+    try:
+        _build.build(SOURCES)
+    finally:
+        gpp.join()
     phase_s["build"] = time.perf_counter() - t0
+    if "path" not in native_build:
+        fail("the native library did not build")
     print(f"build: {phase_s['build']:.2f} s for {len(SOURCES)} "
-          f"sources (nvcc -gencode arch=compute_90a,code=sm_90a)")
+          f"sources (nvcc -gencode arch=compute_90a,code=sm_90a) and "
+          f"{native_build['path']} (g++, {native_build['s']:.2f} s)")
     for src in SOURCES:
         log = _build.library_path(src).with_suffix(".log").read_text()
         for line in log.splitlines():
@@ -2321,6 +2868,10 @@ def main() -> None:
     check_decode_quant(torch, rng, card, parent, BEAM_QUANT_CASES)
     check_layer_norm(torch, rng, card, floor_ms, parent, BEAM_NORM_CASES)
     check_fused(torch, rng, card, parent, BEAM_FUSED_CASES)
+    # and the in-flight batcher's K2 (8 lanes at lengths 1..225), from a
+    # fourth
+    rng = np.random.default_rng(SEED + 3)
+    decode["batcher"] = check_decode_batcher(torch, rng, card)
     phase_s["kernels"] = time.perf_counter() - t0
     # each kernel's launches from a path that runs it: configuration B, the
     # serving precision, for K1, K2, K3 and K5; E, the float-weight path,
@@ -2339,6 +2890,9 @@ def main() -> None:
     t0 = time.perf_counter()
     beam_counts = beams_and_longform(torch, np, card)
     phase_s["beams and long-form"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_counts = serving(torch, np, card)
+    phase_s["serving"] = time.perf_counter() - t0
     # what the decode phases leave on the card: their sessions are gone, and
     # with them every captured step (an entry goes with its weights)
     from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
@@ -2404,6 +2958,9 @@ def main() -> None:
                                 else "B"]
         if beam_path.get(r["name"]):
             r["beam_launches"] = beam_path[r["name"]]
+        # the in-flight batcher's first drain in int8-auto (K1, K2, K3, K5)
+        if serve_counts.get(r["name"]):
+            r["serve_launches"] = serve_counts[r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # K1, K4 and K5 also carry their bf16 numbers at the encoder's shape;
@@ -2412,8 +2969,9 @@ def main() -> None:
     # shape, both beside the launch floor
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + [x for x in ("bench_launches",
-                                              "beam_launches", "bfloat16",
-                                              "serving", "decode",
+                                              "beam_launches",
+                                              "serve_launches", "bfloat16",
+                                              "serving", "batcher", "decode",
                                               "encoder_mlp", "floor_ms")
                                   if x in r]}
         for r in rows]}))

@@ -198,10 +198,24 @@ def test_update_kv_cache_writes_in_place_like_jax(pos):
 
 
 def test_update_kv_cache_refuses_per_lane_positions():
+    """Per-lane (B,) positions are taken now (the ragged step's writes,
+    one row a lane, as JAX's vmapped ``dynamic_update_slice``); only a
+    position tensor of more than one dimension is refused."""
     c = torch.zeros(2, 1, 4, 8)
-    with pytest.raises(NotImplementedError):
-        att.update_kv_cache(c, c, torch.zeros(2, 1, 1, 8),
-                            torch.zeros(2, 1, 1, 8), torch.tensor([0, 1]))
+    with pytest.raises(ValueError, match="scalar or"):
+        att.update_kv_cache(c, c.clone(), torch.zeros(2, 1, 1, 8),
+                            torch.zeros(2, 1, 1, 8), torch.zeros(2, 2))
+    rng = _rng(9)
+    ck, cv, kn, vn = (rng.standard_normal(shape).astype(np.float32)
+                      for shape in ((2, 1, 4, 8),) * 2 + ((2, 1, 1, 8),) * 2)
+    pos = np.asarray([3, 1], np.int32)
+    rk, rv = jax_att.update_kv_cache(*map(jnp.asarray, (ck, cv, kn, vn)),
+                                     jnp.asarray(pos))
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    att.update_kv_cache(tk, tv, torch.from_numpy(kn), torch.from_numpy(vn),
+                        torch.from_numpy(pos))
+    np.testing.assert_array_equal(tk.numpy(), _np(rk))
+    np.testing.assert_array_equal(tv.numpy(), _np(rv))
 
 
 def test_init_kv_cache_shapes_and_zeros():

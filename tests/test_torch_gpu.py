@@ -1601,3 +1601,162 @@ def test_counters_equal_a_profiler_count_of_one_replayed_beam_decode(
         assert counted["fused_decoder_layer_step"] == layers * steps
     else:
         assert counted["decode_attn"] == 2 * layers * steps
+
+
+# --------------------------------------------------------------------------
+# serving: the in-flight batcher's captured ragged step; the native library
+# --------------------------------------------------------------------------
+
+def _serve_inputs(cuda):
+    from whisper_trtllm_tpu_torch.audio import read_wav
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    params, cfg = load_checkpoint(
+        os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"), device=cuda)
+    waves = [read_wav(os.path.join(ROOT, "artifacts", "eval",
+                                   f"utt{i:02d}.wav")) for i in range(4)]
+    return params, cfg, waves
+
+
+def _batcher(params, cfg, kv, cuda, eager=False):
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.runtime.ifb import InflightBatcher
+
+    b = InflightBatcher(params, cfg, GenerationConfig(
+        max_new_tokens=24, kv_cache_dtype=kv), num_lanes=2, segment_steps=8,
+        device=cuda)
+    if eager:
+        b._graph = None  # its segments run the step eagerly on the card
+    return b
+
+
+def _serve_drain(b, waves):
+    rids = [b.submit_audio(w) for w in waves]
+    b.run()
+    return [b.fetch(r) for r in rids]
+
+
+def _lane_tensors(b):
+    def raw(t):
+        return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+    s = b.state
+    return [s.tokens, s.pos, b._flags] + [raw(t) for t in s.self_kv] + [
+        raw(t) for t in s.cross_kv]
+
+
+@pytest.mark.parametrize("kv", ["auto", "int8", "fp8"])
+def test_captured_ragged_step_equals_the_eager_steps(cuda, kv):
+    """The batcher's captured step, replayed segment by segment, gives the
+    rows and the lanes' final state (tokens, positions, flags, every
+    cache) of the same step run eagerly on the card, bit for bit."""
+    params, cfg, waves = _serve_inputs(cuda)
+    graph = _batcher(params, cfg, kv, cuda)
+    eager = _batcher(params, cfg, kv, cuda, eager=True)
+    generation.reset_loop_counts()
+    rows = _serve_drain(graph, waves)
+    assert generation.LOOP.replays == graph.steps_run > 0
+    assert generation.LOOP.eager_steps == 0
+    want = _serve_drain(eager, waves)
+    assert generation.LOOP.eager_steps == eager.steps_run == graph.steps_run
+    for r, w in zip(rows, want):
+        np.testing.assert_array_equal(r, w)
+    for a, b in zip(_lane_tensors(graph), _lane_tensors(eager)):
+        assert torch.equal(a, b)
+
+
+def test_batcher_replays_with_no_live_lane_change_nothing(cuda):
+    params, cfg, waves = _serve_inputs(cuda)
+    b = _batcher(params, cfg, "int8", cuda)
+    _serve_drain(b, waves)
+    before = [t.clone() for t in _lane_tensors(b)]
+    for _ in range(5):
+        b._graph.replay()
+    torch.cuda.synchronize()
+    for a, w in zip(_lane_tensors(b), before):
+        assert torch.equal(a, w)
+
+
+def test_an_admit_into_a_captured_batcher_is_seen_by_the_next_replay(cuda):
+    params, cfg, waves = _serve_inputs(cuda)
+    graph = _batcher(params, cfg, "int8", cuda)
+    eager = _batcher(params, cfg, "int8", cuda, eager=True)
+    for b in (graph, eager):
+        b.submit_audio(waves[2])
+        b._retire_and_admit()
+    graph._graph.replay()
+    eager._step()
+    torch.cuda.synchronize()
+    assert graph.state.pos.tolist() == [1, 0]
+    forced = dict(cfg.forced_decoder_ids)[1]
+    assert int(graph.state.tokens[0, 1]) == forced
+    for a, b in zip(_lane_tensors(graph), _lane_tensors(eager)):
+        assert torch.equal(a, b)
+
+
+def test_a_capture_survives_a_frontend_call_from_another_thread(cuda):
+    """A handler thread runs the frontend (K3, allocations, host reads)
+    while a batcher is built and captures its step: neither fails, the
+    thread's mels are right, its K3 launches all stay counted and none
+    is taken for the graph's, and the batcher serves the 4 texts."""
+    import threading
+
+    from whisper_trtllm_tpu_torch.audio import LogMelSpectrogram, pad_or_trim
+    from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
+
+    params, cfg, waves = _serve_inputs(cuda)
+    fe = LogMelSpectrogram(cfg.num_mel_bins, device=cuda)
+    audio = pad_or_trim(waves[1])[None]
+    with torch.inference_mode():
+        want = fe(audio).clone()
+    stop, errors, calls, wrong = threading.Event(), [], [0], [0]
+    reset_launch_counts()
+
+    def frontend():
+        try:
+            with torch.inference_mode():
+                while not stop.is_set():
+                    wrong[0] += not torch.equal(fe(audio), want)
+                    calls[0] += 1
+        except Exception as e:  # noqa: BLE001 — the finding
+            errors.append(e)
+
+    thread = threading.Thread(target=frontend)
+    thread.start()
+    try:
+        while calls[0] < 3 and not errors:
+            pass
+        before = calls[0]
+        generation.reset_loop_counts()
+        b = _batcher(params, cfg, "auto", cuda)
+        during = calls[0] - before
+    finally:
+        stop.set()
+        thread.join()
+    assert not errors and not wrong[0]
+    assert generation.LOOP.captures == 1 and during > 0
+    ld = cfg.decoder_layers
+    assert b._graph.launches == {"decode_attn": 2 * ld,
+                                 "layer_norm": 3 * ld + 1}
+    assert KERNELS["stft_log_mel"].launches == calls[0]
+    with open(os.path.join(ROOT, "artifacts", "expected.json")) as f:
+        expected = json.load(f)["texts"]
+    assert [ids_to_text(r) for r in _serve_drain(b, waves)] == expected
+
+
+def test_native_library_builds_with_gpp_alone(cuda, tmp_path, monkeypatch):
+    """On the card's machine: ``cpp/`` builds into libwtpu.so with g++ (no
+    cmake, no ninja) and decodes a WAV."""
+    import ctypes
+
+    from whisper_trtllm_tpu_torch.native import lib
+
+    monkeypatch.setattr(lib, "BUILD_DIR", tmp_path)
+    path = lib.build_native()
+    assert path.startswith(str(tmp_path))
+    so = ctypes.CDLL(path)
+    assert so.wtpu_load_wav16k is not None
+    with open(os.path.join(ROOT, "artifacts", "eval", "utt00.wav"),
+              "rb") as f:
+        audio = lib.load_wav_16k(f.read())
+    assert audio.dtype == np.float32 and 16000 < len(audio) < 480000

@@ -57,8 +57,11 @@ def test_full_cpu_dry_run_skips_every_kernel_check_and_writes_no_state(
     out = json.loads(capsys.readouterr().out.strip())
     assert rc == 0 and out["pass"] is True
     checks = {k for k, v in out.items() if isinstance(v, dict)}
-    assert checks == set(gpu_check.CHECKS) and len(checks) == 11
+    assert checks == set(gpu_check.CHECKS) and len(checks) == 13
     assert {k for k in checks if out[k]["pass"] is None} == KERNEL_CHECKS
+    assert out["ifb_quantized_lanes"]["exact"] == 3
+    assert out["ifb_quantized_lanes"]["quantized_lanes"] is True
+    assert out["paged_vs_contiguous"]["max_err"] < 1e-6
     beam = out["beam_path"]
     assert beam["pass"] is True and beam["beam1_eq_greedy"]
     assert beam["k2_sorted"] and beam["k2_finite"] and beam["prefix_len"] > 2
@@ -67,7 +70,7 @@ def test_full_cpu_dry_run_skips_every_kernel_check_and_writes_no_state(
 
 def test_unknown_check_names_are_refused():
     with pytest.raises(SystemExit):
-        gpu_check.main(["--cpu", "--only", "paged_vs_contiguous"])
+        gpu_check.main(["--cpu", "--only", "no_such_check"])
 
 
 def test_kernel_tree_digest_covers_the_cuda_sources(tmp_path):

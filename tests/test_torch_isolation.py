@@ -6,7 +6,7 @@
 - No port module calls a fused attention operator, ``torch.compile`` or a
   package of finished kernels.
 - Entry points called without ``device=`` raise when there is no CUDA;
-  the fine-tuning CLI without ``--cpu`` too.
+  the fine-tuning and serving CLIs without ``--cpu`` too.
 - ``chip_smoke.py`` exits non-zero and prints no result without a card.
 """
 
@@ -73,7 +73,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "ops.kernels.cross_attention",
                  "examples.custom_kernel.custom_gelu_kernel",
                  "benchmarks.roofline", "benchmarks.mem_monitor",
-                 "benchmarks.benchmark", "cli.bench"):
+                 "benchmarks.benchmark", "cli.bench", "native",
+                 "native.lib", "runtime.ifb", "runtime.server",
+                 "runtime.kv_cache_manager", "cli.serve",
+                 "benchmarks.serve_loadtest"):
         assert f"whisper_trtllm_tpu_torch.{name}" in _port_modules()
 
 
@@ -116,6 +119,24 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
         init_self_kv_quant(cfg, 1, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_kv_cache(1, 2, 4, 8)
+
+
+def test_serving_entry_points_default_to_the_card_and_raise_without_one(
+        no_cuda):
+    from whisper_trtllm_tpu_torch.cli import serve
+    from whisper_trtllm_tpu_torch.ops.attention import init_paged_kv_cache
+    from whisper_trtllm_tpu_torch.runtime.ifb import InflightBatcher
+    from whisper_trtllm_tpu_torch.runtime.server import IfbTranscriptionServer
+
+    params, cfg = load_checkpoint(ART, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InflightBatcher(params, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IfbTranscriptionServer(params, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_paged_kv_cache(4, 2, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_server(serve.parse_args(["--checkpoint", ART]))
 
 
 def test_finetune_defaults_to_the_card_and_raises_without_one(no_cuda,

@@ -15,9 +15,7 @@ the card writes the state record (``ts``, ``git_head``, ``pass``,
 ``results``, ``kernel_tree_digest``) to ``build/gpu_check_last.json``, or
 to ``$WHISPER_TORCH_CHECK_STATE``; subset and CPU runs write nothing.
 
-Eleven of ``tpu_check``'s thirteen checks. Not ported yet, so not among
-them: ``ifb_quantized_lanes`` (the in-flight batcher) and
-``paged_vs_contiguous`` (the paged KV cache).
+All thirteen of ``tpu_check``'s checks, in its order.
 """
 
 from __future__ import annotations
@@ -230,6 +228,74 @@ def check_int8_kv_greedy(dev):
     return agree >= 0.8, {"token_agreement": agree}
 
 
+def check_ifb_quantized_lanes(dev):
+    """The in-flight batcher with int8 lanes (the quantized ragged step)
+    reproduces lockstep int8 greedy exactly: 2 lanes, 3 requests, lane
+    stagger and all."""
+    from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+    from whisper_trtllm_tpu_torch.runtime.generation import transcribe_tokens
+    from whisper_trtllm_tpu_torch.runtime.ifb import InflightBatcher
+
+    cfg = _small_config()
+    params = wmodel.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(9)
+    mels = rng.standard_normal(
+        (3, 2 * cfg.max_source_positions, cfg.num_mel_bins)
+    ).astype(np.float32)
+    gen = GenerationConfig(max_new_tokens=8, kv_cache_dtype="int8")
+    ref_t, ref_l = transcribe_tokens(params, cfg, mels, gen, device=dev)
+    ref_t, ref_l = ref_t.cpu().numpy(), ref_l.cpu().numpy()
+    b = InflightBatcher(params, cfg, gen, num_lanes=2, segment_steps=3,
+                        device=dev)
+    rids = [b.submit(mels[i]) for i in range(3)]
+    b.run()
+    exact = 0
+    for i, rid in enumerate(rids):
+        out = b.fetch(rid)
+        expect = ref_t[i, : ref_l[i]]
+        exact += int(out is not None
+                     and np.array_equal(out[: len(expect)], expect))
+    return exact == 3, {"exact": exact, "quantized_lanes":
+                        len(b.state.self_kv) == 4}
+
+
+def check_paged_vs_contiguous(dev):
+    """Decode attention through a shuffled block pool equals the same
+    attention over the contiguous cache (K2 on both sides on the card)."""
+    from whisper_trtllm_tpu_torch.ops.attention import (
+        mha_decode_step,
+        paged_mha_decode_step,
+    )
+
+    rng = np.random.default_rng(7)
+    b, h, dh, tpb, m = 4, 4, 64, 8, 6
+    t = tpb * m
+    valid = 29
+    ck = rng.standard_normal((b, h, t, dh)).astype(np.float32) * 0.3
+    cv = rng.standard_normal((b, h, t, dh)).astype(np.float32)
+    q = _normal(rng, (b, h, 1, dh), 1.0, dev) * 0.125
+    # scatter the contiguous cache into a shuffled pool
+    perm = rng.permutation(b * m)
+    pool_k = np.zeros((b * m, tpb, h, dh), np.float32)
+    pool_v = np.zeros((b * m, tpb, h, dh), np.float32)
+    tables = np.zeros((b, m), np.int32)
+    for lane in range(b):
+        for blk in range(m):
+            p = int(perm[lane * m + blk])
+            tables[lane, blk] = p
+            sl = slice(blk * tpb, (blk + 1) * tpb)
+            pool_k[p] = ck[lane, :, sl].transpose(1, 0, 2)
+            pool_v[p] = cv[lane, :, sl].transpose(1, 0, 2)
+
+    def on(x):
+        return torch.from_numpy(x).to(dev)
+
+    out = paged_mha_decode_step(q, on(pool_k), on(pool_v), on(tables), valid)
+    ref = mha_decode_step(q, on(ck), on(cv), valid)
+    err = _max_err(out, ref)
+    return err == 0.0 or err < 1e-6, {"max_err": err}
+
+
 def check_cross_attn_kernel(dev):
     """The head-contiguous cross-attention kernel (K7) against the plain
     decode attention on the (B, H, T, dh) layout."""
@@ -326,7 +392,9 @@ CHECKS = {
     "fused_layer": (check_fused_layer, "fused_decoder_layer_step"),
     "int8_kv_fold": (check_int8_kv_fold, None),
     "int8_kv_greedy": (check_int8_kv_greedy, None),
+    "ifb_quantized_lanes": (check_ifb_quantized_lanes, None),
     "step_equals_full": (check_step_equals_full, None),
+    "paged_vs_contiguous": (check_paged_vs_contiguous, None),
     "cross_attn_kernel": (check_cross_attn_kernel, "cross_decode_mha"),
     "stft_kernel": (check_stft_kernel, "stft_log_mel"),
     "beam_path": (check_beam_path, None),

@@ -4,6 +4,8 @@ from whisper_trtllm_tpu_torch.models.whisper.model import (  # noqa: F401
     cross_kv_t_major,
     decode_full,
     decode_step_kv,
+    decode_step_ragged,
+    decode_step_ragged_kv,
     encode,
     init_params,
     init_self_kv,

@@ -11,6 +11,8 @@ quantized 4-tuples (k values, k scales, v values, v scales), and the cross
 cache may be stored T-minor (``transpose_cross_kv``). On the card, a decode
 step with float weights and float dh-minor caches runs each layer after
 its cache append as one fused launch (kernel K6, ``_decode_step_fused``).
+``decode_step_ragged_kv`` takes a position per lane (the in-flight
+batcher's step) and always runs the unfused layer.
 The teacher-forced ``decode_full`` and ``encode(remat=True)`` serve
 training (``training/train.py``): every op on them is differentiable.
 """
@@ -517,18 +519,15 @@ def decode_step_kv(
     The self-attention caches, values and scales, are updated IN PLACE and
     returned; the JAX version returns new arrays."""
     dec = params["decoder"]
-    heads = cfg.decoder_attention_heads
-    quant_self = len(self_kv) == 4
-    quant_cross = len(cross_kv) == 4
-    t_major = cross_kv_t_major(cfg, cross_kv)
     dev = tokens.device
     if not isinstance(pos, torch.Tensor):
         pos = torch.tensor(pos, dtype=torch.int32, device=dev)
     elif pos.dtype != torch.int32 or pos.device != dev:
         pos = pos.to(device=dev, dtype=torch.int32)
     if pos.dim() != 0:
-        raise NotImplementedError("per-lane decode positions are not ported "
-                                  "yet")
+        raise ValueError("decode_step_kv takes one position for the batch; "
+                         "per-lane (B,) positions go to "
+                         "decode_step_ragged_kv")
     if fused is None:
         fused = decode_step_plan(params, cfg, self_kv, cross_kv)
 
@@ -537,8 +536,23 @@ def decode_step_kv(
         x.dtype)[None]
     if fused:
         return _decode_step_fused(dec, cfg, x, pos, self_kv, cross_kv)
+    return _decode_layers(dec, cfg, x, pos, self_kv, cross_kv), self_kv
+
+
+def _decode_layers(dec: dict, cfg: WhisperConfig, x: torch.Tensor,
+                   pos: torch.Tensor, self_kv, cross_kv) -> torch.Tensor:
+    """The unfused layer loop of a decode step: x (B, 1, d) embedded
+    tokens at ``pos`` (0-d, or (B,) per lane) → logits (B, V) fp32. Each
+    layer appends its K/V at ``pos`` (quantized first for an int8/fp8
+    cache) and attends to ``pos + 1`` rows of its self cache and to the
+    encoder's length of its cross cache (K2 twice on the card), with K5
+    for its three LayerNorms and once after the last layer."""
+    heads = cfg.decoder_attention_heads
+    quant_self = len(self_kv) == 4
+    quant_cross = len(cross_kv) == 4
+    t_major = cross_kv_t_major(cfg, cross_kv)
     self_len = pos + 1
-    enc_len = _encoder_length(cfg.max_source_positions, dev)
+    enc_len = _encoder_length(cfg.max_source_positions, x.device)
     for i in range(cfg.decoder_layers):
         lp = layer(dec["layers"], i)
         s = [cache[i] for cache in self_kv]
@@ -570,4 +584,56 @@ def decode_step_kv(
         h = layer_norm(lp["final_layer_norm"], x)
         x = x + mlp_block(lp, h)
     x = layer_norm(dec["layer_norm"], x)
-    return _vocab_logits(dec, x)[:, 0], self_kv
+    return _vocab_logits(dec, x)[:, 0]
+
+
+def decode_step_ragged_kv(
+    params: dict,
+    cfg: WhisperConfig,
+    tokens: torch.Tensor,
+    pos,
+    self_kv: Tuple[torch.Tensor, ...],
+    cross_kv: Tuple[torch.Tensor, ...],
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One decode step with a position per lane: tokens (B,) at ``pos``
+    (B,) → (logits (B, V) fp32, self_kv). Each lane takes its own
+    position embedding, appends at its own row and attends to its own
+    ``pos + 1`` self rows, so lanes hold different utterances at
+    different stages (the in-flight batcher's step). Caches as in
+    ``decode_step_kv``: float or quantized, the cross cache in either
+    layout; the self caches are updated IN PLACE. A (B,) int32 ``pos`` on
+    the tokens' device is never read on the host, so the step can be
+    captured. The step is always the unfused layer loop (the JAX package
+    never fuses it): on the card K2 twice a layer and K5 three times a
+    layer and once after."""
+    dec = params["decoder"]
+    dev = tokens.device
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    elif pos.dtype != torch.int32 or pos.device != dev:
+        pos = pos.to(device=dev, dtype=torch.int32)
+    if pos.shape != tokens.shape:
+        raise ValueError(f"decode_step_ragged_kv: pos must be (B,) like the "
+                         f"tokens {tuple(tokens.shape)}, got "
+                         f"{tuple(pos.shape)}")
+    x = embedding(dec["embed_tokens"], tokens[:, None])
+    x = x + dec["embed_positions"].index_select(0, pos.long()).to(
+        x.dtype)[:, None]
+    return _decode_layers(dec, cfg, x, pos, self_kv, cross_kv), self_kv
+
+
+def decode_step_ragged(
+    params: dict,
+    cfg: WhisperConfig,
+    tokens: torch.Tensor,
+    pos,
+    self_k: torch.Tensor,
+    self_v: torch.Tensor,
+    cross_k: torch.Tensor,
+    cross_v: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Float-cache ragged step (see ``decode_step_ragged_kv``): (logits,
+    self_k, self_v)."""
+    logits, (self_k, self_v) = decode_step_ragged_kv(
+        params, cfg, tokens, pos, (self_k, self_v), (cross_k, cross_v))
+    return logits, self_k, self_v

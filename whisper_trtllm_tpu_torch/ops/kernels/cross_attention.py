@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from whisper_trtllm_tpu_torch.ops.kernels import _build
+from whisper_trtllm_tpu_torch.ops.kernels import _build, _launches
 from whisper_trtllm_tpu_torch.ops.kernels.decode_attention import (
     sm_count,
     split_plan,
@@ -111,7 +111,7 @@ def cross_decode_mha(q: torch.Tensor, cache_k: torch.Tensor,
             _DTYPES[q.dtype], splits, chunk, tile, stages,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "cross_decode_mha")
-    cross_decode_mha.launches += 1
+    _launches.count(cross_decode_mha)
     return out
 
 

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from whisper_trtllm_tpu_torch.ops.kernels import _build
+from whisper_trtllm_tpu_torch.ops.kernels import _build, _launches
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -236,7 +236,7 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
             _CACHE_DTYPES[cache_k.dtype], int(t_major), splits, chunk, tile,
             stages, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "decode_attn")
-    decode_attn.launches += 1
+    _launches.count(decode_attn)
     return out
 
 

@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from whisper_trtllm_tpu_torch.ops.kernels import _build
+from whisper_trtllm_tpu_torch.ops.kernels import _build, _launches
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -162,7 +162,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, h, k.shape[1], s, k.shape[2], dh, int(causal),
             _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "flash_fwd")
-    flash_fwd.launches += 1
+    _launches.count(flash_fwd)
     return (out, lse) if with_lse else out
 
 
@@ -204,7 +204,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dh, int(causal), _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "flash_bwd")
-    flash_bwd.launches += 1
+    _launches.count(flash_bwd)
     return dq, dk, dv
 
 

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from whisper_trtllm_tpu_torch.ops.kernels import _build
+from whisper_trtllm_tpu_torch.ops.kernels import _build, _launches
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -307,7 +307,7 @@ def fused_decoder_layer_step(x: torch.Tensor, h1: torch.Tensor, pos, lp: dict,
             sync.data_ptr(), b, h, ts, dh, tc, d, ffn, _DTYPES[x.dtype],
             *plan, n_ws, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "fused_decoder_layer_step")
-    fused_decoder_layer_step.launches += 1
+    _launches.count(fused_decoder_layer_step)
     return out
 
 

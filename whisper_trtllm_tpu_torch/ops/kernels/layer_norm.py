@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from whisper_trtllm_tpu_torch.ops.kernels import _build
+from whisper_trtllm_tpu_torch.ops.kernels import _build, _launches
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -148,7 +148,7 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
             plan.lpr, plan.vpt, plan.blocks, plan.threads,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "layer_norm")
-    layer_norm.launches += 1
+    _launches.count(layer_norm)
     return out
 
 

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from whisper_trtllm_tpu_torch.ops.kernels import _build
+from whisper_trtllm_tpu_torch.ops.kernels import _build, _launches
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -95,7 +95,7 @@ def stft_log_mel(audio_blocks: torch.Tensor, basis: torch.Tensor,
             out.data_ptr(), b, n_blocks * hop, n_blocks - 2, hop, n_taps,
             n_bins, m, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "stft_log_mel")
-    stft_log_mel.launches += 1
+    _launches.count(stft_log_mel)
     return out
 
 

@@ -45,7 +45,7 @@ import torch
 
 from whisper_trtllm_tpu_torch.config import GenerationConfig, WhisperConfig
 from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
-from whisper_trtllm_tpu_torch.ops.kernels import KERNELS
+from whisper_trtllm_tpu_torch.ops.kernels import KERNELS, _launches
 from whisper_trtllm_tpu_torch.runtime import logits_process as lp
 from whisper_trtllm_tpu_torch.runtime import sampling
 from whisper_trtllm_tpu_torch.utils.device import (
@@ -330,10 +330,6 @@ def _run(step, stopped, limit: int, done: int = 0) -> None:
         done += n
 
 
-def _launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
-
-
 class _StepGraph:
     """One captured decode step: its state, cross cache and rules (static
     buffers the graph reads and writes), the kernel launches one replay
@@ -355,10 +351,10 @@ class _StepGraph:
 
     def capture(self, step) -> None:
         """Capture ``step`` (already warmed up) into a CUDA graph. The
-        wrappers' counters move while the step is recorded; they are set
-        back, since a capture launches nothing, and each replay adds what
-        was recorded."""
-        before = _launch_counts()
+        wrappers count the launches this thread records; they are taken
+        back, since a capture launches nothing, and each replay adds them.
+        Another thread's launches meanwhile stay counted and are not the
+        graph's."""
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         # no garbage collection while the stream captures: a collection
@@ -368,24 +364,27 @@ class _StepGraph:
         gc.collect()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            # "thread_local": other threads may keep using the card while
+            # this one captures (a server's frontend calls); this thread's
+            # own host syncs still fail the capture
+            with _launches.recording() as recorded, \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 step()
-            after = _launch_counts()
         finally:
             if collecting:
                 gc.enable()
-            for name, fn in KERNELS.items():
-                fn.launches = before[name]
+            for fn, n in recorded.items():
+                _launches.count(fn, -n)
         LOOP.capture_ms += (time.perf_counter() - t0) * 1e3
         LOOP.captures += 1
-        self.launches = {k: after[k] - before[k] for k in after
-                         if after[k] != before[k]}
+        self.launches = {name: recorded[fn] for name, fn in KERNELS.items()
+                         if recorded.get(fn)}
         self.graph = graph
 
     def replay(self) -> None:
         self.graph.replay()
         for name, n in self.launches.items():
-            KERNELS[name].launches += n
+            _launches.count(KERNELS[name], n)
         LOOP.replays += 1
 
 
@@ -457,6 +456,21 @@ def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
+def warm_and_capture(entry: _StepGraph, step, device: torch.device,
+                     steps: int = WARMUP_STEPS) -> None:
+    """``steps`` eager calls of ``step`` on the warm-up stream (they build
+    the kernels and make every lazily made tensor), then its capture into
+    ``entry``."""
+    side = _warmup_stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(steps):
+            step()
+    torch.cuda.current_stream(device).wait_stream(side)
+    LOOP.eager_steps += steps
+    entry.capture(step)
+
+
 def run_decode(key: tuple, params: dict, device: torch.device, limit: int,
                make, load, bind, stopped) -> _StepGraph:
     """The decode loop of the greedy and the beam search, on the card
@@ -490,14 +504,7 @@ def run_decode(key: tuple, params: dict, device: torch.device, limit: int,
     done = 0
     if entry.graph is None and limit > 0:
         done = min(WARMUP_STEPS, limit)
-        side = _warmup_stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(done):
-                step()
-        torch.cuda.current_stream(device).wait_stream(side)
-        LOOP.eager_steps += done
-        entry.capture(step)
+        warm_and_capture(entry, step, device, done)
         _store(key, entry, leaves)
     _run(entry.replay, lambda: stopped(entry.state), limit, done)
     return entry
