@@ -48,7 +48,7 @@ Seven phases, each timed; any failure raises and the script exits non-zero:
    reports the launches of its kernel;
 4. end to end — loads the trained tiny.en artifact and transcribes the
    four bundled utterances as one batch through
-   ``WhisperSession.transcribe`` in seven configurations: A fp32 with float
+   ``WhisperSession.transcribe`` in thirteen configurations: A fp32 with float
    KV caches; B bf16 with int8 KV, cross cache T-minor ("auto"), the
    serving precision; C fp32 with int8 KV, cross cache dh-minor ("bhtd");
    D bf16 with fp8 KV ("auto"); and on the float tree (the artifact
@@ -59,7 +59,16 @@ Seven phases, each timed; any failure raises and the script exits non-zero:
    artifact's. Each must give the exact texts of ``artifacts/expected.json``
    and the expected launch count of every kernel, counted from zero over
    that one transcribe; A, C and E must give the same tokens as the plain
-   path on the CPU. Every decode goes through the captured CUDA graph of
+   path on the CPU. Then the weight modes on the float tree, each in fp32
+   (float KV, dh-minor) and bf16 (int8 KV, "auto"): I int4 and J fp8 QDQ
+   through the session's chain, K SmoothQuant calibrated on the card
+   (its stats within ``STATS_RTOL`` of the CPU's); before them
+   SmoothQuant's integer product at ``INT_MM_ROWS`` rows, the fp8 cast,
+   the fp8 QDQ, SmoothQuant's per-token int8 and the int4 unpack are held
+   bit-equal to the CPU's. Each gives the four texts, its quantized
+   tensors bit-equal to the port's quantizer run on the CPU, launches
+   exact with no K6; I32 the CPU's tokens, J32 and K32 their share of
+   them and the first step's largest logit gap; transcribe and decode ms. Every decode goes through the captured CUDA graph of
    the step (``runtime/generation.py``): the launch counts take the loop's
    steps (the warm-up step, then the replays, up to
    ``FINISH_CHECK_EVERY - 1`` past the last EOS). A, B and E are timed
@@ -1141,16 +1150,18 @@ def float_tree(params):
     return dequantize_params(params)
 
 
+def leaves(tree, prefix=""):
+    """(path, leaf) of a nested dict, paths as "/encoder/layers/fc1/scale"."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaves(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", v
+
+
 def check_int8_equal(torch, got, want, tag):
     """Every int8 kernel and table of the artifact equals the session's,
     the fused q/k/v the concatenation of the three projections."""
-    def leaves(tree, prefix=""):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from leaves(v, f"{prefix}/{k}")
-            else:
-                yield f"{prefix}/{k}", v
-
     got, n = dict(leaves(got)), 0
     for path, ref in leaves(want):
         if not path.endswith(("kernel_q", "table_q")):
@@ -1392,6 +1403,8 @@ def end_to_end(torch, np, card):
             print(f"{tag}: {'ok  ' if got == want else 'BAD '} {got!r}")
         if texts != expected:
             fail(f"{tag}: transcripts differ from artifacts/expected.json")
+        if name == "E":
+            float_tokens = tokens
         want = transcribe_launches(cfg, steps, 1, fused=weights == "float",
                                    frontend=True)
         if launches != want:
@@ -1452,6 +1465,274 @@ def end_to_end(torch, np, card):
               f"{4 * 30.0 / (tr_ms / 1e3):.2f} audio-s/s of 30 s windows; "
               f"peak device memory over the transcribes "
               f"{stats['peak_bytes_in_use']} bytes (weights included)")
+    del session
+    check_quant_primitives(torch, card)
+    counts.update(weight_modes(torch, np, card, cfg, trees["float"], audio,
+                               expected, float_tokens))
+    return counts
+
+
+# name: (weights, compute dtype, kv_cache_dtype, cross_kv_layout), on the
+# float tree: "int4" and "fp8" through the session's load-time chain,
+# "smooth" rewritten by smooth_quantize_whisper on stats calibrated on the
+# card; every decode step unfused (K6's gate refuses these projections)
+MODE_CONFIGS = {
+    "I32": ("int4", "float32", "auto", "bhtd"),
+    "I16": ("int4", "bfloat16", "int8", "auto"),
+    "J32": ("fp8", "float32", "auto", "bhtd"),
+    "J16": ("fp8", "bfloat16", "int8", "auto"),
+    "K32": ("smooth", "float32", "auto", "bhtd"),
+    "K16": ("smooth", "bfloat16", "int8", "auto"),
+}
+# the calibration pass on the card against the CPU's on the same batch:
+# each stat is an abs-max of fp32 activations whose sums run in another
+# order (K1's products as 3xTF32), so it moves in the last bits only
+STATS_RTOL = 1e-4
+# SmoothQuant's integer product on the card: torch._int_mm takes more than
+# 16 rows, so the decode step's 1 to 16 are padded; 6000 is the encoder's
+INT_MM_ROWS = (1, 4, 16, 17, 6000)
+
+
+def check_quant_primitives(torch, card):
+    """What the weight modes run on the card that must equal the CPU bit
+    for bit: SmoothQuant's int8 × int8 product (``int8_matmul``) at
+    ``INT_MM_ROWS`` rows and tiny.en's two depths, a sum past 2^24 among
+    them; the float8_e4m3fn cast over in-range values (±448, subnormals,
+    round-to-even ties, every finite bf16 value up to 448, random values at
+    four scales), the fp8 QDQ and SmoothQuant's per-token int8 of
+    activations; the int4 unpack of every byte."""
+    from whisper_trtllm_tpu_torch.ops.functional import (
+        int8_matmul,
+        smooth_quant_activation,
+    )
+    from whisper_trtllm_tpu_torch.quantization import (
+        fp8_qdq_activation,
+        unpack_int4_kernel,
+    )
+
+    g = torch.Generator().manual_seed(SEED)
+    for k, n in ((384, 1536), (1536, 384)):
+        for rows in INT_MM_ROWS:
+            a = torch.randint(-127, 128, (rows, k), generator=g,
+                              dtype=torch.int8)
+            b = torch.randint(-127, 128, (k, n), generator=g,
+                              dtype=torch.int8)
+            a[0], b[:, 1] = 127, 127            # a sum of k · 127²
+            want = int8_matmul(a, b)
+            got = int8_matmul(a.to(DEVICE), b.to(DEVICE)).cpu()
+            if not torch.equal(got, want):
+                fail(f"int8 product: {rows} x {k} x {n} differs from the "
+                     f"CPU's by {int((got - want).abs().max())}")
+    print(f"int8 x int8 product (torch._int_mm, int32) [{card}]: equal to "
+          f"the CPU's at rows {list(INT_MM_ROWS)}, K x N 384 x 1536 and "
+          f"1536 x 384 (largest sum 1536 * 127^2 = {1536 * 127 ** 2})")
+
+    sub = 2.0 ** -9                             # e4m3's least subnormal
+    edges = torch.tensor([448.0, -448.0, 0.0, -0.0, sub, -sub, 0.5 * sub,
+                          1.5 * sub, 2.5 * sub, 2.0 ** -6, 1.0625, 1.1875,
+                          232.0, 240.0, 416.0, 440.0, 447.99])
+    every_bf16 = torch.arange(0, 1 << 16, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16).float()
+    x = torch.cat([edges, every_bf16] + [torch.randn(1 << 20, generator=g) * s
+                                         for s in (1.0, 30.0, 1e-2, 1e-3)])
+    x = x[x.abs() <= 448]
+    want = x.to(torch.float8_e4m3fn).view(torch.uint8)
+    got = x.to(DEVICE).to(torch.float8_e4m3fn).view(torch.uint8).cpu()
+    if not torch.equal(got, want):
+        fail(f"fp8 cast: {int((got != want).sum())} of {x.numel()} values "
+             f"differ from the CPU's")
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((4, 1, 384), (4, 1500, 384), (4, 1, 1536)):
+            act = (torch.randn(shape, generator=g) * 3).to(dtype)
+            if not torch.equal(fp8_qdq_activation(act.to(DEVICE)).cpu(),
+                               fp8_qdq_activation(act)):
+                fail(f"fp8 QDQ of a {dtype} {shape} activation differs "
+                     f"from the CPU's")
+            smooth = torch.rand(shape[-1], generator=g) + 0.5
+            got = smooth_quant_activation(act.to(DEVICE), smooth.to(DEVICE))
+            want = smooth_quant_activation(act, smooth)
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+                fail(f"SmoothQuant's int8 of a {dtype} {shape} activation "
+                     f"differs from the CPU's")
+        packed = torch.arange(-128, 128, dtype=torch.int8).reshape(16, 16)
+        if not torch.equal(unpack_int4_kernel(packed.to(DEVICE), dtype).cpu(),
+                           unpack_int4_kernel(packed, dtype)):
+            fail(f"int4 unpack to {dtype} differs from the CPU's")
+    print(f"fp8 cast [{card}]: {x.numel()} values in [-448, 448] bit-equal "
+          f"to the CPU's; fp8 QDQ and SmoothQuant's int8 of fp32 and bf16 "
+          f"activations and the int4 unpack of every byte equal too")
+
+
+def check_quantized_equal(torch, got, want, tag):
+    """Every leaf of ``want``'s quantized projections (the port's quantizer
+    run on the CPU: the one-byte kernel, its scales, SmoothQuant's smooth)
+    equals the session's bit for bit, after the session's cast of the
+    float leaves to its compute dtype."""
+    got, n = dict(leaves(got)), 0
+    for path, ref in leaves(want):
+        parent = path.rsplit("/", 1)[0]
+        if not any(f"{parent}/{k}" in got for k in ("kernel_q4", "kernel_f8",
+                                                    "kernel_sq")):
+            continue
+        if path.endswith("/bias"):
+            continue
+        ref, g = torch.as_tensor(ref), torch.as_tensor(got[path]).cpu()
+        if ref.dtype.is_floating_point and ref.element_size() > 1:
+            ref = ref.to(g.dtype)
+        if g.dtype == torch.float8_e4m3fn:
+            g, ref = g.view(torch.uint8), ref.view(torch.uint8)
+        n += 1
+        if g.dtype != ref.dtype or not torch.equal(g, ref):
+            fail(f"{tag}: {path} differs from the CPU quantizer's")
+    if not n:
+        fail(f"{tag}: the session holds no quantized projection")
+    print(f"{tag}: {n} quantized tensors bit-equal to the port's quantizer "
+          f"run on the CPU")
+
+
+def weight_modes(torch, np, card, cfg, float_trees, audio, expected,
+                 float_tokens):
+    """Configurations I (int4), J (fp8 QDQ) and K (SmoothQuant) on the
+    float tree, fp32 and bf16: the four texts, the quantized tensors
+    against the CPU quantizer's, launches exact with no K6 over one
+    warm-up step, one capture and replays; I32's tokens equal the CPU's,
+    J32's and K32's (their activations round to fp8 or int8 from values
+    that differ from the CPU's in the last bits) as a share, with the
+    first step's largest logit gap; transcribe and decode ms. Returns
+    each configuration's launch counts."""
+    from whisper_trtllm_tpu_torch.audio import LogMelSpectrogram
+    from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        KERNELS,
+        reset_launch_counts,
+    )
+    from whisper_trtllm_tpu_torch.quantization import (
+        fp8_quantize,
+        smooth_quantize_whisper,
+        weight_only_quantize_int4,
+        whisper_act_stats,
+    )
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
+
+    float_card, float_cpu = float_trees
+    # SmoothQuant's calibration batch: the four mels (the card's frontend,
+    # fp32) and the first 16 tokens of E's greedy decode, on both devices
+    with torch.inference_mode():
+        mel = LogMelSpectrogram(cfg.num_mel_bins, device=DEVICE)(audio)
+    calib = float_tokens[:, :16]
+    t0 = time.perf_counter()
+    stats = whisper_act_stats(float_card, cfg, mel, calib)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    stats_cpu = whisper_act_stats(float_cpu, cfg, mel.cpu(), calib)
+    gap, where = 0.0, ""
+    for side in stats_cpu:
+        for k, ref in stats_cpu[side].items():
+            rel = np.abs(stats[side][k] - ref) / np.maximum(
+                np.abs(ref), np.finfo(np.float32).tiny)
+            if float(rel.max()) >= gap:
+                gap, where = float(rel.max()), f"{side}/{k}"
+    print(f"SmoothQuant calibration on the card ({card_s:.2f} s) [{card}]: "
+          f"largest relative gap to the CPU's stats {gap:.3e} ({where}), "
+          f"limit {STATS_RTOL}")
+    if not gap <= STATS_RTOL:
+        fail(f"SmoothQuant calibration: the card's stats are {gap:.3e} "
+             f"relative from the CPU's at {where}")
+    sq = smooth_quantize_whisper(float_card, stats)
+    sq_cpu = smooth_quantize_whisper(float_cpu, stats_cpu)
+    check_quantized_equal(torch, sq_cpu, smooth_quantize_whisper(
+        float_card, stats_cpu), "SmoothQuant rewrite of the CPU's stats")
+    trees = {"int4": (float_card, weight_only_quantize_int4(float_cpu)),
+             "fp8": (float_card, fp8_quantize(float_cpu)),
+             "smooth": (sq, smooth_quantize_whisper(float_cpu, stats))}
+
+    counts = {}
+    audio_t = torch.from_numpy(audio)
+    for name, (mode, compute, kv, layout) in MODE_CONFIGS.items():
+        tag = (f"e2e {name} ({mode} weights, {compute}, kv {kv}, cross "
+               f"{layout})")
+        gen = GenerationConfig(max_new_tokens=32, kv_cache_dtype=kv,
+                               cross_kv_layout=layout)
+        rt = RuntimeConfig(compute_dtype=compute,
+                           weight_dtype="native" if mode == "smooth" else mode)
+        tree, quantized_cpu = trees[mode]
+        session = WhisperSession(tree, cfg, gen, rt, device=DEVICE)
+        check_quantized_equal(torch, session.params, quantized_cpu, tag)
+
+        reset_launch_counts()
+        gen_rt.reset_loop_counts()
+        tokens, lengths = session.transcribe(audio)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        loop = gen_rt.LOOP
+        steps = loop.steps
+        if not (loop.captures == 1 and loop.eager_steps == gen_rt.WARMUP_STEPS
+                and 0 <= steps - (int(lengths.max()) - 1)
+                < gen_rt.FINISH_CHECK_EVERY):
+            fail(f"{tag}: the decode ran {loop.eager_steps} eager steps, "
+                 f"{loop.replays} replays, {loop.captures} captures for "
+                 f"lengths {lengths.tolist()}")
+        texts = [ids_to_text(tokens[i, :lengths[i]])
+                 for i in range(len(expected))]
+        print(f"{tag}: lengths {lengths.tolist()} decode steps {steps} "
+              f"({loop.eager_steps} warm-up, {loop.replays} replays; capture "
+              f"{loop.capture_ms:.2f} ms) launches {launches}")
+        for got, want in zip(texts, expected):
+            print(f"{tag}: {'ok  ' if got == want else 'BAD '} {got!r}")
+        if texts != expected:
+            fail(f"{tag}: transcripts differ from artifacts/expected.json")
+        want = transcribe_launches(cfg, steps, 1, fused=False, frontend=True)
+        if launches != want:
+            fail(f"{tag}: kernel launches {launches}, expected {want}")
+        counts[name] = launches
+
+        if compute == "float32":
+            cpu = WhisperSession(tree, cfg, gen, rt, device="cpu")
+            tok_cpu, len_cpu = cpu.transcribe(audio)
+            if mode == "int4":
+                if not (np.array_equal(tok_cpu, tokens)
+                        and np.array_equal(len_cpu, lengths)):
+                    fail(f"{tag}: card tokens differ from the plain path's "
+                         f"tokens on the CPU")
+                print(f"{tag}: tokens equal the plain path's on the CPU")
+            else:
+                mask = np.arange(tokens.shape[1])[None] < np.maximum(
+                    lengths, len_cpu)[:, None]
+                share = float((tokens == tok_cpu)[mask].mean())
+                start = torch.full((len(expected), 1),
+                                   cfg.decoder_start_token_id)
+                with torch.inference_mode():
+                    logits = [wmodel.decode_full(
+                        s.params, cfg, start.to(s.device),
+                        s.encode(s.frontend(audio)))[:, -1].float().cpu()
+                        for s in (session, cpu)]
+                print(f"{tag}: {share:.4f} of the tokens equal the CPU's "
+                      f"(lengths {len_cpu.tolist()} there); the first "
+                      f"step's largest logit gap to the CPU's "
+                      f"{float((logits[0] - logits[1]).abs().max()):.3e} "
+                      f"(gated on the texts, not on equality)")
+            del cpu
+
+        with torch.inference_mode():
+            enc = session.encode(session.frontend(audio_t))
+        _, tr_ms, tr_lo, tr_hi = timed(torch,
+                                       lambda: session.transcribe(audio))
+        gen_rt.reset_loop_counts()
+        with torch.inference_mode():
+            _, de_ms, de_lo, de_hi = timed(
+                torch,
+                lambda: gen_rt.greedy_decode(session.params, cfg, enc, gen))
+        de_steps = gen_rt.LOOP.replays / 5
+        if gen_rt.LOOP.eager_steps or gen_rt.LOOP.captures:
+            fail(f"{tag}: a timed decode did not only replay")
+        print(f"{tag} timing (median of 5, min..max) batch 4 [{card}]: "
+              f"transcribe {tr_ms:.2f} ms ({tr_lo:.2f}..{tr_hi:.2f}), "
+              f"decode {de_ms:.2f} ms ({de_lo:.2f}..{de_hi:.2f}) over "
+              f"{de_steps:g} steps, per decode step {de_ms / de_steps:.4f} ms")
+        del session, enc
     return counts
 
 

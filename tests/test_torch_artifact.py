@@ -169,16 +169,25 @@ def test_session_load_time_option_on_the_float_tree(audio, expected, artifact,
 
 
 @pytest.mark.parametrize("option", [
-    dict(runtime=RuntimeConfig(weight_dtype="int4")),
-    dict(runtime=RuntimeConfig(weight_dtype="fp8")),
     dict(runtime=RuntimeConfig(compute_dtype="float16")),
     dict(runtime=RuntimeConfig(persistent_cache_dir="cache")),
     dict(mesh=object()),
-], ids=["weight_int4", "weight_fp8", "float16", "persistent_cache", "mesh"])
+], ids=["float16", "persistent_cache", "mesh"])
 def test_session_refuses_options_of_later_slices(artifact, option):
     params, cfg = artifact
     with pytest.raises(NotImplementedError):
         WhisperSession(params, cfg, device="cpu", **option)
+
+
+@pytest.mark.parametrize("weight_dtype", ["int-8", "nf4", ""])
+def test_session_refuses_an_unknown_weight_dtype(artifact, weight_dtype):
+    """As the JAX session does (its ``_prepare_params``): a ValueError that
+    names the known values."""
+    params, cfg = artifact
+    with pytest.raises(ValueError, match="unknown weight_dtype.*native/int8/"
+                                         "int4/fp8"):
+        WhisperSession(params, cfg, runtime=RuntimeConfig(
+            weight_dtype=weight_dtype), device="cpu")
 
 
 def test_session_beam_search_transcribes_all_four_utterances_exactly(

@@ -62,13 +62,6 @@ def test_dense_matches_jax(int8, bias):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("key", ["kernel_sq", "kernel_q4", "kernel_f8"])
-def test_dense_refuses_unported_quant_formats(key):
-    with pytest.raises(NotImplementedError):
-        fn.dense({key: torch.zeros(4, 4), "scale": torch.ones(4)},
-                 torch.zeros(1, 4))
-
-
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
 def test_layer_norm_matches_jax(dtype):
     rng = _rng(2)

@@ -1451,6 +1451,146 @@ def test_refit_leaves_no_graph_replaying_old_weights(cuda):
     assert not np.array_equal(before, after)
 
 
+# -- the int4, fp8-QDQ and SmoothQuant weight modes on the card -------------
+
+@pytest.mark.parametrize("rows", [1, 4, 16, 17, 6000])
+@pytest.mark.parametrize("k,n", [(384, 1536), (1536, 384)])
+def test_int8_matmul_on_the_card_equals_the_cpus(cuda, rows, k, n):
+    """SmoothQuant's product: ``torch._int_mm`` (rows below 17 padded with
+    zero rows) equals the CPU's int32 product exactly, a sum past 2^24
+    included."""
+    from whisper_trtllm_tpu_torch.ops.functional import int8_matmul
+
+    g = torch.Generator().manual_seed(rows + k)
+    a = torch.randint(-127, 128, (rows, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    a[0], b[:, 1] = 127, 127
+    want = int8_matmul(a, b)
+    got = int8_matmul(a.to(cuda), b.to(cuda))
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    assert int(want[0, 1]) == k * 127 ** 2
+    # (B, 1, K) rows, as the decode step gives them
+    got3 = int8_matmul(a[:, None].to(cuda), b.to(cuda))
+    assert torch.equal(got3.cpu(), want[:, None])
+
+
+def test_int_mm_takes_more_than_16_rows_so_int8_matmul_pads(cuda):
+    """Why ``int8_matmul`` pads: ``torch._int_mm`` on CUDA refuses a first
+    dim of 16 or less (torch 2.11.0+cu128) and takes 17."""
+    a = torch.ones(17, 384, dtype=torch.int8, device=cuda)
+    b = torch.ones(384, 384, dtype=torch.int8, device=cuda)
+    assert int(torch._int_mm(a, b)[0, 0]) == 384
+    with pytest.raises(RuntimeError, match="greater than 16"):
+        torch._int_mm(a[:16], b)
+
+
+def test_fp8_cast_and_int4_unpack_on_the_card_equal_the_cpus(cuda):
+    """The card's float8_e4m3fn cast over in-range values (±448, the
+    subnormals, round-to-even ties, every finite bf16 value up to 448),
+    the fp8 QDQ and SmoothQuant's per-token int8 of activations (their
+    scales a true division: torch's CUDA division by a Python number is
+    a product with its reciprocal), and the int4 unpack of every byte, bit
+    for bit against the CPU's."""
+    from whisper_trtllm_tpu_torch.ops.functional import (
+        smooth_quant_activation,
+    )
+    from whisper_trtllm_tpu_torch.quantization import (
+        fp8_qdq_activation,
+        unpack_int4_kernel,
+    )
+
+    g = torch.Generator().manual_seed(11)
+    sub = 2.0 ** -9                    # e4m3's smallest subnormal
+    edges = torch.tensor([448.0, -448.0, 0.0, -0.0, sub, -sub, 0.5 * sub,
+                          1.5 * sub, 2.5 * sub, 2.0 ** -6, 1.0625, 1.1875,
+                          232.0, 240.0, 416.0, 440.0, 447.99])
+    every_bf16 = torch.arange(0, 1 << 16, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16).float()
+    x = torch.cat([edges, every_bf16] + [torch.randn(1 << 18, generator=g) * s
+                                         for s in (1.0, 30.0, 1e-2, 1e-3)])
+    x = x[x.abs() <= 448]
+    want = x.to(torch.float8_e4m3fn).view(torch.uint8)
+    got = x.to(cuda).to(torch.float8_e4m3fn).view(torch.uint8).cpu()
+    assert torch.equal(got, want)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((4, 1, 384), (4, 1500, 384), (4, 1, 1536), (1, 1, 384)):
+            for _ in range(4):
+                act = (torch.randn(shape, generator=g) * 3).to(dtype)
+                assert torch.equal(fp8_qdq_activation(act.to(cuda)).cpu(),
+                                   fp8_qdq_activation(act))
+                smooth = torch.rand(shape[-1], generator=g) + 0.5
+                got = smooth_quant_activation(act.to(cuda), smooth.to(cuda))
+                want = smooth_quant_activation(act, smooth)
+                assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        packed = torch.arange(-128, 128, dtype=torch.int8).reshape(2, 8, 16)
+        assert torch.equal(unpack_int4_kernel(packed.to(cuda), dtype).cpu(),
+                           unpack_int4_kernel(packed, dtype))
+
+
+def _mode_session(cuda, mode, compute):
+    """The artifact's float tree on the card in ``mode`` ("int4", "fp8":
+    the session's chain; "smooth": calibrated on the card with the four
+    mels and the first 16 tokens of the float tree's greedy decode), and
+    the encoder states of the four bundled utterances."""
+    from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
+    from whisper_trtllm_tpu_torch.config import RuntimeConfig
+    from whisper_trtllm_tpu_torch.quantization import (
+        dequantize_params,
+        smooth_quantize_whisper,
+        whisper_act_stats,
+    )
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    params, cfg = load_checkpoint(
+        os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"))
+    tree, wd = dequantize_params(params), mode
+    audio = np.stack([pad_or_trim(read_wav(os.path.join(
+        ROOT, "artifacts", "eval", f"utt{i:02d}.wav"))) for i in range(4)])
+    if mode == "smooth":
+        ref = WhisperSession(tree, cfg)
+        with torch.inference_mode():
+            mel = ref.frontend(audio)
+        toks, _ = ref.transcribe(audio)
+        tree = smooth_quantize_whisper(tree, whisper_act_stats(
+            tree, cfg, mel, toks[:, :16]))
+        wd = "native"
+    session = WhisperSession(tree, cfg, runtime=RuntimeConfig(
+        compute_dtype=compute, weight_dtype=wd))
+    with torch.inference_mode():
+        enc = session.encode(session.frontend(audio))
+    return session, enc
+
+
+@pytest.mark.parametrize("mode,compute,kv", [
+    ("int4", "float32", "auto"), ("int4", "bfloat16", "int8"),
+    ("fp8", "float32", "auto"), ("fp8", "bfloat16", "int8"),
+    ("smooth", "float32", "auto"), ("smooth", "bfloat16", "int8"),
+])
+def test_replayed_step_of_a_quantized_tree_equals_the_eager_steps(
+        cuda, mode, compute, kv):
+    """The captured decode step with int4, fp8 and SmoothQuant projections
+    (their unpack, QDQ and int8 product inside the graph) replays the same
+    step run eagerly on the card bit for bit, and takes the unfused path
+    (K6's gate refuses quantized projections)."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+
+    session, enc = _mode_session(cuda, mode, compute)
+    gen = GenerationConfig(max_new_tokens=24, kv_cache_dtype=kv)
+    ref_toks, ref_lens, took_fused = _eager_decode(session.params,
+                                                   session.cfg, enc, gen)
+    assert not took_fused
+    for _ in range(2):
+        generation.reset_loop_counts()
+        toks, lens = generation.greedy_decode(session.params, session.cfg,
+                                              enc, gen)
+        torch.testing.assert_close(toks, ref_toks, rtol=0, atol=0)
+        torch.testing.assert_close(lens, ref_lens, rtol=0, atol=0)
+    assert generation.LOOP.eager_steps == 0 and generation.LOOP.replays > 0
+    assert generation.LOOP.captures == 0
+
+
 # -- beam search on the card: the captured beam step ------------------------
 
 def _eager_beam(params, cfg, enc, gen):

@@ -76,7 +76,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "benchmarks.benchmark", "cli.bench", "native",
                  "native.lib", "runtime.ifb", "runtime.server",
                  "runtime.kv_cache_manager", "cli.serve",
-                 "benchmarks.serve_loadtest"):
+                 "benchmarks.serve_loadtest", "quantization.mode",
+                 "quantization.quantize", "quantization.smooth"):
         assert f"whisper_trtllm_tpu_torch.{name}" in _port_modules()
 
 

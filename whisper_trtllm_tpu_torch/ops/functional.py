@@ -2,8 +2,12 @@
 ``whisper_trtllm_tpu/ops/functional.py``).
 
 Parameter convention, shared with the JAX package: dicts with ``kernel`` of
-shape ``(in, out)`` and optional ``bias`` of shape ``(out,)``; weight-only
-int8 trees carry ``kernel_q`` (int8) + per-output-channel ``scale`` instead.
+shape ``(in, out)`` and optional ``bias`` of shape ``(out,)``; quantized
+trees carry instead ``kernel_sq`` (SmoothQuant int8, with per-channel
+``scale`` and per-input-channel ``smooth``), ``kernel_q`` (weight-only
+int8), ``kernel_q4`` (weight-only int4, two nibbles a byte) with
+per-channel ``scale``, or ``kernel_f8`` (float8_e4m3fn) with a per-tensor
+``scale`` (``whisper_trtllm_tpu_torch/quantization``).
 """
 
 from __future__ import annotations
@@ -19,8 +23,18 @@ from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import (
     LayerNorm,
     layer_norm as layer_norm_kernel,
 )
+from whisper_trtllm_tpu_torch.quantization.quantize import (
+    divide,
+    fp8_qdq_activation,
+    unpack_int4_kernel,
+)
 
-_UNPORTED_KERNELS = ("kernel_sq", "kernel_q4", "kernel_f8")
+# torch._int_mm on CUDA (torch 2.11.0+cu128, H100) refuses a first dim of
+# 16 or less and an inner or outer dim that is not a positive multiple of
+# 8, and cuBLASLt refused an inner dim of 64 (CUBLAS_STATUS_NOT_SUPPORTED);
+# at tiny.en's inner dims (384 and 1536) it was exact at 17 to 6000 rows,
+# for either operand row- or column-major, and inside a CUDA graph capture
+_INT_MM_MIN_ROWS = 17
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -31,19 +45,61 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 ACT2FN = {"gelu": gelu}
 
 
-def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """``x @ kernel + bias`` with ``kernel`` ``(in, out)``.
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., K) int8 × (K, N) int8 → (..., N) int32, exact (a sum of K ≤
+    1536 products of ±127 stays far inside int32; an fp32 product would
+    round above 2^24). ``torch._int_mm`` on both devices; on the card a
+    call of fewer than ``_INT_MM_MIN_ROWS`` rows is padded with zero rows,
+    whose results are sliced off."""
+    lead, k = a.shape[:-1], a.shape[-1]
+    a2 = a.reshape(-1, k)
+    m = a2.shape[0]
+    if a2.is_cuda and m < _INT_MM_MIN_ROWS:
+        a2 = torch.cat([a2, a2.new_zeros(_INT_MM_MIN_ROWS - m, k)])
+    y = torch._int_mm(a2.contiguous(), b.contiguous())
+    return y[:m].reshape(*lead, b.shape[-1])
 
-    Weight-only int8 (``kernel_q`` + ``scale``): the int8 kernel is cast to
-    the activation dtype for the product and the per-channel scale applied
-    to the result, as the JAX package does. SmoothQuant, int4 and fp8
-    trees are later slices of the port."""
-    for key in _UNPORTED_KERNELS:
-        if key in params:
-            raise NotImplementedError(
-                f"dense: {key!r} weights are not ported yet")
-    if "kernel_q" in params:
+
+def smooth_quant_activation(x: torch.Tensor, smooth: torch.Tensor):
+    """SmoothQuant's activation side: ``x · smooth`` in ``x``'s dtype, then
+    per-token int8 with a dynamic scale ``max(amax, 1e-8) / 127`` in fp32.
+    Returns (int8 values, (..., 1) fp32 scales)."""
+    xs = x * smooth.to(x.dtype)
+    amax = xs.abs().amax(dim=-1, keepdim=True)
+    act_scale = divide(torch.clamp(amax.to(torch.float32), min=1e-8), 127.0)
+    xq = torch.clamp(torch.round(xs.to(torch.float32) / act_scale),
+                     -127, 127).to(torch.int8)
+    return xq, act_scale
+
+
+def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """``x @ kernel + bias`` with ``kernel`` ``(in, out)``; the quantized
+    forms in the JAX package's order and with its casts:
+
+    - SmoothQuant (``kernel_sq``): the activation smoothed and quantized
+      per token (``smooth_quant_activation``), an exact int8 × int8 product
+      into int32 (``int8_matmul``), then times the activation scales and
+      the per-channel ``scale`` in fp32, cast to ``x``'s dtype;
+    - weight-only int8 (``kernel_q``) and int4 (``kernel_q4``, unpacked):
+      the kernel cast to ``x``'s dtype for the product, the per-channel
+      ``scale`` applied to the result;
+    - fp8 (``kernel_f8``): the activation through fp8 QDQ with its
+      per-tensor scale (``fp8_qdq_activation``), the kernel cast to ``x``'s
+      dtype, the product, then the per-tensor ``scale``."""
+    if "kernel_sq" in params:
+        xq, act_scale = smooth_quant_activation(x, params["smooth"])
+        yi = int8_matmul(xq, params["kernel_sq"])
+        y = (yi.to(torch.float32) * act_scale
+             * params["scale"].to(torch.float32)).to(x.dtype)
+    elif "kernel_q" in params:
         y = torch.matmul(x, params["kernel_q"].to(x.dtype))
+        y = y * params["scale"].to(y.dtype)
+    elif "kernel_q4" in params:
+        y = torch.matmul(x, unpack_int4_kernel(params["kernel_q4"], x.dtype))
+        y = y * params["scale"].to(y.dtype)
+    elif "kernel_f8" in params:
+        y = torch.matmul(fp8_qdq_activation(x),
+                         params["kernel_f8"].to(x.dtype))
         y = y * params["scale"].to(y.dtype)
     else:
         y = torch.matmul(x, params["kernel"])

@@ -26,17 +26,25 @@ from whisper_trtllm_tpu_torch.utils.device import (
 )
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# RuntimeConfig.weight_dtype → the tree rewrite of the load-time chain
+_WEIGHT_QUANTIZERS = {"native": None,
+                      "int8": quantization.weight_only_quantize,
+                      "int4": quantization.weight_only_quantize_int4,
+                      "fp8": quantization.fp8_quantize}
 
 
 def _check_runtime(rt: RuntimeConfig) -> None:
-    """Refuse every RuntimeConfig option the port does not implement yet,
-    so none is silently ignored. ``donate_caches`` is not among them: the
+    """Refuse an unknown ``weight_dtype`` (``ValueError``, as the JAX
+    session does) and every RuntimeConfig option the port does not
+    implement yet, so none is silently ignored. ``donate_caches`` is not among them: the
     port's decode writes its caches in place, one set a decode (or a
     captured step's), which is what donation buys the JAX loop, so either
     value runs the same decode."""
+    if rt.weight_dtype not in _WEIGHT_QUANTIZERS:
+        raise ValueError(f"unknown weight_dtype {rt.weight_dtype!r}; "
+                         f"expected native/int8/int4/fp8")
     unported = {
         "compute_dtype": rt.compute_dtype not in _COMPUTE_DTYPES,
-        "weight_dtype": rt.weight_dtype not in ("native", "int8"),
         "fp32_attention_softmax": not rt.fp32_attention_softmax,
         "fp32_logits": not rt.fp32_logits,
         "use_pallas": rt.use_pallas is False,
@@ -80,16 +88,20 @@ class WhisperSession:
 
     def _prepare_params(self, params: dict) -> dict:
         """The load-time chain, shared by ``__init__`` and ``refit``: fuse
-        q/k/v (``fuse_qkv``) → int8 weight-only quantization of the dense
-        projections (``weight_dtype="int8"``) → int8 vocab table
+        q/k/v (``fuse_qkv``) → quantization of the dense projections
+        (``weight_dtype`` "int8", "int4" or "fp8") → int8 vocab table
         (``quantize_vocab``) → placement on the session's device and cast
-        of the float leaves to the compute dtype (int8 kernels and tables
-        stay int8 and dequantize in ``dense``)."""
+        of the float leaves wider than a byte to the compute dtype (scales
+        and SmoothQuant's ``smooth`` included; int8, packed int4 and fp8
+        kernels keep their type and dequantize in ``dense``). A SmoothQuant
+        tree comes from ``quantization.smooth_quantize_whisper``, made by
+        the caller, as in the JAX package."""
         rt = self.runtime
         if rt.fuse_qkv:
             params = wmodel.fuse_qkv_params(params)
-        if rt.weight_dtype == "int8":
-            params = quantization.weight_only_quantize(params)
+        quantize = _WEIGHT_QUANTIZERS[rt.weight_dtype]
+        if quantize is not None:
+            params = quantize(params)
         if rt.quantize_vocab:
             params = quantization.quantize_vocab_embedding(params)
         return wmodel.cast_params(params_from_numpy(params, self.device),
