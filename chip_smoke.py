@@ -89,7 +89,15 @@ Seven phases, each timed; any failure raises and the script exits non-zero:
    token-equal to the CPU's, scores within ``BEAM_SCORE_TOLERANCE``; and
    ``transcribe_long_conditioned`` in E over the four utterances in one
    44.6 s stream (two chunks), greedy and K = 2, per-chunk ids equal to
-   the CPU's;
+   the CPU's; then speculative decoding (``runtime/speculative.py``, each
+   utterance at batch 1 from its audio, the round a captured CUDA graph):
+   S1 the artifact as its own draft at gamma 2 and 4 (the 4 texts, tokens
+   equal to the card's greedy, tokens and stats equal to the CPU's and to
+   the JAX package's, ``SPEC_SELF``; a repeat that only replays), S2 the
+   float tree against a random draft whose steps run K6 (the 4 texts, 0
+   accepted, launches exact from the stats and equal to the profiler's),
+   S3 batch-1 ms against greedy and ``benchmarks/spec_loop_cost.py``'s ms
+   a round (ungated);
 5. training — on the float tree with the bundled batch of 4 and their
    ground-truth tokens (32 positions): (a) the loss and every leaf's
    gradient on the card against the CPU's (each nonzero), and one
@@ -141,7 +149,8 @@ numbers (K1's, K4's and K5's also in bf16, under "bfloat16"; K5's decode
 step under "decode", K8's (6000, 1536) under "encoder_mlp", both with the
 launch floor as "floor_ms"; the bench path's launches as "bench_launches",
 the beam path's first transcribe's (B; E for K6) as "beam_launches",
-the in-flight batcher's first drain in int8-auto as "serve_launches";
+the in-flight batcher's first drain in int8-auto as "serve_launches",
+one speculative utterance (S1 at gamma 4; S2 for K6) as "spec_launches";
 K2's batcher shape under "batcher");
 the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA
@@ -2062,6 +2071,209 @@ def beams_and_longform(torch, np, card):
 
 
 # --------------------------------------------------------------------------
+# phase 4b: speculative decoding
+# --------------------------------------------------------------------------
+
+SPEC_GAMMAS = (2, 4)
+# the artifact as its own draft, as the JAX package gives them on the CPU:
+# (utterance, gamma) -> (rounds, accepted, length). Every proposal is
+# accepted but on utt01 at gamma 2 and utt02: after a round that accepts
+# all, the draft's cache keeps a row it never wrote (the JAX loop's), and
+# a later proposal parts from the target's choice
+SPEC_SELF = {(0, 2): (3, 6, 11), (0, 4): (2, 8, 11),
+             (1, 2): (4, 6, 11), (1, 4): (2, 8, 11),
+             (2, 2): (6, 10, 18), (2, 4): (4, 12, 18),
+             (3, 2): (6, 12, 18), (3, 4): (4, 16, 18)}
+
+
+def spec_launches(cfg, rounds: int, gamma: int, fused: bool) -> dict:
+    """Kernel launches of one speculative utterance at batch 1 (target and
+    draft of ``cfg``'s shape): K3 once, K1 once an encoder layer of each
+    model, K5 twice an encoder layer + 1 for each encoder and 3 a layer + 1
+    for each chunk (the two prefills and one target chunk a round; the
+    chunk's attention is the plain formula); per round ``gamma`` draft
+    steps, fused (K6 1, K5 1 a layer + 1) or unfused (K2 2, K5 3 a layer
+    + 1)."""
+    le, ld = cfg.encoder_layers, cfg.decoder_layers
+    chunk = 3 * ld + 1
+    steps = gamma * rounds
+    return {"flash_fwd": 2 * le, "flash_bwd": 0,
+            "decode_attn": 0 if fused else 2 * ld * steps,
+            "stft_log_mel": 1,
+            "layer_norm": 2 * (2 * le + 1) + 2 * chunk + chunk * rounds
+            + (ld + 1 if fused else 3 * ld + 1) * steps,
+            "fused_decoder_layer_step": ld * steps if fused else 0,
+            "cross_decode_mha": 0}
+
+
+def speculative(torch, np, card):
+    """Speculative decoding (``runtime/speculative.py``) on the artifact,
+    each bundled utterance at batch 1 from its audio through K3. S1: the
+    int8 artifact (fp32, float caches) as its own draft, gamma 2 and 4:
+    the 4 texts, tokens and lengths equal to the card's greedy transcribe
+    of the same mel, tokens, length, rounds and accepted equal to the
+    port's CPU run, the stats the JAX package's (``SPEC_SELF``), launches
+    exact; a repeat of the first call replays only. S2: the float tree as
+    target and ``init_params(cfg, seed=1)`` as draft (its steps K6), gamma
+    4: the 4 texts, tokens and stats equal to the CPU's, 0 accepted,
+    launches exact from the stats and equal to the profiler's over a traced
+    call. S3 (ungated): batch-1 ms an utterance, speculative against
+    greedy, and ``benchmarks/spec_loop_cost.py --preset tiny.en``'s ms a
+    round. Returns S1's (gamma 4, utt00) and S2's (utt00) launches."""
+    from whisper_trtllm_tpu_torch.audio import (
+        LogMelSpectrogram,
+        pad_or_trim,
+        read_wav,
+    )
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.models.whisper import init_params
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        KERNELS,
+        reset_launch_counts,
+    )
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+    from whisper_trtllm_tpu_torch.runtime.speculative import (
+        speculative_transcribe_tokens,
+    )
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+    from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
+
+    with open(os.path.join(ROOT, "artifacts", "expected.json")) as f:
+        expected = json.load(f)["texts"]
+    audio = [pad_or_trim(read_wav(os.path.join(EVAL_DIR, f"utt{i:02d}.wav")))
+             for i in range(len(expected))]
+    params, cfg = load_checkpoint(ARTIFACT, device=DEVICE)
+    params_cpu, _ = load_checkpoint(ARTIFACT, device="cpu")
+    frontend = LogMelSpectrogram(cfg.num_mel_bins, device=DEVICE)
+    gen = GenerationConfig(max_new_tokens=32)
+
+    def run(t, d, mel, gamma, device=DEVICE):
+        out = speculative_transcribe_tokens(t, cfg, d, cfg, mel, gen,
+                                            gamma=gamma, with_stats=True,
+                                            device=device)
+        return [x.cpu().numpy() for x in out]
+
+    def counted(t, d, i, gamma):
+        """One call from utterance i's audio (K3, then the rounds),
+        counted from zero: (its outputs, its mel, its launches)."""
+        reset_launch_counts()
+        gen_rt.reset_loop_counts()
+        mel = frontend(audio[i][None])
+        out = run(t, d, mel, gamma)
+        torch.cuda.synchronize()
+        return out, mel, {k: f.launches for k, f in KERNELS.items()}
+
+    def check(tag, i, gamma, out, cpu, launches, fused):
+        toks, length, rounds, accepted = out
+        text = ids_to_text(toks[0, :length])
+        if text != expected[i]:
+            fail(f"{tag} utt{i:02d}: {text!r} is not {expected[i]!r}")
+        if not all(np.array_equal(a, b) for a, b in zip(out, cpu)):
+            fail(f"{tag} utt{i:02d}: the card's tokens, length {length}, "
+                 f"rounds {rounds} or accepted {accepted} differ from the "
+                 f"CPU's ({cpu[1]}, {cpu[2]}, {cpu[3]})")
+        want = spec_launches(cfg, int(rounds), gamma, fused)
+        if launches != want:
+            fail(f"{tag} utt{i:02d}: kernel launches {launches}, expected "
+                 f"{want}")
+
+    counts = {}
+    mels = [frontend(a[None]) for a in audio]
+    s1_ms = {}
+    for gamma in SPEC_GAMMAS:
+        tag = f"spec S1 (int8 artifact as its own draft, gamma {gamma})"
+        stats = []
+        for i in range(len(audio)):
+            out, mel, launches = counted(params, params, i, gamma)
+            if i == 0 and not (gen_rt.LOOP.captures == 1
+                               and gen_rt.LOOP.eager_steps
+                               == gen_rt.WARMUP_STEPS):
+                fail(f"{tag}: the first call ran {gen_rt.LOOP.captures} "
+                     f"captures, {gen_rt.LOOP.eager_steps} eager rounds")
+            if gen_rt.LOOP.steps != int(out[2]):
+                fail(f"{tag} utt{i:02d}: {gen_rt.LOOP.steps} rounds ran, "
+                     f"{int(out[2])} counted")
+            cpu = run(params_cpu, params_cpu, mel.cpu(), gamma, "cpu")
+            check(tag, i, gamma, out, cpu, launches, False)
+            g_toks, g_lens = gen_rt.transcribe_tokens(params, cfg, mel, gen,
+                                                      device=DEVICE)
+            length, rounds, accepted = (int(x) for x in out[1:])
+            if not (length == int(g_lens[0]) and np.array_equal(
+                    out[0][0, :length], g_toks[0, :length].cpu().numpy())):
+                fail(f"{tag} utt{i:02d}: tokens differ from the card's "
+                     f"greedy transcribe (length {int(g_lens[0])})")
+            if (rounds, accepted, length) != SPEC_SELF[(i, gamma)]:
+                fail(f"{tag} utt{i:02d}: rounds {rounds}, accepted "
+                     f"{accepted}, length {length}; the JAX package gives "
+                     f"{SPEC_SELF[(i, gamma)]}")
+            stats.append((length, rounds, accepted))
+            if i == 0 and gamma == 4:
+                counts["S1"] = launches
+        print(f"{tag}: 4/4 texts, (length, rounds, accepted) {stats}, equal "
+              f"to the CPU's and the JAX package's, tokens equal to the "
+              f"card's greedy; launches exact")
+        if gamma == SPEC_GAMMAS[0]:
+            # S3: a repeat of the first call replays only
+            gen_rt.reset_loop_counts()
+            again = run(params, params, mels[0], gamma)
+            loop = gen_rt.LOOP
+            if loop.captures or loop.eager_steps or \
+                    loop.replays != int(again[2]):
+                fail(f"spec S3: a repeat ran {loop.captures} captures, "
+                     f"{loop.eager_steps} eager rounds, {loop.replays} "
+                     f"replays for {int(again[2])} rounds")
+            print(f"spec S3: a repeat of S1's first call replayed "
+                  f"{loop.replays} rounds, no capture")
+        # S3: batch-1 ms an utterance, speculative against greedy, from mels
+        spec_ms = [timed(torch, lambda: run(params, params, m, gamma), 3)[1]
+                   for m in mels]
+        s1_ms[gamma] = statistics.median(spec_ms)
+    greedy_ms = [timed(torch, lambda: gen_rt.transcribe_tokens(
+        params, cfg, m, gen, device=DEVICE)[0].cpu(), 3)[1] for m in mels]
+    g_ms = statistics.median(greedy_ms)
+    print(f"spec S3 batch 1, int8 artifact fp32, median over the 4 "
+          f"utterances of the median of 3 [{card}]: greedy {g_ms:.3f} ms; "
+          + ", ".join(f"gamma {g} {ms:.3f} ms ({g_ms / ms:.3f}x greedy)"
+                      for g, ms in s1_ms.items()))
+
+    # S2: a random draft proposes, the float tree verifies
+    tag = "spec S2 (float target, random draft, gamma 4)"
+    target, target_cpu = float_tree(params), float_tree(params_cpu)
+    draft = init_params(cfg, seed=1, device=DEVICE)
+    draft_cpu = init_params(cfg, seed=1, device="cpu")
+    stats = []
+    for i in range(len(audio)):
+        out, mel, launches = counted(target, draft, i, 4)
+        cpu = run(target_cpu, draft_cpu, mel.cpu(), 4, "cpu")
+        check(tag, i, 4, out, cpu, launches, True)
+        if int(out[3]) != 0:
+            fail(f"{tag} utt{i:02d}: {int(out[3])} proposals accepted")
+        stats.append(tuple(int(x) for x in out[1:]))
+        if i == 0:
+            counts["S2"] = launches
+    _, traced, counted_ = traced_run(torch, lambda: run(target, draft,
+                                                        mels[3], 4))
+    want = spec_launches(cfg, stats[3][1], 4, True)
+    if traced != counted_ or any(counted_[k] != want[k] for k in counted_):
+        fail(f"{tag}: the counters {counted_} differ from the profiler's "
+             f"launches {traced} or from {want}")
+    print(f"{tag}: 4/4 texts, (length, rounds, accepted) {stats}, equal to "
+          f"the CPU's, 0 accepted; launches exact; a traced call's "
+          f"launches {traced} equal the counters [{card}]")
+    del target, draft
+
+    # S3: the cost of a round (random weights accept ~0: one token a round)
+    out, wall = run_module("whisper_trtllm_tpu_torch.benchmarks.spec_loop_cost",
+                           300, ["--preset", "tiny.en", "--utts", "4",
+                                 "--gammas", ",".join(map(str, SPEC_GAMMAS))])
+    for line in out.strip().splitlines():
+        print(f"spec S3 spec_loop_cost tiny.en bf16 [{card}]: {line}")
+    print(f"spec S3: spec_loop_cost took {wall:.1f} s")
+    torch.cuda.synchronize()
+    return counts
+
+
+# --------------------------------------------------------------------------
 # phase 5: training
 # --------------------------------------------------------------------------
 
@@ -3172,6 +3384,9 @@ def main() -> None:
     beam_counts = beams_and_longform(torch, np, card)
     phase_s["beams and long-form"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    spec_counts = speculative(torch, np, card)
+    phase_s["speculative"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     serve_counts = serving(torch, np, card)
     phase_s["serving"] = time.perf_counter() - t0
     # what the decode phases leave on the card: their sessions are gone, and
@@ -3242,6 +3457,12 @@ def main() -> None:
         # the in-flight batcher's first drain in int8-auto (K1, K2, K3, K5)
         if serve_counts.get(r["name"]):
             r["serve_launches"] = serve_counts[r["name"]]
+        # one speculative utterance: S1 (gamma 4) for K1, K2, K3, K5; S2
+        # (the random draft's steps) for K6
+        spec_path = spec_counts["S2" if r["name"] == "fused_decoder_layer_step"
+                                else "S1"]
+        if spec_path.get(r["name"]):
+            r["spec_launches"] = spec_path[r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # K1, K4 and K5 also carry their bf16 numbers at the encoder's shape;
@@ -3251,7 +3472,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + [x for x in ("bench_launches",
                                               "beam_launches",
-                                              "serve_launches", "bfloat16",
+                                              "serve_launches",
+                                              "spec_launches", "bfloat16",
                                               "serving", "batcher", "decode",
                                               "encoder_mlp", "floor_ms")
                                   if x in r]}

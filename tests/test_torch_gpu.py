@@ -4,7 +4,9 @@ artifact dequantized in memory, through the fused decoder-layer kernel K6),
 one training step's gradients against the CPU's, and the decode loop's
 captured step: its replays against the same step run eagerly on the card
 (exactly: the same kernels on the same inputs), a capture that must
-raise, the launch counters against the profiler, and ``refit``.
+raise, the launch counters against the profiler, and ``refit``; the same
+for the speculative round, with ``decode_chunk`` against the CPU and
+``quantize_kv``'s values and scales bit-equal to the CPU's.
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is False. The file imports no JAX, so it runs
@@ -1900,3 +1902,194 @@ def test_native_library_builds_with_gpp_alone(cuda, tmp_path, monkeypatch):
               "rb") as f:
         audio = lib.load_wav_16k(f.read())
     assert audio.dtype == np.float32 and 16000 < len(audio) < 480000
+
+
+# --------------------------------------------------------------------------
+# quantize_kv's scales, decode_chunk and the captured speculative round
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("h", [6, 20])
+@pytest.mark.parametrize("b", [1, 4, 16, 32])
+def test_quantize_kv_on_the_card_equals_the_cpus(cuda, kind, h, b):
+    """Values and scales bit-equal to the CPU's at the decode step's
+    shapes (8 positions a head), each row's magnitude drawn over 20
+    octaves: a division by 127 or 448 taken as a product with the
+    reciprocal would land some scales one bit off."""
+    rng = np.random.default_rng(b * 100 + h)
+    x = (rng.standard_normal((b, h, 8, 64))
+         * 2.0 ** rng.uniform(-10, 10, (b, h, 8, 1))).astype(np.float32)
+    xc = torch.from_numpy(x)
+    q_cpu, s_cpu = quantize_kv(xc, _QUANT[kind])
+    q, s = quantize_kv(xc.to(cuda), _QUANT[kind])
+    assert torch.equal(s.cpu(), s_cpu)
+    assert torch.equal(q.cpu().view(torch.uint8), q_cpu.view(torch.uint8))
+
+
+def _spec_inputs(cuda, float_weights, compute="float32"):
+    """The trained artifact (int8, or dequantized in memory) on the card in
+    ``compute``, its CPU twin in fp32, and the four bundled utterances'
+    mels (1, 3000, 80) made on the card by K3."""
+    from whisper_trtllm_tpu_torch.audio import (
+        LogMelSpectrogram,
+        pad_or_trim,
+        read_wav,
+    )
+    from whisper_trtllm_tpu_torch.models.whisper import cast_params
+    from whisper_trtllm_tpu_torch.quantization import dequantize_params
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    params, cfg = load_checkpoint(
+        os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"), device="cpu")
+    if float_weights:
+        params = dequantize_params(params)
+    card = _to(cast_params(params, getattr(torch, compute)), cuda)
+    frontend = LogMelSpectrogram(cfg.num_mel_bins, device=cuda)
+    mels = [frontend(pad_or_trim(read_wav(os.path.join(
+        ROOT, "artifacts", "eval", f"utt{i:02d}.wav")))[None])
+        for i in range(4)]
+    return card, params, cfg, mels
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _eager_spec(t, d, cfg, mel, gen, gamma):
+    """The speculative round run round by round on the card with no graph,
+    until ``go`` falls: (tokens, length, rounds, accepted)."""
+    from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+    from whisper_trtllm_tpu_torch.runtime import speculative as sp
+
+    max_len = min(cfg.max_target_positions, gen.max_new_tokens + 1)
+    with torch.inference_mode():
+        mel = mel.to(t["encoder"]["conv1"]["kernel"].dtype)
+        t_enc, d_enc = wmodel.encode(t, cfg, mel), wmodel.encode(d, cfg, mel)
+        s = sp.init_spec_state(cfg, cfg, max_len, t_enc.dtype, d_enc.dtype,
+                               mel.device)
+        cross = (wmodel.compute_cross_kv(t, cfg, t_enc),
+                 wmodel.compute_cross_kv(d, cfg, d_enc))
+        rules = sp.make_spec_rules(cfg, max_len, gamma, mel.device)
+        sp.reset_spec_state(s, cfg, rules)
+        sp.prefill(t, cfg, d, cfg, s, cross, rules)
+        fused = wmodel.decode_step_plan(d, cfg, s.d_self, cross[1])
+        while bool(s.go):
+            sp.spec_round(t, cfg, d, cfg, s, cross, rules, fused)
+    return (s.tokens.clone(), s.pos + 1, s.rounds.clone(),
+            s.accepted.clone()), fused
+
+
+def test_decode_chunk_on_the_card_within_fp32_of_the_cpus(cuda):
+    """Three steps, then a 5-token chunk at pos 3 on the artifact: logits
+    and self caches on the card within 1e-4 + 1e-4·|CPU| of the CPU's
+    (fp32 products summed in another order over four layers)."""
+    from whisper_trtllm_tpu_torch.models.whisper import decode_chunk
+    from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+
+    card, cpu, cfg, mels = _spec_inputs(cuda, False)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 8)).astype(np.int32))
+    outs = []
+    for params, mel in ((card, mels[0]), (cpu, mels[0].cpu())):
+        dev = mel.device
+        with torch.inference_mode():
+            enc = wmodel.encode(params, cfg, mel)
+            cross = wmodel.compute_cross_kv(params, cfg, enc)
+            kv = wmodel.init_self_kv(cfg, 1, 12, device=dev)
+            for i in range(3):
+                _, kv = wmodel.decode_step_kv(params, cfg, toks[:, i].to(dev),
+                                              i, kv, cross)
+            pos = torch.tensor(3, dtype=torch.int32, device=dev)
+            logits, kv = decode_chunk(params, cfg, toks[:, 3:].to(dev), pos,
+                                      kv, cross)
+        outs.append([logits.cpu(), kv[0].cpu(), kv[1].cpu()])
+    for got, want in zip(*outs):
+        assert ((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all(), \
+            (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("weights,compute,fused", [
+    ("int8", "float32", False), ("float", "float32", True),
+    ("float", "bfloat16", True)])
+def test_captured_round_equals_the_eager_rounds(cuda, weights, compute,
+                                                fused):
+    """The artifact as its own draft, gamma 4: the captured round replayed
+    (the capturing call, then one that only replays) gives the tokens,
+    length, rounds and accepted of the same round run eagerly on the card,
+    with K2 (int8 tree) or K6 (float tree) in the draft's steps."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.runtime import speculative as sp
+
+    card, _, cfg, mels = _spec_inputs(cuda, weights == "float", compute)
+    gen = GenerationConfig(max_new_tokens=24)
+    ref, took_fused = _eager_spec(card, card, cfg, mels[3], gen, 4)
+    assert took_fused == fused
+    generation.drop_graphs()
+    for i in range(2):
+        generation.reset_loop_counts()
+        out = sp.speculative_transcribe_tokens(card, cfg, card, cfg, mels[3],
+                                               gen, gamma=4, with_stats=True)
+        for got, want in zip(out, ref):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert generation.LOOP.captures == (1 if i == 0 else 0)
+        assert generation.LOOP.eager_steps == (
+            generation.WARMUP_STEPS if i == 0 else 0)
+        assert generation.LOOP.steps == int(out[2])
+    generation.drop_graphs()
+
+
+def test_spec_replays_after_go_fell_change_nothing(cuda):
+    """Replays of the captured round after the loop's end, where pos +
+    gamma + 1 passes the buffer: no device assert, and the tokens, pos,
+    stats, go and both self caches stay as they were."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.runtime import speculative as sp
+
+    card, _, cfg, mels = _spec_inputs(cuda, True)
+    gen = GenerationConfig(max_new_tokens=12)
+    generation.drop_graphs()
+    out = sp.speculative_transcribe_tokens(card, cfg, card, cfg, mels[0], gen,
+                                           gamma=4, with_stats=True)
+    entry = next(reversed(generation._GRAPHS.values()))
+    s = entry.state
+    assert not bool(s.go) and int(s.pos) + 5 > s.tokens.shape[1]
+    state = [s.tokens, s.pos, s.finished, s.rounds, s.accepted, s.go,
+             *s.t_self, *s.d_self]
+    before = [t.clone() for t in state]
+    for _ in range(6):
+        entry.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(state, before):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(s.pos) + 1 == int(out[1])
+    generation.drop_graphs()
+
+
+def test_spec_capture_raises_when_the_round_would_sync(cuda, monkeypatch):
+    """A round that reads a device value on the host cannot be captured:
+    the call raises and keeps no entry; nothing falls back."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig
+    from whisper_trtllm_tpu_torch.runtime import speculative as sp
+
+    card, _, cfg, mels = _spec_inputs(cuda, False)
+    gen = GenerationConfig(max_new_tokens=8)
+    real = sp.spec_round
+
+    def syncing(t, tc, d, dc, s, *rest):
+        bool(s.go)  # a host read of a device value
+        return real(t, tc, d, dc, s, *rest)
+
+    generation.drop_graphs()
+    monkeypatch.setattr(sp, "spec_round", syncing)
+    with pytest.raises(RuntimeError):
+        sp.speculative_transcribe_tokens(card, cfg, card, cfg, mels[0], gen,
+                                         gamma=2)
+    torch.cuda.synchronize()
+    assert not generation._GRAPHS
+    monkeypatch.setattr(sp, "spec_round", real)
+    toks, length = sp.speculative_transcribe_tokens(card, cfg, card, cfg,
+                                                    mels[0], gen, gamma=2)
+    assert toks.shape == (1, 9) and 2 <= int(length) <= 9
+    generation.drop_graphs()

@@ -6,7 +6,8 @@
 - No port module calls a fused attention operator, ``torch.compile`` or a
   package of finished kernels.
 - Entry points called without ``device=`` raise when there is no CUDA;
-  the fine-tuning and serving CLIs without ``--cpu`` too.
+  the fine-tuning and serving CLIs without ``--cpu`` too, the speculative
+  scripts without ``--device cpu``.
 - ``chip_smoke.py`` exits non-zero and prints no result without a card.
 """
 
@@ -77,7 +78,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "native.lib", "runtime.ifb", "runtime.server",
                  "runtime.kv_cache_manager", "cli.serve",
                  "benchmarks.serve_loadtest", "quantization.mode",
-                 "quantization.quantize", "quantization.smooth"):
+                 "quantization.quantize", "quantization.smooth",
+                 "runtime.speculative", "benchmarks.spec_bench",
+                 "benchmarks.spec_loop_cost"):
         assert f"whisper_trtllm_tpu_torch.{name}" in _port_modules()
 
 
@@ -138,6 +141,24 @@ def test_serving_entry_points_default_to_the_card_and_raise_without_one(
         init_paged_kv_cache(4, 2, 2, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.build_server(serve.parse_args(["--checkpoint", ART]))
+
+
+def test_speculative_entry_points_default_to_the_card_and_raise_without_one(
+        no_cuda):
+    from whisper_trtllm_tpu_torch.benchmarks import spec_bench, spec_loop_cost
+    from whisper_trtllm_tpu_torch.runtime.speculative import (
+        speculative_transcribe_tokens,
+    )
+
+    params, cfg = load_checkpoint(ART, device="cpu")
+    mel = np.zeros((1, 3000, 80), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        speculative_transcribe_tokens(params, cfg, params, cfg, mel)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spec_bench.main(["--target", ART, "--draft", ART, "--wav-dir",
+                         os.path.join(ROOT, "artifacts", "eval")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spec_loop_cost.main([])
 
 
 def test_finetune_defaults_to_the_card_and_raises_without_one(no_cuda,

@@ -2,7 +2,9 @@ from whisper_trtllm_tpu_torch.models.whisper.model import (  # noqa: F401
     cast_params,
     compute_cross_kv,
     cross_kv_t_major,
+    decode_chunk,
     decode_full,
+    decode_step,
     decode_step_kv,
     decode_step_ragged,
     decode_step_ragged_kv,

@@ -12,7 +12,9 @@ cache may be stored T-minor (``transpose_cross_kv``). On the card, a decode
 step with float weights and float dh-minor caches runs each layer after
 its cache append as one fused launch (kernel K6, ``_decode_step_fused``).
 ``decode_step_ragged_kv`` takes a position per lane (the in-flight
-batcher's step) and always runs the unfused layer.
+batcher's step) and always runs the unfused layer; ``decode_chunk`` takes
+S tokens against the self cache in one pass (the speculative round's
+verification).
 The teacher-forced ``decode_full`` and ``encode(remat=True)`` serve
 training (``training/train.py``): every op on them is differentiable.
 """
@@ -585,6 +587,106 @@ def _decode_layers(dec: dict, cfg: WhisperConfig, x: torch.Tensor,
         x = x + mlp_block(lp, h)
     x = layer_norm(dec["layer_norm"], x)
     return _vocab_logits(dec, x)[:, 0]
+
+
+def decode_step(
+    params: dict,
+    cfg: WhisperConfig,
+    tokens: torch.Tensor,
+    pos,
+    self_k: torch.Tensor,
+    self_v: torch.Tensor,
+    cross_k: torch.Tensor,
+    cross_v: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step for the whole batch with float caches (see
+    ``decode_step_kv``): tokens (B,) at ``pos`` → (logits (B, V) fp32,
+    self_k, self_v), the self caches written in place."""
+    logits, (self_k, self_v) = decode_step_kv(
+        params, cfg, tokens, pos, (self_k, self_v), (cross_k, cross_v))
+    return logits, self_k, self_v
+
+
+def _position(pos, device: torch.device) -> torch.Tensor:
+    """``pos`` (an int or a 0-d integer tensor) as a 0-d int64 tensor on
+    ``device``; a tensor already there is not read on the host."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.tensor(pos, dtype=torch.int64, device=device)
+    if pos.dim() != 0:
+        raise ValueError(f"pos must be 0-d, got shape {tuple(pos.shape)}")
+    return pos.to(device=device, dtype=torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _cross_mask(tc: int, n: int, device: torch.device) -> torch.Tensor:
+    """Additive fp32 mask (1, 1, 1, tc) over a padded cross cache: 0 on
+    the ``n`` encoder rows, -1e9 on the padding. Made once; read-only."""
+    col = torch.arange(tc, device=device)
+    return torch.where(col < n, 0.0, -1e9).to(torch.float32)[None, None,
+                                                               None]
+
+
+def decode_chunk(
+    params: dict,
+    cfg: WhisperConfig,
+    tokens: torch.Tensor,
+    pos,
+    self_kv: Tuple[torch.Tensor, ...],
+    cross_kv: Tuple[torch.Tensor, ...],
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """S tokens (B, S) at positions [pos, pos + S) against the self cache
+    in one pass (the prompt prefill and the speculative verification):
+    causal within the chunk, the whole cached prefix visible. Returns
+    (logits (B, S, V) fp32, self_kv), the self caches written IN PLACE.
+
+    Float (k, v) caches only, as in the JAX package; the cross cache
+    dh-minor, its padding rows masked by the true encoder length. ``pos``
+    is an int or a 0-d integer tensor; a tensor on the tokens' device is
+    never read on the host, so a chunk can be captured in a CUDA graph.
+    The cache rows and the position rows start where the JAX package's
+    ``dynamic_update_slice`` and ``dynamic_slice`` start, clamped so that
+    S rows fit; the mask reads ``pos`` unclamped. Self and cross attention
+    take the plain formula with a mask (``mha``), as the JAX package runs
+    them in XLA; the LayerNorms take K5 on the card."""
+    if len(self_kv) != 2 or len(cross_kv) != 2:
+        raise ValueError("decode_chunk takes float (k, v) caches only")
+    if cross_kv_t_major(cfg, cross_kv):
+        raise ValueError("decode_chunk takes a dh-minor cross cache")
+    dec = params["decoder"]
+    heads = cfg.decoder_attention_heads
+    s = tokens.shape[1]
+    dev = tokens.device
+    sk0, sv0 = self_kv
+    t = sk0.shape[3]
+    p = _position(pos, dev)
+    ar = torch.arange(s, device=dev)
+    rows = p.clamp(0, t - s) + ar
+    prows = p.clamp(0, dec["embed_positions"].shape[0] - s) + ar
+
+    x = embedding(dec["embed_tokens"], tokens)
+    x = x + dec["embed_positions"].index_select(0, prows).to(x.dtype)[None]
+    # column c of the cache is visible to chunk row r iff c <= pos + r
+    col = torch.arange(t, device=dev)
+    mask = torch.where(col[None] <= (p + ar)[:, None], 0.0, -1e9).to(
+        torch.float32)[None, None]
+    cmask = _cross_mask(cross_kv[0].shape[3], cfg.max_source_positions, dev)
+    for i in range(cfg.decoder_layers):
+        lp = layer(dec["layers"], i)
+        sk, sv = sk0[i], sv0[i]
+        h = layer_norm(lp["self_attn_layer_norm"], x)
+        q, k_new, v_new = attention_qkv(lp["self_attn"], h, None, heads)
+        sk.index_copy_(2, rows, k_new.to(sk.dtype))
+        sv.index_copy_(2, rows, v_new.to(sv.dtype))
+        x = x + dense(lp["self_attn"]["out"],
+                      merge_heads(mha(q, sk, sv, mask=mask)))
+        h = layer_norm(lp["encoder_attn_layer_norm"], x)
+        qc = cross_attention_q(lp, h, heads)
+        x = x + dense(lp["encoder_attn"]["out"], merge_heads(
+            mha(qc, cross_kv[0][i], cross_kv[1][i], mask=cmask)))
+        h = layer_norm(lp["final_layer_norm"], x)
+        x = x + mlp_block(lp, h)
+    x = layer_norm(dec["layer_norm"], x)
+    return _vocab_logits(dec, x), self_kv
 
 
 def decode_step_ragged_kv(

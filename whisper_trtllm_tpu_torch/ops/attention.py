@@ -29,6 +29,7 @@ from whisper_trtllm_tpu_torch.ops.kernels.flash_attention import (
     attention_reference,
     flash_attention,
 )
+from whisper_trtllm_tpu_torch.quantization.quantize import divide
 from whisper_trtllm_tpu_torch.utils.device import resolve_device
 
 # the causal flash path engages only from this length on: the JAX package's
@@ -120,16 +121,18 @@ def quantize_kv(x: torch.Tensor, dtype=torch.int8
     """Per-token-per-head symmetric quantization of K/V states, reduced over
     head_dim, to int8 (amax / 127, round half to even, clip to ±127) or
     float8_e4m3fn (amax / 448). Returns (values, fp32 scales with a
-    trailing keepdim); ``values.float() * scale`` recovers the states."""
+    trailing keepdim); ``values.float() * scale`` recovers the states.
+    Both quotients are true divisions on every device (``divide``), so the
+    card's scales equal the CPU's bit for bit."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
     if dtype == torch.int8:
-        scale = amax.clamp(min=1e-8) / 127.0
+        scale = divide(amax.clamp(min=1e-8), 127.0)
         return torch.clamp(torch.round(xf / scale), -127, 127).to(dtype), scale
     if dtype == torch.float8_e4m3fn:
         # 448 is e4m3fn's largest finite value: scaling amax onto it keeps
         # the cast in range
-        scale = amax.clamp(min=1e-8) / 448.0
+        scale = divide(amax.clamp(min=1e-8), 448.0)
         return (xf / scale).to(dtype), scale
     raise TypeError(f"quantize_kv: int8 or float8_e4m3fn, got {dtype}")
 

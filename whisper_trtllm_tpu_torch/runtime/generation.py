@@ -22,7 +22,8 @@ On the CPU the same step runs eagerly. Both follow one schedule
 steps and never runs more than ``max_len - 1``; a step after every lane
 has finished writes pad and leaves ``lengths`` alone, so tokens and lengths
 equal the JAX loop's, which stops at once. The beam search
-(``runtime/beam.py``) runs its own step through the same loop and cache
+(``runtime/beam.py``) and the speculative round
+(``runtime/speculative.py``) run through the same loop and cache
 (``run_decode``).
 
 The token-buffer semantics are the JAX package's: the start token (or the
@@ -313,18 +314,19 @@ def reset_loop_counts() -> None:
     LOOP.reset()
 
 
-def _run(step, stopped, limit: int, done: int = 0) -> None:
+def _run(step, stopped, limit: int, done: int = 0,
+         every: int = FINISH_CHECK_EVERY) -> None:
     """The loop's schedule: ``step()`` until ``limit`` steps ran in all,
     the host calling ``stopped()`` (a read of the state on the device:
     every lane finished, or the beam search's ``go`` fell) once every
-    ``FINISH_CHECK_EVERY`` steps (and before the first step only when
-    ``done`` steps already ran)."""
+    ``every`` steps (and before the first step only when ``done`` steps
+    already ran)."""
     while done < limit:
         if done:
             LOOP.host_reads += 1
             if stopped():
                 return
-        n = min(FINISH_CHECK_EVERY, limit - done)
+        n = min(every, limit - done)
         for _ in range(n):
             step()
         done += n
@@ -348,6 +350,12 @@ class _StepGraph:
     def matches(self, leaves: list) -> bool:
         return len(leaves) == len(self.refs) and all(
             r() is t for r, t in zip(self.refs, leaves))
+
+    def reads(self, leaves: list) -> bool:
+        """True when every tensor of ``leaves`` is one this entry reads
+        (a speculative entry reads two trees)."""
+        live = {id(r()) for r in self.refs if r() is not None}
+        return bool(leaves) and all(id(t) in live for t in leaves)
 
     def capture(self, step) -> None:
         """Capture ``step`` (already warmed up) into a CUDA graph. The
@@ -420,7 +428,7 @@ def drop_graphs(params: Optional[dict] = None) -> int:
         _GRAPHS.clear()
         return n
     leaves = _decoder_leaves(params)
-    gone = [k for k, e in _GRAPHS.items() if e.matches(leaves)]
+    gone = [k for k, e in _GRAPHS.items() if e.reads(leaves)]
     for k in gone:
         del _GRAPHS[k]
     return len(gone)
@@ -472,14 +480,15 @@ def warm_and_capture(entry: _StepGraph, step, device: torch.device,
 
 
 def run_decode(key: tuple, params: dict, device: torch.device, limit: int,
-               make, load, bind, stopped) -> _StepGraph:
+               make, load, bind, stopped,
+               every: int = FINISH_CHECK_EVERY) -> _StepGraph:
     """The decode loop of the greedy and the beam search, on the card
     through a cached captured step, on the CPU eagerly; returns the entry
     whose state the loop left. ``make()`` gives a new entry's (state,
     cross cache, rules); ``load(entry)`` puts this decode's cross cache and
     prompt into a cached entry's buffers; ``bind(entry)`` resets the state
-    and returns the step; ``stopped(state)`` is the host's read, a bool.
-    On the card an entry's first decode runs ``WARMUP_STEPS`` eager steps
+    and returns the step; ``stopped(state)`` is the host's read, a bool,
+    made once every ``every`` steps. On the card an entry's first decode runs ``WARMUP_STEPS`` eager steps
     on the warm-up stream, then captures; later decodes only replay.
     ``key`` is the decode's configuration; the decoder weights' identity
     is added here."""
@@ -491,7 +500,7 @@ def run_decode(key: tuple, params: dict, device: torch.device, limit: int,
             step()
             LOOP.eager_steps += 1
 
-        _run(eager, lambda: stopped(entry.state), limit)
+        _run(eager, lambda: stopped(entry.state), limit, every=every)
         return entry
     leaves = _decoder_leaves(params)
     key = key + (tuple(id(t) for t in leaves),)
@@ -506,7 +515,7 @@ def run_decode(key: tuple, params: dict, device: torch.device, limit: int,
         done = min(WARMUP_STEPS, limit)
         warm_and_capture(entry, step, device, done)
         _store(key, entry, leaves)
-    _run(entry.replay, lambda: stopped(entry.state), limit, done)
+    _run(entry.replay, lambda: stopped(entry.state), limit, done, every)
     return entry
 
 
