@@ -97,7 +97,19 @@ Seven phases, each timed; any failure raises and the script exits non-zero:
    float tree against a random draft whose steps run K6 (the 4 texts, 0
    accepted, launches exact from the stats and equal to the profiler's),
    S3 batch-1 ms against greedy and ``benchmarks/spec_loop_cost.py``'s ms
-   a round (ungated);
+   a round (ungated); then the CLIs and engine export
+   (``clis_and_engine``, subprocesses side by side): C1 ``cli.transcribe``
+   at batch 4 in fp32 and B, its ids the session's, the 4 texts, WER 0.0;
+   C2 engines at batch 4 in B and E loaded and run in fresh interpreters
+   that cannot import the model code, tokens the session's (and a seed-1
+   tree's a session's on it), launches equal to the session's and the
+   profiler's, one capture, and a process that exports before decoding
+   transcribes C1's tokens; C3 ``cli.warm_cache`` builds every library
+   into an empty directory, and a session with ``persistent_cache_dir``
+   there runs no ``nvcc``; C4 B with each inert option; C5
+   ``encode_with_intermediates``, ``checked``, ``cli.visualize``; C6 the
+   toy acceptance loop (``synthetic_asr`` make, ``finetune``,
+   ``export-hf``, ``accept``: differential 1.0);
 5. training — on the float tree with the bundled batch of 4 and their
    ground-truth tokens (32 positions): (a) the loss and every leaf's
    gradient on the card against the CPU's (each nonzero), and one
@@ -2274,6 +2286,503 @@ def speculative(torch, np, card):
 
 
 # --------------------------------------------------------------------------
+# phase 4b: the CLIs, the utilities, the runtime options and engine export
+# --------------------------------------------------------------------------
+
+CLIS_DIR = os.path.join(ROOT, "build", "smoke", "clis")
+# K1's symbols beside those of K2, K5 and K6 (``KERNEL_SYMBOLS``)
+ENGINE_SYMBOLS = {"flash_fwd": ("flash_fwd",), **KERNEL_SYMBOLS}
+# an engine loaded and run in a fresh interpreter where importing the model
+# code or the runtime fails: two calls on the exported tree (the second
+# traced, replays only), three timed, one on a second tree
+ENGINE_CHILD = r"""
+import json, statistics, sys, time
+sys.modules["whisper_trtllm_tpu_torch.models"] = None
+sys.modules["whisper_trtllm_tpu_torch.runtime"] = None
+sys.path.insert(0, {root!r})
+import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from whisper_trtllm_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+from whisper_trtllm_tpu_torch.utils.engine import load_engine
+engine, ckpt, ckpt2, mel_path, symbols = sys.argv[1:6]
+symbols = json.loads(symbols)
+t0 = time.perf_counter()
+eng = load_engine(engine)
+out = {{"load_s": time.perf_counter() - t0}}
+params, _ = load_checkpoint(ckpt)
+params2, _ = load_checkpoint(ckpt2)
+mel = torch.from_numpy(np.load(mel_path)).cuda()
+def call(p):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, lens = eng(p, mel)
+    torch.cuda.synchronize()
+    return toks.cpu().tolist(), lens.cpu().tolist(), time.perf_counter() - t
+def loop():
+    return {{"captures": eng.captures, "replays": eng.replays,
+            "eager_steps": eng.eager_steps,
+            "launches": {{k: f.launches for k, f in KERNELS.items()}}}}
+reset_launch_counts()
+out["tokens"], out["lengths"], out["first_s"] = call(params)
+out["first"] = loop()
+reset_launch_counts()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    toks, lens, _ = call(params)
+out["second"] = loop()
+out["second"]["same"] = toks == out["tokens"] and lens == out["lengths"]
+out["traced"] = {{k: sum(any(n in e.name for n in names) for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+                 for k, names in symbols.items()}}
+out["replay_ms"] = statistics.median(call(params)[2] * 1e3 for _ in range(3))
+out["tree2"] = call(params2)[:2]
+out["model_modules"] = sorted(
+    n for n in sys.modules if sys.modules[n] is not None and n.startswith(
+        ("whisper_trtllm_tpu_torch.models", "whisper_trtllm_tpu_torch.runtime")))
+print(json.dumps(out))
+"""
+# a fresh process that exports before anything decodes, then transcribes
+EXPORT_FIRST_CHILD = r"""
+import json, sys
+sys.path.insert(0, {root!r})
+import numpy as np
+from whisper_trtllm_tpu_torch.config import GenerationConfig
+from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+params, cfg = load_checkpoint(sys.argv[1])
+sess = WhisperSession(params, cfg, GenerationConfig(max_new_tokens=32))
+nbytes = sess.export_engine(sys.argv[3], batch=4)
+toks, lens = sess.transcribe_features(np.load(sys.argv[2]))
+print(json.dumps({{"bytes": nbytes, "tokens": toks.tolist(),
+                  "lengths": lens.tolist()}}))
+"""
+# a fresh process whose session finds its kernels in a cache directory
+CACHE_CHILD = r"""
+import json, sys
+sys.path.insert(0, {root!r})
+import numpy as np
+from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
+from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
+from whisper_trtllm_tpu_torch.ops.kernels import _build
+from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
+art, cache, wavs = sys.argv[1:4]
+params, cfg = load_checkpoint(art)
+sess = WhisperSession(params, cfg, GenerationConfig(max_new_tokens=32),
+                      RuntimeConfig(persistent_cache_dir=cache))
+audio = np.stack([pad_or_trim(read_wav(f"{{wavs}}/utt{{i:02d}}.wav"))
+                  for i in range(4)])
+toks, lens = sess.transcribe(audio)
+print(json.dumps({{"texts": [ids_to_text(toks[i, :lens[i]]) for i in range(4)],
+                  "build_dir": str(_build.BUILD_DIR),
+                  "libs": sorted(lib._name for lib in _build._libs.values())}}))
+"""
+# the C6 loop at the toy preset's sizes (as tests/test_synthetic_asr.py)
+TOY_LOOP = (
+    ("synthetic_asr", ["make", "--out", "{d}", "--preset", "toy",
+                       "--train-n", "6", "--eval-n", "4"]),
+    ("finetune", ["--checkpoint", "{d}/ckpt_init", "--dataset",
+                  "{d}/train.pkl", "--output", "{d}/ckpt_ft", "--epochs",
+                  "1", "--batch", "3", "--lr", "3e-4", "--max-target-len",
+                  "16"]),
+    ("synthetic_asr", ["export-hf", "--checkpoint", "{d}/ckpt_ft",
+                       "--hf-dir", "{d}/hf"]),
+    ("accept", ["--hf-dir", "{d}/hf", "--audio-dir", "{d}/eval_wavs",
+                "--max-new-tokens", "10", "--batch", "2", "--limit", "4",
+                "--min-match-frac", "1.0", "--out", "{d}/accept.json"]),
+)
+INERT_OPTIONS = ("fp32_attention_softmax", "fp32_logits", "use_pallas")
+
+
+class Child:
+    """A subprocess of this phase, started at once, its output in a log
+    under ``CLIS_DIR``; ``wait()`` fails the run unless it exits 0 within
+    ``timeout`` and returns its output and wall seconds."""
+
+    def __init__(self, name: str, args: list, timeout: int = 600):
+        os.makedirs(CLIS_DIR, exist_ok=True)
+        self.name, self.timeout = name, timeout
+        self.log = os.path.join(CLIS_DIR, f"{name}.log")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen([sys.executable, *args], cwd=ROOT,
+                                         env=env, stdout=f,
+                                         stderr=subprocess.STDOUT)
+
+    def wait(self):
+        try:
+            rc = self.proc.wait(timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            rc = "timeout"
+        wall = time.perf_counter() - self.t0
+        with open(self.log) as f:
+            out = f.read()
+        if rc != 0:
+            fail(f"clis {self.name} exited {rc} after {wall:.1f} s:\n"
+                 f"{out[-4000:]}")
+        return out, wall
+
+
+def _json_line(out: str, name: str) -> dict:
+    for line in reversed(out.strip().splitlines()):
+        if line.startswith("{"):
+            return json.loads(line)
+    fail(f"clis {name}: no JSON line in its output:\n{out[-2000:]}")
+
+
+def _ids(tokens, lengths, eos) -> list:
+    """The CLI's hypothesis ids: after the start token, EOS dropped."""
+    out = []
+    for row, n in zip(tokens, lengths):
+        out.append([int(t) for t in row[1:int(n)] if int(t) != eos])
+    return out
+
+
+def clis_and_engine(torch, np, card):
+    """The Whisper CLIs, the utilities, the runtime options and engine
+    export (``runtime/export.py``, ``utils/engine.py``) on the artifact and
+    the 4 bundled utterances; subprocesses run side by side with the
+    in-process rows.
+
+    C1: ``cli.transcribe`` at batch 4 over a (mel, text) pickle, fp32 and
+    B (bf16, int8 KV): its printed ids equal the session's, the texts are
+    the 4 expected, the WER of the normalized texts 0.0. C2: engines at
+    batch 4 in B and E (the float tree: K6), each loaded and run in a fresh
+    interpreter that cannot import the model code or the runtime: tokens
+    and lengths the session's, a second tree (``init_params(seed=1)``
+    through the same chain) the tokens of a session on it, the launches of
+    a call equal to the session's and to the profiler's (K1, K2, K5 in B;
+    K1, K5, K6 in E), one capture and a second call that only replays;
+    and a fresh process that exports before any decode transcribes C1's
+    fp32 tokens. C3: ``cli.warm_cache`` builds every kernel library into
+    an empty directory and warms batch 1 and 4; a fresh process whose
+    session has ``persistent_cache_dir`` there transcribes 4/4 and runs no
+    ``nvcc`` (the libraries' mtimes unchanged, no new log). C4: B with each
+    inert option (``INERT_OPTIONS``) set False: B's tokens and launches.
+    C5: ``encode_with_intermediates`` within the fp32 tolerance of
+    ``encode``; ``checked`` raises on a NaN behind a K5 launch;
+    ``cli.visualize --stage all`` writes both graphs and a kernel list that
+    names K1, K2 and K5. C6: the toy acceptance loop (``TOY_LOOP``):
+    ``accept`` exits 0 with ``differential_frac`` 1.0. Ungated: C1's
+    audio-s/s, the exports' seconds, an engine's first call against the
+    session's first transcribe."""
+    import pickle
+    import shutil
+    import threading
+
+    from whisper_trtllm_tpu_torch.audio import (
+        LogMelSpectrogram,
+        pad_or_trim,
+        read_wav,
+    )
+    from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from whisper_trtllm_tpu_torch.models.whisper import encode, init_params
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        KERNELS,
+        reset_launch_counts,
+    )
+    from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import layer_norm
+    from whisper_trtllm_tpu_torch.quantization import (
+        quantize_vocab_embedding,
+        weight_only_quantize,
+    )
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from whisper_trtllm_tpu_torch.utils.debugging import (
+        checked,
+        encode_with_intermediates,
+    )
+    from whisper_trtllm_tpu_torch.utils.metrics import (
+        get_text_normalizer,
+        word_error_rate,
+    )
+    from whisper_trtllm_tpu_torch.utils.vocab import ids_to_text
+
+    shutil.rmtree(CLIS_DIR, ignore_errors=True)
+    os.makedirs(CLIS_DIR)
+    d = CLIS_DIR
+    cache = os.path.join(d, "cache")
+    toy = os.path.join(d, "toy")
+
+    # C3 (a) and C6 start first: the build and the toy loop take longest
+    warm = Child("warm_cache", [
+        "-m", "whisper_trtllm_tpu_torch.cli.warm_cache", "--checkpoint",
+        ARTIFACT, "--batch", "1", "4", "--gen-tokens", "48", "--cache-dir",
+        cache], timeout=600)
+    toy_out = {}
+
+    def toy_loop():
+        for i, (cli, args) in enumerate(TOY_LOOP):
+            child = Child(f"toy{i}_{cli}", [
+                "-m", f"whisper_trtllm_tpu_torch.cli.{cli}",
+                *(a.format(d=toy) for a in args)], timeout=600)
+            rc = child.proc.wait(timeout=600)
+            toy_out[i] = (rc, open(child.log).read(),
+                          time.perf_counter() - child.t0)
+            if rc != 0:
+                return
+
+    toy_thread = threading.Thread(target=toy_loop)
+    toy_thread.start()
+
+    with open(os.path.join(ROOT, "artifacts", "expected.json")) as f:
+        expected = json.load(f)["texts"]
+    params, cfg = load_checkpoint(ARTIFACT, device=DEVICE)
+    frontend = LogMelSpectrogram(cfg.num_mel_bins, device=DEVICE)
+    with torch.inference_mode():
+        mels = frontend(np.stack([pad_or_trim(read_wav(os.path.join(
+            EVAL_DIR, f"utt{i:02d}.wav"))) for i in range(4)])).cpu().numpy()
+    with open(os.path.join(d, "eval.pkl"), "wb") as f:
+        pickle.dump(list(zip(mels, expected)), f)
+    np.save(os.path.join(d, "mels.npy"), mels)
+
+    # C1: the transcribe CLI, fp32 and B, beside the sessions
+    cli_args = ["-m", "whisper_trtllm_tpu_torch.cli.transcribe",
+                "--checkpoint", ARTIFACT, "--dataset",
+                os.path.join(d, "eval.pkl"), "--batch", "4",
+                "--max-new-tokens", "32"]
+    c1 = {"fp32": Child("transcribe_fp32", cli_args),
+          "B": Child("transcribe_B", cli_args + [
+              "--dtype", "bfloat16", "--kv-cache-dtype", "int8"])}
+    c2_first = Child("export_first", [
+        "-c", EXPORT_FIRST_CHILD.format(root=ROOT), ARTIFACT,
+        os.path.join(d, "mels.npy"), os.path.join(d, "first.engine")])
+    gen = GenerationConfig(max_new_tokens=32)
+    gen_b = GenerationConfig(max_new_tokens=32, kv_cache_dtype="int8")
+    rt_b = RuntimeConfig(compute_dtype="bfloat16")
+    normalize = get_text_normalizer()
+
+    def counted(session):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, lens = session.transcribe_features(mels)
+        torch.cuda.synchronize()
+        return (toks, lens, {k: f.launches for k, f in KERNELS.items()},
+                time.perf_counter() - t0)
+
+    sessions = {"fp32": WhisperSession(params, cfg, gen, device=DEVICE),
+                "B": WhisperSession(params, cfg, gen_b, rt_b, device=DEVICE)}
+    ref = {k: counted(s) for k, s in sessions.items()}
+    for name, child in c1.items():
+        out, wall = child.wait()
+        printed = {}
+        for line in out.splitlines():
+            if line.startswith("[") and "] " in line:
+                i, ids = line[1:].split("] ", 1)
+                printed[int(i)] = [int(t) for t in ids.split()]
+        toks, lens = ref[name][:2]
+        want = _ids(toks, lens, cfg.eos_token_id)
+        if [printed.get(i) for i in range(4)] != want:
+            fail(f"clis C1 transcribe {name}: printed ids {printed} are not "
+                 f"the session's {want}")
+        texts = [ids_to_text(ids) for ids in want]
+        wer = word_error_rate([normalize(t) for t in texts],
+                              [normalize(t) for t in expected])
+        if texts != expected or wer != 0.0:
+            fail(f"clis C1 transcribe {name}: texts {texts} (WER {wer})")
+        rate = [line for line in out.splitlines() if "audio-s/s" in line]
+        print(f"clis C1 transcribe {name}: ids equal the session's, 4/4 "
+              f"texts, WER {wer}; {rate[-1] if rate else '?'} (timed pass, "
+              f"batch 4) [{card}]; the CLI took {wall:.1f} s")
+
+    # C2: engines in B and E, run in fresh interpreters
+    tree1 = {"B": params, "E": float_tree(params)}
+    tree2_raw = init_params(cfg, seed=1, device="cpu")
+    tree2 = {"B": quantize_vocab_embedding(weight_only_quantize(tree2_raw)),
+             "E": tree2_raw}
+    gens = {"B": (gen_b, rt_b), "E": (gen, None)}
+    engines = {}
+    for name in ("B", "E"):
+        g, rt = gens[name]
+        sess = sessions[name] if name == "B" else WhisperSession(
+            tree1[name], cfg, g, rt, device=DEVICE)
+        first = ref[name] if name == "B" else counted(sess)
+        second = counted(sess)
+        sess2 = WhisperSession(tree2[name], cfg, g, rt, device=DEVICE)
+        toks2, lens2 = sess2.transcribe_features(mels)
+        t0 = time.perf_counter()
+        nbytes = sess.export_engine(os.path.join(d, f"{name}.engine"),
+                                    batch=4)
+        export_s = time.perf_counter() - t0
+        for tag, s in (("1", sess), ("2", sess2)):
+            save_checkpoint(os.path.join(d, f"tree{name}{tag}"), s.params, cfg)
+        engines[name] = dict(first=first, second=second, tree2=(toks2, lens2),
+                             export_s=export_s, bytes=nbytes,
+                             child=Child(f"engine_{name}", [
+                                 "-c", ENGINE_CHILD.format(root=ROOT),
+                                 os.path.join(d, f"{name}.engine"),
+                                 os.path.join(d, f"tree{name}1"),
+                                 os.path.join(d, f"tree{name}2"),
+                                 os.path.join(d, "mels.npy"),
+                                 json.dumps(ENGINE_SYMBOLS)]))
+        del sess2
+
+    # C4: the inert options, each alone, on B
+    toks_b, lens_b, launches_b = ref["B"][:3]
+    for opt in INERT_OPTIONS:
+        s = WhisperSession(params, cfg, gen_b, RuntimeConfig(
+            compute_dtype="bfloat16", **{opt: False}), device=DEVICE)
+        toks, lens, launches, _ = counted(s)
+        if not (np.array_equal(toks, toks_b) and np.array_equal(lens, lens_b)
+                and launches == launches_b):
+            fail(f"clis C4 {opt}=False: tokens or launches {launches} differ "
+                 f"from B's default ({launches_b})")
+        del s
+    print(f"clis C4: B with each of {', '.join(INERT_OPTIONS)} set False "
+          f"gives B's tokens and launches {launches_b}")
+
+    # C5: intermediates, the NaN check, visualize
+    vis = Child("visualize", [
+        "-m", "whisper_trtllm_tpu_torch.cli.visualize", "--checkpoint",
+        ARTIFACT, "--out", os.path.join(d, "graph"), "--stage", "all"])
+    sess_a = sessions["fp32"]
+    final, inter = encode_with_intermediates(sess_a.params, cfg, mels)
+    want = sess_a.encode(mels)
+    err = float((final.float() - want.float()).abs().max())
+    shapes = (tuple(inter["conv_stem"].shape),
+              tuple(inter["layer_outputs"].shape))
+    if not err <= TOLERANCE["float32"] or shapes != (
+            (4, cfg.max_source_positions, cfg.d_model),
+            (cfg.encoder_layers, 4, cfg.max_source_positions, cfg.d_model)):
+        fail(f"clis C5 encode_with_intermediates: max |err| {err}, shapes "
+             f"{shapes}")
+    x = torch.randn(4, cfg.d_model, device=DEVICE)
+    scale = torch.ones(cfg.d_model, device=DEVICE)
+    fn = checked(lambda t: layer_norm(t, scale) * 2.0)
+    fn(x)
+    x[1, 3] = float("nan")
+    before = layer_norm.launches
+    try:
+        fn(x)
+        fail("clis C5 checked: a NaN behind a K5 launch passed")
+    except FloatingPointError as e:
+        raised = str(e)
+    if layer_norm.launches != before + 1:
+        fail("clis C5 checked: K5 was not launched")
+    print(f"clis C5: encode_with_intermediates max |err| {err} against "
+          f"encode, conv_stem {shapes[0]}, layer_outputs {shapes[1]}; "
+          f"checked raised on a NaN behind a K5 launch: {raised}")
+
+    # C2 continued: the fresh interpreters' results
+    for name, e in engines.items():
+        out, wall = e["child"].wait()
+        res = _json_line(out, f"engine_{name}")
+        toks, lens, launches, first_s = e["first"]
+        tag = f"clis C2 engine {name}"
+        if res["model_modules"]:
+            fail(f"{tag}: the loader imported {res['model_modules']}")
+        if not (res["tokens"] == toks.tolist()
+                and res["lengths"] == lens.tolist()):
+            fail(f"{tag}: tokens or lengths differ from the session's")
+        toks2, lens2 = e["tree2"]
+        if res["tree2"] != [toks2.tolist(), lens2.tolist()]:
+            fail(f"{tag}: the second tree's tokens differ from a session's "
+                 f"on it")
+        f1, f2 = res["first"], res["second"]
+        if not (f1["captures"] == 1 and f2["captures"] == 1
+                and f2["eager_steps"] == f1["eager_steps"]
+                and f2["replays"] > f1["replays"] and f2["same"]):
+            fail(f"{tag}: first call {f1}, second {f2}: not one capture "
+                 f"then replays only")
+        traced = res["traced"]
+        used = {"B": ("flash_fwd", "decode_attn", "layer_norm"),
+                "E": ("flash_fwd", "layer_norm",
+                      "fused_decoder_layer_step")}[name]
+        if not (f1["launches"] == launches
+                and f2["launches"] == e["second"][2]
+                and all(traced[k] == f2["launches"][k] for k in traced)
+                and all(f2["launches"][k] > 0 for k in used)):
+            fail(f"{tag}: launches {f1['launches']} then {f2['launches']} "
+                 f"(traced {traced}); the session's {launches} then "
+                 f"{e['second'][2]}")
+        print(f"{tag}: {e['bytes']} bytes, exported in {e['export_s']:.2f} s; "
+              f"a fresh interpreter without the model code loaded it in "
+              f"{res['load_s']:.2f} s; tokens and lengths the session's, the "
+              f"seed-1 tree's a session's on it; launches a call "
+              f"{f2['launches']} equal to the session's and to the "
+              f"profiler's {traced}; one capture, then replays only; first "
+              f"call {res['first_s']:.3f} s (the session's first transcribe "
+              f"{first_s:.3f} s), a replayed call {res['replay_ms']:.3f} ms "
+              f"(the session's {e['second'][3] * 1e3:.3f} ms) [{card}]")
+    out, _ = c2_first.wait()
+    res = _json_line(out, "export_first")
+    toks, lens = ref["fp32"][:2]
+    if not (res["tokens"] == toks.tolist() and res["lengths"]
+            == lens.tolist()):
+        fail("clis C2: a process that exported before any decode then "
+             "transcribed other tokens than C1's")
+    print("clis C2: a fresh process that exported first transcribes C1's "
+          "fp32 tokens")
+
+    out, wall = vis.wait()
+    files = [os.path.join(d, f"graph.{s}") for s in
+             ("encode.fx.txt", "step.fx.txt", "kernels.txt")]
+    txt = [open(p).read() for p in files]
+    wrappers = dict(kv.rsplit(" ", 1) for kv in txt[2].splitlines()[1]
+                    .removeprefix("# wrapper launches: ").split(", "))
+    if not ("wtpu.flash_fwd" in txt[0] and "wtpu.layer_norm" in txt[0]
+            and "wtpu.decode_attn" in txt[1]
+            and all(int(wrappers[k]) > 0 for k in
+                    ("flash_fwd", "decode_attn", "layer_norm"))
+            and all(any(n in txt[2] for n in ENGINE_SYMBOLS[k]) for k in
+                    ("flash_fwd", "decode_attn", "layer_norm"))):
+        fail(f"clis C5 visualize: {[len(t) for t in txt]} chars; wrapper "
+             f"launches {wrappers}")
+    print(f"clis C5 visualize --stage all: {', '.join(os.path.basename(p) for p in files)} "
+          f"({', '.join(str(len(t)) for t in txt)} chars), the kernel list "
+          f"naming K1, K2 and K5 ({wrappers}); {wall:.1f} s")
+
+    # C3 (b): a fresh process on the warmed cache runs no nvcc
+    out, wall = warm.wait()
+    warmed = [line for line in out.splitlines() if line.startswith("warmed")]
+    libs = sorted(p for p in os.listdir(cache) if p.endswith(".so"))
+    logs = sorted(p for p in os.listdir(cache) if p.endswith(".log"))
+    mtimes = {p: os.stat(os.path.join(cache, p)).st_mtime_ns for p in libs}
+    if len(warmed) != 2 or len(libs) < 7:
+        fail(f"clis C3 warm_cache: {len(libs)} libraries, lines {warmed}")
+    for line in out.splitlines():
+        if line.startswith(("built", "warmed")):
+            print(f"clis C3 warm_cache: {line} [{card}]")
+    out, _ = Child("cache_child", ["-c", CACHE_CHILD.format(root=ROOT),
+                                   ARTIFACT, cache, EVAL_DIR]).wait()
+    res = _json_line(out, "cache_child")
+    after = {p: os.stat(os.path.join(cache, p)).st_mtime_ns for p in libs}
+    if not (res["texts"] == expected and after == mtimes
+            and sorted(p for p in os.listdir(cache) if p.endswith(".log"))
+            == logs and res["build_dir"] == os.path.realpath(cache)
+            and res["libs"] and all(p.startswith(os.path.realpath(cache))
+                                    for p in res["libs"])):
+        fail(f"clis C3: the cached session gave {res}")
+    print(f"clis C3: warm_cache built {len(libs)} libraries in {wall:.1f} s "
+          f"with its warm-ups; a fresh session with persistent_cache_dir "
+          f"there loaded {len(res['libs'])} of them, ran no nvcc and "
+          f"transcribed 4/4")
+
+    # C6: the toy acceptance loop
+    toy_thread.join(timeout=900)
+    for i, (cli, _) in enumerate(TOY_LOOP):
+        rc, out, wall = toy_out.get(i, ("not run", "", 0.0))
+        if rc != 0:
+            fail(f"clis C6 {cli} exited {rc}:\n{out[-4000:]}")
+    with open(os.path.join(toy, "accept.json")) as f:
+        report = json.load(f)
+    if report.get("differential_frac") != 1.0 or not report.get("pass"):
+        fail(f"clis C6 accept: {report}")
+    print(f"clis C6 toy loop (make, finetune 1 epoch, export-hf, accept): "
+          f"differential_frac {report['differential_frac']}, "
+          f"{sum(w for _, _, w in toy_out.values()):.1f} s in all")
+    torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
 # phase 5: training
 # --------------------------------------------------------------------------
 
@@ -3386,6 +3895,9 @@ def main() -> None:
     t0 = time.perf_counter()
     spec_counts = speculative(torch, np, card)
     phase_s["speculative"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clis_and_engine(torch, np, card)
+    phase_s["clis and engine"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     serve_counts = serving(torch, np, card)
     phase_s["serving"] = time.perf_counter() - t0

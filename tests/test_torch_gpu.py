@@ -2093,3 +2093,150 @@ def test_spec_capture_raises_when_the_round_would_sync(cuda, monkeypatch):
                                                     mels[0], gen, gamma=2)
     assert toks.shape == (1, 9) and 2 <= int(length) <= 9
     generation.drop_graphs()
+
+
+# -- engine export: the kernels as operators, the exported step -------------
+
+def _op_cases(cuda, dtype):
+    """(name, the registered operator's real output, its inputs moved to
+    the meta device) of K1, K2 (int8, scales), K5 and K6 at tiny.en's
+    widths."""
+    from whisper_trtllm_tpu_torch.ops.kernels.fused_decoder_step import (
+        _blocks,
+    )
+
+    rng = np.random.default_rng(7)
+    ops = torch.ops.wtpu
+    q = _normal(rng, (4, 6, 1500, 64), 0.125, cuda, dtype)
+    qd = _normal(rng, (4, 6, 1, 64), 0.125, cuda, dtype)
+    ck = torch.randint(-127, 128, (4, 6, 1504, 64), dtype=torch.int8,
+                       device=cuda)
+    sc = torch.rand(4, 6, 1504, 1, device=cuda) * 0.01 + 1e-3
+    vl = torch.tensor(1500, dtype=torch.int32, device=cuda)
+    x = _normal(rng, (4, 1500, 384), 1.0, cuda, dtype)
+    scale = 1 + _normal(rng, (384,), 0.1, cuda, dtype)
+    xs, h1, lp, caches = _fused_inputs(rng, dtype, cuda)
+    weights = [t for pair in _blocks(lp) for t in pair]
+    pos = torch.tensor(16, dtype=torch.int32, device=cuda)
+    cases = [("flash_fwd", ops.flash_fwd, (q, q, q, False)),
+             ("decode_attn", ops.decode_attn,
+              (qd, ck, ck, vl, sc, sc, False)),
+             ("layer_norm", ops.layer_norm, (x, scale, None, 1e-5)),
+             ("fused_decoder_step", ops.fused_decoder_step,
+              (xs, h1, pos, weights, *caches, vl))]
+
+    def meta(a):
+        if isinstance(a, torch.Tensor):
+            return torch.empty_like(a, device="meta")
+        if isinstance(a, list):
+            return [meta(t) for t in a]
+        return a
+
+    return [(name, op, args, [meta(a) for a in args])
+            for name, op, args in cases]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operator_fakes_give_the_real_outputs_shapes(cuda, dtype):
+    """Each kernel's operator: the fake implementation (what a tracer sees)
+    gives the shape and dtype the CUDA implementation returns, and the
+    CUDA implementation is the wrapper's launch (it counts)."""
+    reset_launch_counts()
+    for name, op, args, meta_args in _op_cases(cuda, dtype):
+        real, fake = op(*args), op(*meta_args)
+        torch.cuda.synchronize()
+        assert (real.shape, real.dtype) == (fake.shape, fake.dtype), name
+        assert real.is_cuda and fake.device.type == "meta", name
+    counts = {k: f.launches for k, f in KERNELS.items()}
+    assert counts == {"flash_fwd": 1, "flash_bwd": 0, "decode_attn": 1,
+                      "stft_log_mel": 0, "layer_norm": 1,
+                      "fused_decoder_layer_step": 1, "cross_decode_mha": 0}
+
+
+@pytest.mark.parametrize("weights,compute,kv", [
+    ("int8", "bfloat16", "int8"),
+    ("float", "float32", "auto"),
+    ("float", "bfloat16", "auto"),
+], ids=["int8-K2", "float32-K6", "bfloat16-K6"])
+def test_exported_step_replayed_equals_the_sessions_captured_step(
+        cuda, weights, compute, kv):
+    """An engine exported from the session (its step a CUDA graph of the
+    exported program, replayed) gives the session's captured decode bit
+    for bit, with the same launches a call; a second call only replays."""
+    from whisper_trtllm_tpu_torch.audio import pad_or_trim, read_wav
+    from whisper_trtllm_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from whisper_trtllm_tpu_torch.quantization import dequantize_params
+    from whisper_trtllm_tpu_torch.runtime.export import export_programs
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+    from whisper_trtllm_tpu_torch.utils.engine import Engine
+
+    params, cfg = load_checkpoint(
+        os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"), device="cpu")
+    if weights == "float":
+        params = dequantize_params(params)
+    session = WhisperSession(params, cfg, GenerationConfig(
+        max_new_tokens=24, kv_cache_dtype=kv), RuntimeConfig(
+        compute_dtype=compute))
+    audio = np.stack([pad_or_trim(read_wav(os.path.join(
+        ROOT, "artifacts", "eval", f"utt{i:02d}.wav"))) for i in range(4)])
+    with torch.inference_mode():
+        mel = session.frontend(audio)
+    engine = Engine(*export_programs(session.params, cfg, session.generation,
+                                     session._dtype, cuda, 4))
+    assert engine.meta["fused_step"] == (weights == "float")
+    for call in range(2):
+        reset_launch_counts()
+        toks, lens = session.transcribe_features(mel)
+        want = {k: f.launches for k, f in KERNELS.items()}
+        reset_launch_counts()
+        etoks, elens = engine(session.params, mel)
+        torch.cuda.synchronize()
+        assert {k: f.launches for k, f in KERNELS.items()} == want
+        np.testing.assert_array_equal(etoks.cpu().numpy(), toks)
+        np.testing.assert_array_equal(elens.cpu().numpy(), lens)
+        assert engine.captures == 1
+    assert engine.eager_steps == engine.meta["warmup_steps"]
+
+
+def test_eager_encode_host_time_through_the_operators(cuda, monkeypatch):
+    """An eager encode with each wrapper going through its registered
+    operator (as an exported program calls it) against the direct launch
+    the eager path takes: the same outputs and launches; the host µs a
+    call of each, printed (queued behind a spin of the card)."""
+    import time
+
+    from whisper_trtllm_tpu_torch.models.whisper import encode
+    from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    params, cfg = load_checkpoint(
+        os.path.join(ROOT, "artifacts", "tiny_en_synth_int8"))
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 3000, cfg.num_mel_bins)).astype(np.float32)).to(cuda)
+
+    def host_us(n=5):  # ~800 launches: under the card's queue of pending
+        # launches, past which the host would wait for the spin
+        with torch.inference_mode():
+            out = encode(params, cfg, mel)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1_000_000_000)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                encode(params, cfg, mel)
+            us = (time.perf_counter() - t0) * 1e6 / n
+            torch.cuda.synchronize()
+        return out, us
+
+    reset_launch_counts()
+    direct, direct_us = host_us()
+    direct_launches = {k: f.launches for k, f in KERNELS.items()}
+    monkeypatch.setattr(_build, "tracing", lambda: True)
+    reset_launch_counts()
+    via_ops, ops_us = host_us()
+    assert {k: f.launches for k, f in KERNELS.items()} == direct_launches
+    torch.testing.assert_close(via_ops, direct, rtol=0, atol=0)
+    per_call = (direct_launches["flash_fwd"]
+                + direct_launches["layer_norm"]) // 6
+    print(f"eager encode, batch 4, tiny.en fp32, {per_call} launches a "
+          f"call: {direct_us:.1f} µs a call launching directly, "
+          f"{ops_us:.1f} µs through torch.ops.wtpu")

@@ -6,8 +6,9 @@
 - No port module calls a fused attention operator, ``torch.compile`` or a
   package of finished kernels.
 - Entry points called without ``device=`` raise when there is no CUDA;
-  the fine-tuning and serving CLIs without ``--cpu`` too, the speculative
-  scripts without ``--device cpu``.
+  the fine-tuning, serving and dataset CLIs (transcribe, cal_wer, accept,
+  synthetic_asr, warm_cache, build, visualize) without ``--cpu`` too, the
+  speculative scripts without ``--device cpu``.
 - ``chip_smoke.py`` exits non-zero and prints no result without a card.
 """
 
@@ -80,7 +81,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "benchmarks.serve_loadtest", "quantization.mode",
                  "quantization.quantize", "quantization.smooth",
                  "runtime.speculative", "benchmarks.spec_bench",
-                 "benchmarks.spec_loop_cost"):
+                 "benchmarks.spec_loop_cost", "cli.transcribe",
+                 "cli.cal_wer", "cli.accept", "cli.synthetic_asr",
+                 "cli.warm_cache", "cli.build", "cli.visualize",
+                 "utils.logger", "utils.normalizer", "utils.metrics",
+                 "utils.profiler", "utils.debugging", "utils.engine",
+                 "runtime.export"):
         assert f"whisper_trtllm_tpu_torch.{name}" in _port_modules()
 
 
@@ -172,6 +178,40 @@ def test_finetune_defaults_to_the_card_and_raises_without_one(no_cuda,
     # with --cpu it gets past the device and reads the dataset
     with pytest.raises(FileNotFoundError):
         finetune.main(args + ["--cpu"])
+
+
+def test_dataset_clis_default_to_the_card_and_raise_without_one(no_cuda,
+                                                               tmp_path):
+    from whisper_trtllm_tpu_torch.cli import (
+        accept,
+        build,
+        cal_wer,
+        synthetic_asr,
+        transcribe,
+        visualize,
+        warm_cache,
+    )
+
+    pkl = str(tmp_path / "none.pkl")
+    calls = [
+        (transcribe.main, ["--checkpoint", ART]),
+        (cal_wer.main, ["--checkpoint", ART, "--dataset", pkl,
+                        "--hf-model", "none"]),
+        (accept.main, ["--checkpoint", ART, "--dataset", pkl]),
+        (synthetic_asr.main, ["make", "--out", str(tmp_path / "s")]),
+        (synthetic_asr.main, ["export-hf", "--checkpoint", ART, "--hf-dir",
+                              str(tmp_path / "hf")]),
+        (warm_cache.main, ["--checkpoint", ART, "--batch", "1"]),
+        (build.main, ["--model", str(tmp_path), "--output",
+                      str(tmp_path / "o")]),
+        (visualize.main, ["--checkpoint", ART, "--out", str(tmp_path / "g")]),
+    ]
+    for main, args in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(args)
+    # with --cpu it gets past the device and reads its input
+    with pytest.raises(FileNotFoundError):
+        transcribe.main(["--checkpoint", ART, "--dataset", pkl, "--cpu"])
 
 
 def test_transcribe_tokens_refuses_params_on_another_device():

@@ -236,11 +236,26 @@ def test_sched_server_serves_and_expires(toy):
     assert st["submitted"] == 4 and st["launched_requests"] >= 3
 
 
-def test_cache_dir_is_refused_as_the_session_refuses_it(toy):
+def test_cache_dir_is_refused_as_the_session_refuses_it(toy, tmp_path):
+    """``--cache-dir`` reaches the session's ``persistent_cache_dir``: a
+    path that cannot be a directory is refused as the session refuses it,
+    and a directory becomes the kernels' build directory."""
+    from whisper_trtllm_tpu_torch.ops.kernels import _build
+
+    blocker = tmp_path / "file"
+    blocker.write_text("")
     args = serve.parse_args(["--checkpoint", str(toy.ckpt), "--cpu",
-                             "--cache-dir", "somewhere"])
-    with pytest.raises(NotImplementedError, match="persistent_cache_dir"):
+                             "--cache-dir", str(blocker / "cache")])
+    with pytest.raises(OSError):
         serve.build_server(args)
+    before = _build.BUILD_DIR
+    try:
+        serve.build_server(serve.parse_args([
+            "--checkpoint", str(toy.ckpt), "--cpu", "--cache-dir",
+            str(tmp_path / "cache")]))
+        assert _build.BUILD_DIR == (tmp_path / "cache").resolve()
+    finally:
+        _build.BUILD_DIR = before
 
 
 # --------------------------------------------------------------------------

@@ -23,9 +23,10 @@ its own daemon from another process on the port.
 
 As in the JAX package's daemon, the ifb backend decodes with the weights
 as loaded: ``--dtype`` reaches the slots and sched backends' session only.
-``--cache-dir`` names a persistent compilation cache, which the port does
-not have: a non-empty value raises, as ``WhisperSession`` refuses
-``persistent_cache_dir``.
+``--cache-dir`` is the session's ``persistent_cache_dir``: the directory
+where the kernels' libraries are built and found
+(``utils.checkpoint.init_compilation_cache``), so a daemon started after
+``cli.warm_cache`` with the same directory runs no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -197,8 +198,8 @@ def parse_args(argv=None):
                     help="sched backend: launch a partial batch once the "
                          "oldest request has waited this long")
     ap.add_argument("--cache-dir", default="",
-                    help="persistent compilation cache: not in the port, so "
-                         "a non-empty value raises")
+                    help="directory of the kernels' built libraries (the "
+                         "persistent compilation cache); empty: build/kernels")
     ap.add_argument("--cpu", action="store_true",
                     help="serve from the CPU (the plain PyTorch path)")
     return ap.parse_args(argv)

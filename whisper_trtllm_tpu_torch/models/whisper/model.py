@@ -56,6 +56,7 @@ from whisper_trtllm_tpu_torch.ops.functional import (
     layer_norm,
     sinusoid_position_embedding,
 )
+from whisper_trtllm_tpu_torch.ops.kernels._build import tracing
 from whisper_trtllm_tpu_torch.ops.kernels.fused_decoder_step import (
     fused_decoder_layer_step,
     fused_layer_supported,
@@ -470,11 +471,19 @@ def decode_step_plan(params: dict, cfg: WhisperConfig,
     return _fused_decode_ok(params["decoder"], self_kv[0], cross_kv[0])
 
 
-@functools.lru_cache(maxsize=None)
 def _encoder_length(n: int, device: torch.device) -> torch.Tensor:
     """The true encoder length as a 0-d int32 tensor on ``device``, made
     once: the attention kernels read it from device memory, and a decode
-    step then issues no copy for it. Read-only."""
+    step then issues no copy for it. Read-only. While ``torch.export``
+    traces, it is made anew and kept nowhere: a fake tensor in the cache
+    would reach every later eager decode."""
+    if tracing():
+        return torch.full((), n, dtype=torch.int32, device=device)
+    return _encoder_length_cached(n, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _encoder_length_cached(n: int, device: torch.device) -> torch.Tensor:
     return torch.full((), n, dtype=torch.int32, device=device)
 
 
@@ -617,10 +626,21 @@ def _position(pos, device: torch.device) -> torch.Tensor:
     return pos.to(device=device, dtype=torch.int64)
 
 
-@functools.lru_cache(maxsize=None)
 def _cross_mask(tc: int, n: int, device: torch.device) -> torch.Tensor:
     """Additive fp32 mask (1, 1, 1, tc) over a padded cross cache: 0 on
-    the ``n`` encoder rows, -1e9 on the padding. Made once; read-only."""
+    the ``n`` encoder rows, -1e9 on the padding. Made once (anew and kept
+    nowhere while ``torch.export`` traces); read-only."""
+    if tracing():
+        return _make_cross_mask(tc, n, device)
+    return _cross_mask_cached(tc, n, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _cross_mask_cached(tc: int, n: int, device: torch.device) -> torch.Tensor:
+    return _make_cross_mask(tc, n, device)
+
+
+def _make_cross_mask(tc: int, n: int, device: torch.device) -> torch.Tensor:
     col = torch.arange(tc, device=device)
     return torch.where(col < n, 0.0, -1e9).to(torch.float32)[None, None,
                                                                None]

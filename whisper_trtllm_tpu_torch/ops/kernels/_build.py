@@ -11,6 +11,15 @@ kept beside the library as ``.log``.
 A file with a C interface builds in seconds, where one that includes
 PyTorch's headers takes minutes, so nothing here includes them: pointers
 and the stream cross as ``ctypes.c_void_p``.
+
+A launch through ``ctypes`` needs real memory, which the fake tensors of
+``torch.export``'s tracing do not have. So K1, K2, K5 and K6 are also
+registered as operators ``torch.ops.wtpu.*`` (``define_op``): the CUDA
+implementation is the wrapper's launch, the fake one gives the output's
+shape and dtype. A wrapper calls the operator only while it is traced
+(``tracing``); an exported program then calls it, and so launches the
+kernel, where the eager wrapper would. Outside tracing the wrapper calls
+its launch directly, at no extra dispatch cost.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
+from torch import compiler as _compiler
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -36,6 +46,8 @@ NVCC_FLAGS = [
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+OPS_NAMESPACE = "wtpu"
+_OPS = torch.library.Library(OPS_NAMESPACE, "FRAGMENT")
 
 
 def _nvcc() -> str:
@@ -139,3 +151,23 @@ def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed: {msg} ({err})")
+
+
+def tracing() -> bool:
+    """True while ``torch.export`` (or another tracer of torch's compiler)
+    runs the caller on fake tensors: a wrapper then calls its registered
+    operator instead of launching, and a module-level cache makes no
+    entry (a fake tensor kept there would reach later eager calls)."""
+    return _compiler.is_compiling()
+
+
+def define_op(schema: str, launch, fake):
+    """Register ``torch.ops.wtpu.<name>`` from ``schema`` ("name(args) ->
+    ret"): ``launch`` is its CUDA implementation (the wrapper's launch, which
+    counts), ``fake`` gives its output's shape and dtype to a tracer.
+    Returns the operator's default overload."""
+    name = schema.split("(", 1)[0]
+    _OPS.define(schema)
+    _OPS.impl(name, launch, "CUDA")
+    torch.library.register_fake(f"{OPS_NAMESPACE}::{name}", fake, lib=_OPS)
+    return getattr(getattr(torch.ops, OPS_NAMESPACE), name).default

@@ -11,7 +11,10 @@ frontend) is real and stays counted.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
+
+import torch
 
 _lock = threading.Lock()
 _local = threading.local()
@@ -37,3 +40,39 @@ def recording():
         yield tally
     finally:
         _local.tally = None
+
+
+def capture(step, kernels: dict):
+    """Capture ``step()`` (already warmed up) into a new CUDA graph:
+    (the graph, {name: launches one replay makes} over ``kernels``, the
+    wrappers by name). The launches this thread records are taken back,
+    since a capture launches nothing; ``replayed`` adds them for each
+    replay. Another thread's launches meanwhile stay counted and are not
+    the graph's. No garbage collection runs while the stream captures: a
+    collection that frees another graph (its weights were garbage in a
+    cycle) destroys it, which a capture does not permit."""
+    graph = torch.cuda.CUDAGraph()
+    collecting = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        # "thread_local": other threads may keep using the card while this
+        # one captures (a server's frontend calls); this thread's own host
+        # syncs still fail the capture
+        with recording() as recorded, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            step()
+    finally:
+        if collecting:
+            gc.enable()
+        for fn, n in recorded.items():
+            count(fn, -n)
+    return graph, {name: recorded[fn] for name, fn in kernels.items()
+                   if recorded.get(fn)}
+
+
+def replayed(launches: dict, kernels: dict) -> None:
+    """Count one replay of a graph that ``capture`` returned ``launches``
+    for."""
+    for name, n in launches.items():
+        count(kernels[name], n)

@@ -206,7 +206,8 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     one count or one per lane, read by the kernel (no host sync). fp32
     softmax. Returns (B, H, 1, dh) in q's dtype. Has no backward: on the
     card it refuses inputs that require grad. Counts its kernel launches in
-    ``decode_attn.launches``."""
+    ``decode_attn.launches``. Traced by ``torch.export`` on the card, it is
+    the operator ``torch.ops.wtpu.decode_attn``."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("decode_attn: give both k_scale and v_scale or "
                          "neither")
@@ -217,6 +218,13 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     if not isinstance(valid_len, torch.Tensor):
         raise TypeError("decode_attn: valid_len must be an int32 tensor on "
                         "q's device")
+    if _build.tracing():
+        return _OP(q, cache_k, cache_v, valid_len, k_scale, v_scale, t_major)
+    return _launch(q, cache_k, cache_v, valid_len, k_scale, v_scale, t_major)
+
+
+def _launch(q, cache_k, cache_v, valid_len, k_scale, v_scale,
+            t_major: bool) -> torch.Tensor:
     _check(q, cache_k, cache_v, valid_len, k_scale, v_scale, t_major)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn: unsupported device {q.device}")
@@ -239,5 +247,11 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     _launches.count(decode_attn)
     return out
 
+
+_OP = _build.define_op(
+    "decode_attn(Tensor q, Tensor cache_k, Tensor cache_v, Tensor valid_len, "
+    "Tensor? k_scale, Tensor? v_scale, bool t_major) -> Tensor",
+    _launch, lambda q, cache_k, cache_v, valid_len, k_scale, v_scale,
+    t_major: torch.empty_like(q))
 
 decode_attn.launches = 0

@@ -142,10 +142,21 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row's fp32 log-sum-exp (B, H, S), which K4 recomputes the softmax from.
     Has no backward: on the card it refuses inputs that require grad
     (``flash_attention`` is the differentiable entry). Counts its kernel
-    launches in ``flash_fwd.launches``."""
+    launches in ``flash_fwd.launches``. Traced by ``torch.export`` on the
+    card, it is the operator ``torch.ops.wtpu.flash_fwd`` (without the
+    log-sum-exp, which only training asks for)."""
     if q.device.type == "cpu":
         out = attention_reference(q, k, v, causal=causal)
         return (out, attention_lse_reference(q, k, causal)) if with_lse else out
+    if _build.tracing():
+        if with_lse:
+            raise NotImplementedError("flash_fwd: the log-sum-exp output is "
+                                      "not exported")
+        return _OP(q, k, v, causal)
+    return _launch(q, k, v, causal, with_lse)
+
+
+def _launch(q, k, v, causal: bool, with_lse: bool = False):
     _check(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
@@ -165,6 +176,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launches.count(flash_fwd)
     return (out, lse) if with_lse else out
 
+
+_OP = _build.define_op(
+    "flash_fwd(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
+    _launch, lambda q, k, v, causal: torch.empty_like(q))
 
 flash_fwd.launches = 0
 

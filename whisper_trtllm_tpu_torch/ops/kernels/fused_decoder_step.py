@@ -264,7 +264,8 @@ def fused_decoder_layer_step(x: torch.Tensor, h1: torch.Tensor, pos, lp: dict,
     block sees them.
 
     Launches on one card must not overlap (one stream): they share the
-    kernel's per-device counters."""
+    kernel's per-device counters. Traced by ``torch.export`` on the card,
+    it is the operator ``torch.ops.wtpu.fused_decoder_step``."""
     if x.device.type == "cpu":
         return fused_decoder_layer_step_reference(
             x, h1, pos, lp, self_k, self_v, cross_k, cross_v, enc_len)
@@ -278,6 +279,17 @@ def fused_decoder_layer_step(x: torch.Tensor, h1: torch.Tensor, pos, lp: dict,
         enc_len = torch.tensor(enc_len, dtype=torch.int32, device=x.device)
     blocks = _blocks(lp)
     caches = (self_k, self_v, cross_k, cross_v)
+    if _build.tracing():
+        if timeline is not None:
+            raise NotImplementedError("fused_decoder_layer_step: the "
+                                      "timeline is not exported")
+        return _OP(x, h1, pos, [t for pair in blocks for t in pair],
+                   *caches, enc_len)
+    return _launch(x, h1, pos, blocks, caches, enc_len, timeline)
+
+
+def _launch(x, h1, pos, blocks, caches, enc_len, timeline=None
+            ) -> torch.Tensor:
     _check(x, h1, pos, enc_len, blocks, caches)
     _build.refuse_grad("fused_decoder_layer_step", x, h1, *caches,
                        *(t for pair in blocks for t in pair))
@@ -287,6 +299,7 @@ def fused_decoder_layer_step(x: torch.Tensor, h1: torch.Tensor, pos, lp: dict,
         raise ValueError(f"fused_decoder_layer_step: the timeline is int64 "
                          f"with {len(PHASES) + 1} entries on x's device")
     lib = _build.load("fused_decoder_step", _SIGNATURES)
+    self_k, _, cross_k, _ = caches
     b, d = x.shape
     _, h, ts, dh = self_k.shape
     tc = cross_k.shape[2]
@@ -310,5 +323,21 @@ def fused_decoder_layer_step(x: torch.Tensor, h1: torch.Tensor, pos, lp: dict,
     _launches.count(fused_decoder_layer_step)
     return out
 
+
+def _op_launch(x, h1, pos, weights, self_k, self_v, cross_k, cross_v,
+               enc_len):
+    """The operator's CUDA implementation: ``weights`` flat, in
+    ``_blocks``' order, (weight, bias) after (weight, bias)."""
+    blocks = list(zip(weights[0::2], weights[1::2]))
+    return _launch(x, h1, pos, blocks, (self_k, self_v, cross_k, cross_v),
+                   enc_len)
+
+
+_OP = _build.define_op(
+    "fused_decoder_step(Tensor x, Tensor h1, Tensor pos, Tensor?[] weights, "
+    "Tensor self_k, Tensor self_v, Tensor cross_k, Tensor cross_v, "
+    "Tensor enc_len) -> Tensor",
+    _op_launch, lambda x, h1, pos, weights, self_k, self_v, cross_k, cross_v,
+    enc_len: torch.empty_like(x))
 
 fused_decoder_layer_step.launches = 0

@@ -127,9 +127,17 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
     """LayerNorm of x (..., d) over d with fp32 statistics; returns x's
     shape and dtype. Has no backward: on the card it refuses inputs that
     require grad (``LayerNorm`` is the differentiable entry). Counts its
-    kernel launches in ``layer_norm.launches``."""
+    kernel launches in ``layer_norm.launches``. Traced by ``torch.export``
+    on the card, it is the operator ``torch.ops.wtpu.layer_norm``."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, scale, bias, eps)
+    if _build.tracing():
+        return _OP(x, scale, bias, eps)
+    return _launch(x, scale, bias, eps)
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor,
+            bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
     _check(x, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm: unsupported device {x.device}")
@@ -151,6 +159,10 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
     _launches.count(layer_norm)
     return out
 
+
+_OP = _build.define_op(
+    "layer_norm(Tensor x, Tensor scale, Tensor? bias, float eps) -> Tensor",
+    _launch, lambda x, scale, bias, eps: torch.empty_like(x))
 
 layer_norm.launches = 0
 

@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import collections
 import functools
-import gc
 import time
 import weakref
 from dataclasses import dataclass
@@ -358,41 +357,17 @@ class _StepGraph:
         return bool(leaves) and all(id(t) in live for t in leaves)
 
     def capture(self, step) -> None:
-        """Capture ``step`` (already warmed up) into a CUDA graph. The
-        wrappers count the launches this thread records; they are taken
-        back, since a capture launches nothing, and each replay adds them.
-        Another thread's launches meanwhile stay counted and are not the
-        graph's."""
+        """Capture ``step`` (already warmed up) into a CUDA graph
+        (``_launches.capture``: the launches it records are taken back,
+        and each replay adds them)."""
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        # no garbage collection while the stream captures: a collection
-        # that frees another entry (its weights were garbage in a cycle)
-        # destroys that entry's graph, which a capture does not permit
-        collecting = gc.isenabled()
-        gc.collect()
-        gc.disable()
-        try:
-            # "thread_local": other threads may keep using the card while
-            # this one captures (a server's frontend calls); this thread's
-            # own host syncs still fail the capture
-            with _launches.recording() as recorded, \
-                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                step()
-        finally:
-            if collecting:
-                gc.enable()
-            for fn, n in recorded.items():
-                _launches.count(fn, -n)
+        self.graph, self.launches = _launches.capture(step, KERNELS)
         LOOP.capture_ms += (time.perf_counter() - t0) * 1e3
         LOOP.captures += 1
-        self.launches = {name: recorded[fn] for name, fn in KERNELS.items()
-                         if recorded.get(fn)}
-        self.graph = graph
 
     def replay(self) -> None:
         self.graph.replay()
-        for name, n in self.launches.items():
-            _launches.count(KERNELS[name], n)
+        _launches.replayed(self.launches, KERNELS)
         LOOP.replays += 1
 
 

@@ -18,7 +18,10 @@ from whisper_trtllm_tpu_torch import quantization
 from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
 from whisper_trtllm_tpu_torch.runtime import beam
 from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
-from whisper_trtllm_tpu_torch.utils.checkpoint import params_from_numpy
+from whisper_trtllm_tpu_torch.utils.checkpoint import (
+    init_compilation_cache,
+    params_from_numpy,
+)
 from whisper_trtllm_tpu_torch.utils.device import (
     resolve_device,
     set_fp32_precision,
@@ -35,25 +38,29 @@ _WEIGHT_QUANTIZERS = {"native": None,
 
 def _check_runtime(rt: RuntimeConfig) -> None:
     """Refuse an unknown ``weight_dtype`` (``ValueError``, as the JAX
-    session does) and every RuntimeConfig option the port does not
-    implement yet, so none is silently ignored. ``donate_caches`` is not among them: the
-    port's decode writes its caches in place, one set a decode (or a
-    captured step's), which is what donation buys the JAX loop, so either
-    value runs the same decode."""
+    session does) and a ``compute_dtype`` other than float32 or bfloat16.
+
+    Every other option is taken, as the JAX session takes it:
+
+    - ``fp32_attention_softmax``, ``fp32_logits`` and ``use_pallas`` change
+      nothing. The JAX package declares them and never reads them (its
+      attention picks Pallas from the backend, not from the config), so
+      either value decodes the same there, and here. ``use_pallas=False``
+      does not switch the kernels off.
+    - ``donate_caches``: the port's decode writes its caches in place, one
+      set a decode (or a captured step's), which is what donation buys the
+      JAX loop, so either value runs the same decode.
+    - ``persistent_cache_dir`` is where the kernels' libraries are built
+      and found (``utils.checkpoint.init_compilation_cache``), the
+      counterpart of XLA's persistent compilation cache.
+    """
     if rt.weight_dtype not in _WEIGHT_QUANTIZERS:
         raise ValueError(f"unknown weight_dtype {rt.weight_dtype!r}; "
                          f"expected native/int8/int4/fp8")
-    unported = {
-        "compute_dtype": rt.compute_dtype not in _COMPUTE_DTYPES,
-        "fp32_attention_softmax": not rt.fp32_attention_softmax,
-        "fp32_logits": not rt.fp32_logits,
-        "use_pallas": rt.use_pallas is False,
-        "persistent_cache_dir": rt.persistent_cache_dir is not None,
-    }
-    bad = [name for name, hit in unported.items() if hit]
-    if bad:
+    if rt.compute_dtype not in _COMPUTE_DTYPES:
         raise NotImplementedError(
-            f"RuntimeConfig options not ported yet: {', '.join(bad)}")
+            f"RuntimeConfig options not ported yet: compute_dtype "
+            f"{rt.compute_dtype!r} (float32 or bfloat16)")
 
 
 class WhisperSession:
@@ -77,6 +84,8 @@ class WhisperSession:
         self.generation = generation or GenerationConfig()
         self.runtime = runtime or RuntimeConfig()
         _check_runtime(self.runtime)
+        if self.runtime.persistent_cache_dir:
+            init_compilation_cache(self.runtime.persistent_cache_dir)
         if self.generation.num_beams > 1:
             beam.check_early_stopping(self.generation)
         else:
@@ -173,4 +182,22 @@ class WhisperSession:
         self._run(mel)
 
     def export_engine(self, path: str, batch: int = 1) -> int:
-        raise NotImplementedError("engine export is not ported yet")
+        """Write the greedy transcribe pipeline at this batch size to one
+        engine file (``utils/engine.py``: two ``torch.export`` programs,
+        encode and the decode step) and return its size in bytes. The
+        engine takes (params, mel), so any tree of this session's
+        structure runs through it (``sess.params``, or a refit tree made
+        by the same chain); ``utils.engine.load_engine`` reads it without
+        the model code. On the card the programs call K1, K2, K5 and K6 as
+        ``torch.ops.wtpu.*``. Beam search (``num_beams > 1``) is not
+        exported."""
+        if self.generation.num_beams > 1:
+            raise NotImplementedError(
+                "export_engine exports the greedy pipeline; beam search "
+                "(num_beams > 1) is not exported")
+        from whisper_trtllm_tpu_torch.runtime.export import export_programs
+        from whisper_trtllm_tpu_torch.utils.engine import save_engine
+
+        return save_engine(path, *export_programs(
+            self.params, self.cfg, self.generation, self._dtype, self.device,
+            batch))

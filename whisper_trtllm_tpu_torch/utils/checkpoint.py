@@ -16,6 +16,7 @@ payload with the same bits, as flax writes it.
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import Optional, Tuple
 
 import msgpack
@@ -134,6 +135,20 @@ def _host_tree(tree, path=""):
             f"array at {path} exceeds 1 GiB: flax would write it chunked, "
             "which is not supported")
     return arr
+
+
+def init_compilation_cache(cache_dir: str) -> None:
+    """Build and find the kernels' libraries under ``cache_dir`` for the
+    rest of the process (``ops/kernels/_build.py``'s ``BUILD_DIR``), the
+    counterpart of the JAX function that points XLA's persistent
+    compilation cache there. The directory is made if missing. A library
+    already loaded stays loaded: its digest names the same code. A process
+    that finds every library there runs no ``nvcc``."""
+    from whisper_trtllm_tpu_torch.ops.kernels import _build
+
+    path = Path(cache_dir).resolve()
+    path.mkdir(parents=True, exist_ok=True)
+    _build.BUILD_DIR = path
 
 
 def save_checkpoint(path: str, params: dict, cfg: WhisperConfig) -> None:
