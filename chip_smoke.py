@@ -11,7 +11,7 @@ K5, its fused decoder-layer step K6 and its bias+GELU K8 from its own
 (parent, this, this, parent), as ``parent_ms`` on their lines; without it
 nothing else is built.
 
-Seven phases, each timed; any failure raises and the script exits non-zero:
+Seven phases (and phase 5b), each timed; any failure raises and the script exits non-zero:
 
 1. build — compiles every kernel of the main paths from ``csrc/`` with
    ``nvcc`` for sm_90a (one ``nvcc`` per source, all at once: eight
@@ -121,6 +121,20 @@ Seven phases, each timed; any failure raises and the script exits non-zero:
    memory; (c) ``python -m whisper_trtllm_tpu_torch.cli.finetune``
    for 3 epochs with ``--remat --guided-attn 1`` on a pickle of the same
    batch, with exact launch counts, its checkpoint reloaded;
+5b. parallel — ``torch.distributed`` with NCCL at a world of one (the
+   machine has one card, and NCCL takes one rank a card): ``check_devices``
+   over a 1×1 mesh, the NCCL version; ``WhisperSession(mesh=...)`` in A
+   and B, the 4 texts, tokens and launches equal to the one-device
+   session's, no collective issued; one ``make_train_step(mesh=...)`` step
+   on the float tree, its loss and parameters equal to the one-device
+   step's; ``save_sharded``/``load_sharded`` round-tripping that tree
+   bit-equal onto the card; ``benchmarks/scaling.py --devices 1`` under
+   ``torchrun --nproc-per-node 1`` (one row, efficiency 1.0); K1, K4 and
+   K2's cross case at the head counts a rank holds when tensor parallelism
+   cuts the published sizes (``LOCAL_HEADS``: 1, 3 and 5) against their
+   plain versions, timed, and each of the three called with no heads,
+   launching nothing. A model or data axis above 1 is not run here: the
+   CPU tests hold those against the JAX package;
 6. bench — runs ``python -m whisper_trtllm_tpu_torch.cli.bench --fp32``
    (tiny.en at batch 32, medium.en and large-v3 at batch 16; its gate reads
    the record phase 3 wrote) and ``python -m
@@ -163,7 +177,8 @@ launch floor as "floor_ms"; the bench path's launches as "bench_launches",
 the beam path's first transcribe's (B; E for K6) as "beam_launches",
 the in-flight batcher's first drain in int8-auto as "serve_launches",
 one speculative utterance (S1 at gamma 4; S2 for K6) as "spec_launches";
-K2's batcher shape under "batcher");
+K2's batcher shape under "batcher"; K1's, K2's and K4's rows at the local
+head counts under "local_heads");
 the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -263,6 +278,15 @@ def time_ms(torch, fn, arg_sets, iters: int) -> float:
         if queued or iters == 1:
             return start.elapsed_time(end) / iters
         iters //= 2
+
+
+def device_normal(torch, rng, shape, scale=1.0):
+    """fp32 standard normals times ``scale`` on the card, drawn by a CUDA
+    generator seeded from ``rng`` (the local-head checks; numpy draws ~55 M
+    values a second on the host)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(int(rng.integers(2 ** 62)))
+    return torch.randn(shape, generator=gen, device=DEVICE) * scale
 
 
 def n_sets(set_bytes: float) -> int:
@@ -2959,6 +2983,371 @@ def training(torch, np, card):
 
 
 # --------------------------------------------------------------------------
+# phase 5b: data and tensor parallelism on torch.distributed
+# --------------------------------------------------------------------------
+
+# the heads a rank holds where tensor parallelism cuts the published sizes
+# (torch.chunk semantics: ceil(H / tp) a rank, the last fewer): tiny.en's 6
+# over 8 (1 a rank), large-v3's 20 over 8 (3) and over 4 (5)
+LOCAL_HEADS = [(1, "6 heads over 8"), (3, "20 heads over 8"),
+               (5, "20 heads over 4")]
+# the one-device and the 1x1 mesh's train steps run the same kernels on the
+# same values; where the embedding's gradient sums its rows in another
+# order (a scatter with accumulation), Adam turns a last-bit difference of
+# a gradient near its eps (1e-8) into a step difference of a few 1e-6: the
+# parameters are held to 1e-6 where |g| >= ADAM_FLOOR, to a tenth of lr
+# below, as in the CPU tests (tests/test_torch_parallel_train.py)
+ADAM_FLOOR = 1e-6
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_local_heads(torch, rng, card):
+    """K1 and K4 at batch 4, S = T = 1500, dh 64 and K2's cross case (T
+    1504, 1500 valid) at each of ``LOCAL_HEADS``' head counts, against
+    their plain versions within the limits of their phase-2 checks: K1 and
+    K4 in fp32 and bf16, K2 with a float cache in fp32 and at the serving
+    precision (int8 T-minor cache, bf16 q). Then a call of each with no
+    head launches nothing. Returns {kernel: [row, ...]}."""
+    import torch.nn.functional as F
+
+    from whisper_trtllm_tpu_torch.ops.attention import quantize_kv
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        attention_reference,
+        decode_attention_reference,
+        decode_attn,
+        flash_attention_backward_reference,
+        flash_bwd,
+        flash_fwd,
+    )
+
+    b, s, dh, t, valid = 4, 1500, 64, 1504, 1500
+    out = {"flash_fwd": [], "flash_bwd": [], "decode_attn": []}
+
+    def normal(*shape, scale=1.0):
+        return device_normal(torch, rng, shape, scale)
+
+    for h, why in LOCAL_HEADS:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            item = torch.tensor([], dtype=dtype).element_size()
+            tol = TOLERANCE[dn]
+            sets = []
+            for _ in range(n_sets(4 * b * h * s * dh * item)):
+                x = [a.to(dtype) for a in (
+                    normal(b, h, s, dh, scale=1 / math.sqrt(dh)),
+                    normal(b, h, s, dh), normal(b, h, s, dh),
+                    normal(b, h, s, dh))]
+                _, lse = flash_fwd(*x[:3], with_lse=True)
+                sets.append((*x[:3], lse, x[3]))
+            q, k, v, lse, do = sets[0]
+            # K1
+            err = (flash_fwd(q, k, v).float()
+                   - attention_reference(q, k, v).float()).abs().max().item()
+            if not err <= tol:
+                fail(f"flash_fwd at {h} local heads {dn}: max |kernel - "
+                     f"plain| = {err} > {tol}")
+            ms = time_ms(torch, lambda q, k, v, *_: flash_fwd(q, k, v),
+                         sets, 10)
+            plain = time_ms(torch, lambda q, k, v, *_: attention_reference(
+                q, k, v), sets, 10)
+            lib = time_ms(torch, lambda q, k, v, *_:
+                          F.scaled_dot_product_attention(q, k, v, scale=1.0),
+                          sets, 10)
+            b_ms, b_by = bound(4 * b * h * s * dh * item,
+                               4.0 * b * h * s * s * dh, dn,
+                               FLASH_PEAK_FLOPS)
+            row = dict(heads=h, dtype=dn, max_abs_err=err, ms=ms,
+                       plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                       bound_by=b_by)
+            out["flash_fwd"].append(row)
+            print(f"kernel flash_fwd local heads {h} ({why}) {dn} B={b} "
+                  f"S=T={s} dh={dh}: max_abs_err={err:.3e} (tol {tol}) "
+                  f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+            # K4
+            got = flash_bwd(q, k, v, lse, do)
+            ref = flash_attention_backward_reference(q, k, v, do)
+            torch.cuda.synchronize()
+            err = 0.0
+            for what, g, r in zip(("dq", "dk", "dv"), got, ref):
+                diff = (g.float() - r.float()).abs()
+                e = diff.max().item()
+                if dtype == torch.float32:
+                    bad = e > tol * max(r.abs().max().item(), 1.0)
+                else:
+                    bad = (diff / r.float().abs().clamp(min=1)).max().item() \
+                        > tol
+                if not math.isfinite(e) or bad:
+                    fail(f"flash_bwd at {h} local heads {dn} {what}: max "
+                         f"|kernel - plain| = {e} beyond {tol}")
+                err = max(err, e)
+            ms = time_ms(torch, lambda *a: flash_bwd(*a), sets, 5)
+            plain = time_ms(torch, lambda q, k, v, lse, do:
+                            flash_attention_backward_reference(q, k, v, do),
+                            sets, 5)
+            lib_sets = []
+            for q_, k_, v_, _, do_ in sets:
+                leaves = [x.detach().requires_grad_(True) for x in
+                          (q_, k_, v_)]
+                lib_sets.append((F.scaled_dot_product_attention(
+                    *leaves, scale=1.0), leaves, do_))
+            lib = time_ms(torch, lambda o, leaves, do: torch.autograd.grad(
+                o, leaves, do, retain_graph=True), lib_sets, 5)
+            b_ms, b_by = bound((7 * b * h * s * dh) * item + 4 * b * h * s,
+                               10.0 * b * h * s * s * dh, dn,
+                               FLASH_PEAK_FLOPS)
+            out["flash_bwd"].append(dict(
+                heads=h, dtype=dn, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+            print(f"kernel flash_bwd local heads {h} ({why}) {dn} B={b} "
+                  f"S=T={s} dh={dh}: max_abs_err={err:.3e} (tol {tol}) "
+                  f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+            del sets, lib_sets
+        # K2's cross case: a float cache in fp32, the serving precision
+        vlt = torch.tensor(valid, dtype=torch.int32, device=DEVICE)
+        for kind in ("float32", "int8 bhdt bf16 q"):
+            quant = kind != "float32"
+            dtype = torch.bfloat16 if quant else torch.float32
+            dn = str(dtype).split(".")[1]
+            sets = []
+            for _ in range(n_sets(2 * b * h * t * dh * (1 if quant else 4))):
+                q = normal(b, h, 1, dh, scale=1 / math.sqrt(dh)).to(dtype)
+                k, v = normal(b, h, t, dh), normal(b, h, t, dh)
+                if quant:
+                    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                    sets.append((q, kq.transpose(-1, -2).contiguous(),
+                                 vq.transpose(-1, -2).contiguous(), ks, vs))
+                else:
+                    sets.append((q, k, v, None, None))
+
+            def kernel(q, k, v, ks, vs):
+                return decode_attn(q, k, v, vlt, ks, vs, quant)
+
+            def plain_fn(q, k, v, ks, vs):
+                return decode_attention_reference(q, k, v, vlt, k_scale=ks,
+                                                  v_scale=vs, t_major=quant)
+
+            err = (kernel(*sets[0]).float()
+                   - plain_fn(*sets[0]).float()).abs().max().item()
+            if not err <= TOLERANCE[dn]:
+                fail(f"decode_attn cross at {h} local heads {kind}: max "
+                     f"|kernel - plain| = {err} > {TOLERANCE[dn]}")
+            ms = time_ms(torch, kernel, sets, 100)
+            plain = time_ms(torch, plain_fn, sets, 100)
+            lib = None if quant else time_ms(
+                torch, lambda q, k, v, *_: F.scaled_dot_product_attention(
+                    q, k[:, :, :valid], v[:, :, :valid], scale=1.0),
+                sets, 100)
+            rows = b * h * valid
+            # q and out, the rows read (1-byte values and fp32 scales, or
+            # fp32 values), the valid length
+            nbytes = (2 * b * h * dh * dtype.itemsize + 2 * rows * (dh + 4)
+                      if quant else (2 * b * h * dh + 2 * rows * dh) * 4) + 4
+            b_ms, b_by = bound(nbytes, 4.0 * rows * dh, "float32")
+            out["decode_attn"].append(dict(
+                heads=h, dtype=kind, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+            print(f"kernel decode_attn cross local heads {h} ({why}) {kind} "
+                  f"B={b} T={t} valid_len={valid} dh={dh} "
+                  f"{_split_note(sets[0][0], sets[0][1], quant)}: "
+                  f"max_abs_err={err:.3e} (tol {TOLERANCE[dn]}) ms={ms:.4f} "
+                  f"plain_ms={plain:.4f} library_ms="
+                  f"{'none' if lib is None else f'{lib:.4f}'} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+            del sets
+
+    # a rank with no heads launches nothing: a grid of no blocks is a
+    # launch error
+    before = {f: f.launches for f in (flash_fwd, flash_bwd, decode_attn)}
+    q = torch.zeros((b, 0, s, dh), device=DEVICE)
+    o, lse = flash_fwd(q, q, q, with_lse=True)
+    grads = flash_bwd(q, q, q, lse, o)
+    qd = torch.zeros((b, 0, 1, dh), device=DEVICE)
+    od = decode_attn(qd, q, q, vlt)
+    torch.cuda.synchronize()
+    if {f: f.launches for f in before} != before or o.shape != q.shape or \
+            any(g.shape != q.shape for g in grads) or od.shape != qd.shape:
+        fail("K1, K4 or K2 launched, or gave a wrong shape, with no heads")
+    print("kernels with no heads: K1, K4 and K2 returned their empty "
+          "outputs and launched nothing")
+    return out
+
+
+def parallel(torch, np, card):
+    """Phase 5b (see the module docstring); returns ``check_local_heads``'
+    rows."""
+    import datetime
+    import torch.distributed as dist
+
+    from whisper_trtllm_tpu_torch.audio import (
+        log_mel_spectrogram,
+        pad_or_trim,
+        read_wav,
+    )
+    from whisper_trtllm_tpu_torch.cli.finetune import _pad_tokens
+    from whisper_trtllm_tpu_torch.config import (
+        GenerationConfig,
+        MeshConfig,
+        RuntimeConfig,
+    )
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        KERNELS,
+        reset_launch_counts,
+    )
+    from whisper_trtllm_tpu_torch.parallel import (
+        check_devices,
+        collectives,
+        initialize_distributed,
+        make_mesh,
+        shard_params,
+    )
+    from whisper_trtllm_tpu_torch.parallel.partition import leaves
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.training import (
+        loss_and_grads,
+        make_train_step,
+    )
+    from whisper_trtllm_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        load_sharded,
+        save_sharded,
+    )
+    from whisper_trtllm_tpu_torch.utils.vocab import WORD_ID_BASE, WORDS, \
+        ids_to_text
+
+    initialize_distributed(
+        init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"the card's process group runs {dist.get_backend()}")
+        mesh = make_mesh(MeshConfig(1, 1))
+        report = check_devices(mesh)
+        print(f"parallel: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}"
+              f", world of 1, mesh data=1 model=1: check_devices {report}")
+        if report != {"devices": 1, "ok": True}:
+            fail(f"check_devices: {report}")
+
+        with open(os.path.join(ROOT, "artifacts", "expected.json")) as f:
+            texts = json.load(f)["texts"]
+        audio = np.stack([pad_or_trim(read_wav(os.path.join(
+            EVAL_DIR, f"utt{i:02d}.wav"))) for i in range(len(texts))])
+        params, cfg = load_checkpoint(ARTIFACT, device=DEVICE)
+        for name in ("A", "B"):
+            _, compute, kv, layout, _, _ = CONFIGS[name]
+            gen = GenerationConfig(max_new_tokens=32, kv_cache_dtype=kv,
+                                   cross_kv_layout=layout)
+            rt = RuntimeConfig(compute_dtype=compute)
+            runs = {}
+            for key, m in (("one device", None), ("mesh 1x1", mesh)):
+                session = WhisperSession(params, cfg, gen, rt, mesh=m,
+                                         device=DEVICE)
+                reset_launch_counts()
+                collectives.reset_counts()
+                tokens, lengths = session.transcribe(audio)
+                torch.cuda.synchronize()
+                runs[key] = (tokens, lengths, {
+                    k: fn.launches for k, fn in KERNELS.items()},
+                    dict(collectives.COUNTS))
+                del session
+            (t0_, l0, n0, _), (t1, l1, n1, c1) = runs.values()
+            got = [ids_to_text(t1[i, :l1[i]]) for i in range(len(texts))]
+            if got != texts:
+                fail(f"parallel session {name}: texts {got}")
+            if not (np.array_equal(t0_, t1) and np.array_equal(l0, l1)):
+                fail(f"parallel session {name}: tokens differ from the "
+                     f"one-device session's")
+            if n0 != n1 or any(c1.values()):
+                fail(f"parallel session {name}: launches {n1} against "
+                     f"{n0}, collectives {c1}")
+            print(f"parallel session {name} over the 1x1 mesh: the 4 texts, "
+                  f"tokens equal to the one-device session's, launches "
+                  f"{n1} equal to its, collectives {c1}")
+
+        # one train step over the 1x1 mesh against the one-device step
+        mel = log_mel_spectrogram(audio, device="cpu").numpy()
+        seqs = [[50257, 50362] + [WORD_ID_BASE + WORDS.index(w)
+                                  for w in text.split()] + [50256]
+                for text in texts]
+        tokens, mask = _pad_tokens(seqs, cfg.pad_token_id, TRAIN_LEN)
+        one = float_tree(load_checkpoint(ARTIFACT, device=DEVICE)[0])
+        _, grads = loss_and_grads(one, cfg, mel, tokens, mask)
+        grads = dict(leaves(grads))
+        init, step = make_train_step(cfg)
+        one, _, loss_one = step(one, init(one), mel, tokens, mask)
+        meshed = shard_params(float_tree(load_checkpoint(
+            ARTIFACT, device=DEVICE)[0]), mesh, cfg=cfg)
+        init, step = make_train_step(cfg, mesh=mesh)
+        reset_launch_counts()
+        meshed, _, loss = step(meshed, init(meshed), mel, tokens, mask)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        same = dict(leaves(one))
+        unequal, worst = 0, 0.0
+        for p, t in leaves(meshed):
+            diff = (t - same[p]).abs()
+            unequal += int((diff > 0).sum())
+            floor = grads[p].abs() >= ADAM_FLOOR
+            worst = max(worst, diff.max().item())
+            if bool((diff > torch.where(floor, 1e-6, 1e-5)).any()):
+                fail(f"parallel train step: {p} differs from the one-device "
+                     f"step's by {diff.max().item()}")
+        loss_rel = abs(loss.item() - loss_one.item()) / abs(loss_one.item())
+        if not loss_rel <= 1e-6:
+            fail(f"parallel train step: loss {loss.item()} against "
+                 f"{loss_one.item()}")
+        if launches != train_launches(cfg, guided=False, remat=False):
+            fail(f"parallel train step: launches {launches}")
+        print(f"parallel train step over the 1x1 mesh: loss {loss.item()} "
+              f"against {loss_one.item()} on one device; parameters after "
+              f"the AdamW step: {unequal} of {sum(t.numel() for _, t in leaves(one))} "
+              f"differ, by at most {worst:.3e} (tol 1e-6, 1e-5 where "
+              f"|g| < {ADAM_FLOOR}); launches {launches}")
+
+        # the sharded checkpoint
+        path = os.path.join(ROOT, "build", "smoke", "dcp")
+        t0 = time.perf_counter()
+        save_sharded(path, meshed)
+        back = load_sharded(path, shardings=mesh)
+        wall = time.perf_counter() - t0
+        same = dict(leaves(meshed))
+        if set(dict(leaves(back))) != set(same) or not all(
+                t.is_cuda and torch.equal(t, same[p])
+                for p, t in leaves(back)):
+            fail("parallel: the DCP checkpoint did not round-trip bit-equal")
+        print(f"parallel checkpoint: save_sharded/load_sharded of the float "
+              f"tree ({len(same)} leaves) round-trip bit-equal onto the card "
+              f"in {wall:.2f} s")
+        del one, meshed, back
+    finally:
+        dist.destroy_process_group()
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m",
+         "whisper_trtllm_tpu_torch.benchmarks.scaling", "--devices", "1"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+    if out.returncode != 0:
+        fail(f"scaling exited {out.returncode}:\n{out.stderr[-4000:]}")
+    rows = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+    if len(rows) != 1 or rows[0].get("scaling_efficiency") != 1.0:
+        fail(f"scaling: rows {rows}")
+    print(f"parallel scaling (torchrun --nproc-per-node 1): {rows[0]} "
+          f"[{card}]")
+    return check_local_heads(torch, np.random.default_rng(SEED + 4), card)
+
+
+# --------------------------------------------------------------------------
 # phase 6: the bench
 # --------------------------------------------------------------------------
 
@@ -3915,6 +4304,9 @@ def main() -> None:
     counts["train"] = training(torch, np, card)
     phase_s["training"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    local_heads = parallel(torch, np, card)
+    phase_s["parallel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     counts["bench"], bench_k6 = bench_phase(torch, np, card)
     counts["bench"]["fused_decoder_layer_step"] = bench_k6
     phase_s["bench"] = time.perf_counter() - t0
@@ -3975,6 +4367,9 @@ def main() -> None:
                                 else "S1"]
         if spec_path.get(r["name"]):
             r["spec_launches"] = spec_path[r["name"]]
+        # K1, K2 and K4 at the local head counts of tensor parallelism
+        if r["name"] in local_heads:
+            r["local_heads"] = local_heads[r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # K1, K4 and K5 also carry their bf16 numbers at the encoder's shape;
@@ -3987,7 +4382,8 @@ def main() -> None:
                                               "serve_launches",
                                               "spec_launches", "bfloat16",
                                               "serving", "batcher", "decode",
-                                              "encoder_mlp", "floor_ms")
+                                              "encoder_mlp", "floor_ms",
+                                              "local_heads")
                                   if x in r]}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -169,13 +169,17 @@ def test_session_load_time_option_on_the_float_tree(audio, expected, artifact,
             [ref[n]["kernel"] for n in ("q", "k", "v")], dim=-1))
 
 
-@pytest.mark.parametrize("option", [
-    dict(runtime=RuntimeConfig(compute_dtype="float16")),
-    dict(mesh=object()),
+@pytest.mark.parametrize("option,error", [
+    (dict(runtime=RuntimeConfig(compute_dtype="float16")),
+     NotImplementedError),
+    (dict(mesh=object()), TypeError),
 ], ids=["float16", "mesh"])
-def test_session_refuses_options_of_later_slices(artifact, option):
+def test_session_refuses_options_of_later_slices(artifact, option, error):
+    """float16 compute is not ported; a mesh argument that is not a
+    (data, model) mesh is refused (sessions over a mesh are held against
+    JAX in tests/test_torch_parallel.py)."""
     params, cfg = artifact
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         WhisperSession(params, cfg, device="cpu", **option)
 
 

@@ -6,7 +6,11 @@ captured step: its replays against the same step run eagerly on the card
 (exactly: the same kernels on the same inputs), a capture that must
 raise, the launch counters against the profiler, and ``refit``; the same
 for the speculative round, with ``decode_chunk`` against the CPU and
-``quantize_kv``'s values and scales bit-equal to the CPU's.
+``quantize_kv``'s values and scales bit-equal to the CPU's; K1, K4 and K2
+at the head counts a rank holds under tensor parallelism, their calls
+with no heads (nothing launched), and ``torch.distributed`` over NCCL at a
+world of one (the session, the train step and the sharded checkpoint over
+a 1×1 mesh equal to one device).
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is False. The file imports no JAX, so it runs
@@ -2240,3 +2244,136 @@ def test_eager_encode_host_time_through_the_operators(cuda, monkeypatch):
     print(f"eager encode, batch 4, tiny.en fp32, {per_call} launches a "
           f"call: {direct_us:.1f} µs a call launching directly, "
           f"{ops_us:.1f} µs through torch.ops.wtpu")
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism: the kernels at a rank's head count, the world of one
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("h", [1, 3, 5])
+def test_kernels_at_local_head_counts_equal_plain(cuda, h, dtype, tol):
+    """K1, K4 and K2's cross case at the heads a rank holds when tensor
+    parallelism cuts 6 heads over 8 ranks (1), 20 over 8 (3) and 20 over
+    4 (5)."""
+    g = torch.Generator(device="cpu").manual_seed(h)
+
+    def normal(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(cuda, dtype)
+
+    b, s, dh = 2, 300, 64
+    q = normal(b, h, s, dh, scale=dh ** -0.5)
+    k, v, do = normal(b, h, s, dh), normal(b, h, s, dh), normal(b, h, s, dh)
+    out, lse = flash_fwd(q, k, v, with_lse=True)
+    torch.testing.assert_close(out.float(), attention_reference(
+        q, k, v).float(), atol=tol, rtol=0)
+    for got, ref in zip(flash_bwd(q, k, v, lse, do),
+                        flash_attention_backward_reference(q, k, v, do)):
+        scale = ref.float().abs().clamp(min=1)
+        if dtype == torch.float32:
+            scale = max(ref.abs().max().item(), 1.0)
+        assert ((got.float() - ref.float()).abs() / scale).max() <= tol
+    vl = torch.tensor(1500, dtype=torch.int32, device=cuda)
+    qd = normal(4, h, 1, dh, scale=dh ** -0.5)
+    kc, vc = normal(4, h, 1504, dh), normal(4, h, 1504, dh)
+    torch.testing.assert_close(
+        decode_attn(qd, kc, vc, vl).float(),
+        decode_attention_reference(qd, kc, vc, vl).float(), atol=tol, rtol=0)
+
+
+def test_calls_with_no_heads_launch_nothing(cuda):
+    """A rank that holds no heads (2 heads over 4 ranks: 1, 1, 0, 0) gets
+    its empty outputs from K1, K4 and K2, and nothing is launched: a grid
+    of no blocks is a launch error."""
+    reset_launch_counts()
+    q = torch.zeros((4, 0, 300, 64), device=cuda)
+    out, lse = flash_fwd(q, q, q, with_lse=True)
+    grads = flash_bwd(q, q, q, lse, out)
+    qd = torch.zeros((4, 0, 1, 64), device=cuda)
+    od = decode_attn(qd, q, q, torch.tensor(300, dtype=torch.int32,
+                                            device=cuda))
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and od.shape == qd.shape
+    assert all(x.shape == q.shape for x in grads)
+    assert lse.shape == (4, 0, 300)
+    assert all(fn.launches == 0 for fn in KERNELS.values())
+
+
+def test_world_of_one_over_nccl(cuda, tmp_path):
+    """NCCL at a world of one: ``check_devices``, a session over the 1×1
+    mesh token- and launch-equal to the one-device session with no
+    collective issued, a train step equal to the one-device step, and the
+    sharded checkpoint bit-equal."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from whisper_trtllm_tpu_torch.config import GenerationConfig, MeshConfig
+    from whisper_trtllm_tpu_torch.models.whisper import init_params
+    from whisper_trtllm_tpu_torch.parallel import (
+        check_devices,
+        collectives,
+        initialize_distributed,
+        make_mesh,
+        shard_params,
+    )
+    from whisper_trtllm_tpu_torch.parallel.dryrun import (
+        mels,
+        testing_config,
+        train_batch,
+    )
+    from whisper_trtllm_tpu_torch.parallel.partition import leaves
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+    from whisper_trtllm_tpu_torch.training import make_train_step
+    from whisper_trtllm_tpu_torch.utils.checkpoint import (
+        load_sharded,
+        save_sharded,
+    )
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(init_method=f"tcp://localhost:{port}",
+                           world_size=1, rank=0,
+                           timeout=datetime.timedelta(seconds=60))
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(MeshConfig(1, 1))
+        assert check_devices(mesh) == {"devices": 1, "ok": True}
+        cfg = testing_config(4, 64, 128)
+        params = init_params(cfg, seed=0, device=cuda)
+        mel = mels(cfg, 4, 0)
+        gen = GenerationConfig(max_new_tokens=8)
+        results = []
+        for m in (None, mesh):
+            reset_launch_counts()
+            collectives.reset_counts()
+            sess = WhisperSession(params, cfg, gen, mesh=m, device=cuda)
+            results.append(sess.transcribe_features(mel) + (
+                {k: fn.launches for k, fn in KERNELS.items()},
+                dict(collectives.COUNTS)))
+        (t0, l0, n0, _), (t1, l1, n1, c1) = results
+        np.testing.assert_array_equal(t1, t0)
+        np.testing.assert_array_equal(l1, l0)
+        assert n1 == n0 and not any(c1.values())
+
+        batch = train_batch(cfg, 4, 1)
+        init, step = make_train_step(cfg)
+        one = init_params(cfg, seed=0, device=cuda)
+        one, _, loss0 = step(one, init(one), *batch)
+        sharded = shard_params(init_params(cfg, seed=0, device=cuda), mesh,
+                               cfg=cfg)
+        init, step = make_train_step(cfg, mesh=mesh)
+        sharded, _, loss1 = step(sharded, init(sharded), *batch)
+        assert loss1.item() == loss0.item()
+        same = dict(leaves(one))
+        assert all(torch.equal(t, same[p]) for p, t in leaves(sharded))
+
+        save_sharded(str(tmp_path / "ckpt"), sharded)
+        back = dict(leaves(load_sharded(str(tmp_path / "ckpt"),
+                                        shardings=mesh)))
+        assert all(back[p].is_cuda and torch.equal(back[p], t)
+                   for p, t in leaves(sharded))
+    finally:
+        dist.destroy_process_group()

@@ -86,7 +86,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cli.warm_cache", "cli.build", "cli.visualize",
                  "utils.logger", "utils.normalizer", "utils.metrics",
                  "utils.profiler", "utils.debugging", "utils.engine",
-                 "runtime.export"):
+                 "runtime.export", "parallel", "parallel.mesh",
+                 "parallel.partition", "parallel.collectives",
+                 "parallel.dryrun", "benchmarks.scaling"):
         assert f"whisper_trtllm_tpu_torch.{name}" in _port_modules()
 
 

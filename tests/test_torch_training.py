@@ -209,8 +209,11 @@ def test_remat_step_matches_plain():
 
 
 def test_train_step_refuses_a_mesh_and_int_weights():
+    """A mesh argument that is not a (data, model) mesh is refused (the
+    sharded step itself is held against JAX in
+    tests/test_torch_parallel_train.py)."""
     jcfg, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         training.make_train_step(cfg, mesh=object())
     p = params_from_numpy(init_params(jcfg, seed=0), "cpu")
     p["decoder"]["embed_tokens"] = p["decoder"]["embed_tokens"].to(torch.int8)
@@ -329,10 +332,13 @@ def test_finetune_cli_runs_on_the_cpu_and_writes_a_checkpoint(tmp_path):
     assert np.isfinite(moved).all() and np.abs(moved).max() > 0
 
 
-def test_finetune_cli_refuses_parallelism(tmp_path):
+def test_finetune_cli_refuses_parallelism(tmp_path, monkeypatch):
+    """Outside ``torchrun`` (no RANK in the environment); under it the
+    CLI trains over the mesh (tests/test_torch_parallel_train.py)."""
     from whisper_trtllm_tpu_torch.cli import finetune
 
-    with pytest.raises(NotImplementedError, match="parallel"):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         finetune.main(["--checkpoint", str(tmp_path), "--dataset", "x",
                        "--output", "y", "--data-parallel", "2", "--cpu"])
 

@@ -10,15 +10,23 @@ Usage:
 The dataset pickle holds (mel (3000, M) float32, token_ids list[int]) pairs
 (token ids include decoder_start and EOS). The checkpoint must hold float
 weights. It runs on the CUDA card, or with ``--cpu`` on the CPU through
-the kernels' plain versions. The JAX CLI's ``--data-parallel`` and
-``--model-parallel`` above 1 are not ported and raise. At the end it prints
-the kernel launches of the run.
+the kernels' plain versions. At the end it prints the kernel launches of
+the run.
+
+``--data-parallel D --model-parallel M`` (D·M above 1) trains over a
+(D, M) mesh (``parallel/``) and runs under ``torchrun --nproc-per-node
+D·M``: NCCL over D·M cards, gloo with ``--cpu``. Every rank reads the
+dataset and draws the same batches; the train step gives each data rank
+its rows of the batch and each model rank its shards of the weights. Rank
+0 alone prints the epoch lines and writes the checkpoint, the whole tree
+gathered from the shards.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pickle
 import time
 
@@ -68,10 +76,17 @@ def main(argv=None):
                     "the default is the CUDA card")
     args = ap.parse_args(argv)
 
+    from whisper_trtllm_tpu_torch.config import MeshConfig
     from whisper_trtllm_tpu_torch.ops.kernels import (
         KERNELS,
         reset_launch_counts,
     )
+    from whisper_trtllm_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        shard_params,
+    )
+    from whisper_trtllm_tpu_torch.parallel.partition import gather_params
     from whisper_trtllm_tpu_torch.training import (
         AdamW,
         guided_attn_weights,
@@ -85,11 +100,21 @@ def main(argv=None):
     from whisper_trtllm_tpu_torch.utils.device import resolve_device
 
     device = resolve_device("cpu" if args.cpu else None)
-    if args.data_parallel * args.model_parallel > 1:
-        raise NotImplementedError(
-            "data and model parallelism are not ported yet; train on one "
-            "device")
+    world = args.data_parallel * args.model_parallel
+    mesh = None
+    if world > 1:
+        if "RANK" not in os.environ:
+            raise RuntimeError(
+                f"--data-parallel {args.data_parallel} --model-parallel "
+                f"{args.model_parallel} runs under torchrun "
+                f"--nproc-per-node {world}")
+        initialize_distributed(device)
+        mesh = make_mesh(MeshConfig(args.data_parallel, args.model_parallel),
+                         device)
+    lead = mesh is None or int(os.environ["RANK"]) == 0
     params, cfg = load_checkpoint(args.checkpoint, device=device)
+    if mesh is not None:
+        params = shard_params(params, mesh, cfg=cfg)
     with open(args.dataset, "rb") as f:
         data = pickle.load(f)
 
@@ -103,7 +128,8 @@ def main(argv=None):
             decay_steps=max(args.epochs * steps_per_epoch,
                             args.warmup_steps + 1),
             end_value=args.lr / 20.0)
-    init_opt, step = make_train_step(cfg, AdamW(lr), remat=args.remat)
+    init_opt, step = make_train_step(cfg, AdamW(lr), mesh=mesh,
+                                     remat=args.remat)
     opt_state = init_opt(params)
 
     # on the device once, not once a step
@@ -135,18 +161,25 @@ def main(argv=None):
             params, opt_state, loss = step(params, opt_state, mel, tokens,
                                            mask, epoch_ga_w, ga_scale)
             losses.append(float(loss))
-        print(f"epoch {epoch}: loss {np.mean(losses):.4f} "
-              f"({len(losses)} steps, {time.time() - t0:.1f}s"
-              + (f", guided-attn {gw:.3f}" if args.guided_attn else "")
-              + ")", flush=True)
+        if lead:
+            print(f"epoch {epoch}: loss {np.mean(losses):.4f} "
+                  f"({len(losses)} steps, {time.time() - t0:.1f}s"
+                  + (f", guided-attn {gw:.3f}" if args.guided_attn else "")
+                  + ")", flush=True)
         if args.save_every and (epoch + 1) % args.save_every == 0:
-            save_checkpoint(args.output, params, cfg)
-            print(f"  checkpoint saved at epoch {epoch}", flush=True)
+            whole = gather_params(params)
+            if lead:
+                save_checkpoint(args.output, whole, cfg)
+                print(f"  checkpoint saved at epoch {epoch}", flush=True)
 
-    save_checkpoint(args.output, params, cfg)
-    print(f"saved fine-tuned checkpoint to {args.output}")
-    print("kernel launches " + json.dumps(
-        {name: fn.launches for name, fn in KERNELS.items()}), flush=True)
+    whole = gather_params(params)
+    if lead:
+        save_checkpoint(args.output, whole, cfg)
+        print(f"saved fine-tuned checkpoint to {args.output}")
+        print("kernel launches " + json.dumps(
+            {name: fn.launches for name, fn in KERNELS.items()}), flush=True)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

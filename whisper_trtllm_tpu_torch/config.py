@@ -1,8 +1,8 @@
 """Typed configuration for models, generation and runtime.
 
 The port's own copy of ``whisper_trtllm_tpu/config.py``: the same frozen
-dataclasses (all but ``MeshConfig``: sharding is not ported), fields,
-defaults, presets and JSON round-trip, so a
+dataclasses (``MeshConfig`` included), fields, defaults, presets and
+JSON round-trip, so a
 ``config.json`` written by either package loads in the other. The port
 imports nothing from the JAX package, so it keeps this copy. Fields whose
 behaviour the port does not implement yet are refused where they are read
@@ -281,4 +281,27 @@ class RuntimeConfig:
 
     @classmethod
     def from_json(cls, s: str) -> "RuntimeConfig":
+        return cls(**json.loads(s))
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout: ``data`` ranks split the batch, ``model`` ranks
+    split the attention heads and the MLP's columns (``parallel/``)."""
+
+    data: int = 1    # data-parallel axis size (utterance batches)
+    model: int = 1   # tensor-parallel axis size (heads / ffn shards)
+
+    @property
+    def world_size(self) -> int:
+        return self.data * self.model
+
+    def axis_names(self) -> Tuple[str, str]:
+        return ("data", "model")
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "MeshConfig":
         return cls(**json.loads(s))

@@ -17,6 +17,15 @@ S tokens against the self cache in one pass (the speculative round's
 verification).
 The teacher-forced ``decode_full`` and ``encode(remat=True)`` serve
 training (``training/train.py``): every op on them is differentiable.
+
+A tree that ``parallel/partition.py::shard_params`` cut over the model axis
+runs at this rank's head count (``local_model``: the heads, the caches and
+the cross K/V are the rank's), each row-parallel projection's partial sums
+all-reduced over the model axis before its bias (``row_dense``: two
+all-reduces an encoder layer, three a decoder layer), and the inputs of the
+column-parallel blocks marked so that autograd all-reduces their gradients
+(``copy_to_model``). Its decode step is the unfused layer: K6 fuses a whole
+layer, which needs three all-reduces in its middle.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from whisper_trtllm_tpu_torch.layers.transformer import (
     attention_qkv,
     merge_heads,
     mlp_block,
+    row_dense,
     split_heads,
 )
 from whisper_trtllm_tpu_torch.ops.attention import (
@@ -61,6 +71,11 @@ from whisper_trtllm_tpu_torch.ops.kernels.fused_decoder_step import (
     fused_decoder_layer_step,
     fused_layer_supported,
 )
+from whisper_trtllm_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    reduce_from_model,
+)
+from whisper_trtllm_tpu_torch.parallel.partition import Local, local_model
 from whisper_trtllm_tpu_torch.utils.checkpoint import params_from_numpy
 from whisper_trtllm_tpu_torch.utils.device import resolve_device, to_numpy
 
@@ -194,14 +209,17 @@ def cast_params(params, dtype: torch.dtype):
 # encoder
 # --------------------------------------------------------------------------
 
-def _encoder_layer(lp: dict, x: torch.Tensor, heads: int) -> torch.Tensor:
-    """Pre-LN block: self attention + GELU MLP."""
-    h = layer_norm(lp["self_attn_layer_norm"], x)
-    q, k, v = attention_qkv(lp["self_attn"], h, None, heads)
+def _encoder_layer(lp: dict, x: torch.Tensor, heads: int,
+                   head_dim: Optional[int] = None, group=None
+                   ) -> torch.Tensor:
+    """Pre-LN block: self attention + GELU MLP, at ``heads`` heads of
+    ``head_dim``, the row-parallel projections reduced over ``group``."""
+    h = copy_to_model(layer_norm(lp["self_attn_layer_norm"], x), group)
+    q, k, v = attention_qkv(lp["self_attn"], h, None, heads, head_dim)
     a = merge_heads(mha(q, k, v, causal=False))
-    x = x + dense(lp["self_attn"]["out"], a)
-    h = layer_norm(lp["final_layer_norm"], x)
-    return x + mlp_block(lp, h)
+    x = x + row_dense(lp["self_attn"]["out"], a, group)
+    h = copy_to_model(layer_norm(lp["final_layer_norm"], x), group)
+    return x + mlp_block(lp, h, group=group)
 
 
 def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor,
@@ -217,13 +235,14 @@ def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor,
     x = gelu(conv1d(enc["conv1"], mel, stride=1, padding=1))
     x = gelu(conv1d(enc["conv2"], x, stride=2, padding=1))
     x = x + enc["embed_positions"].to(x.dtype)[None]
-    heads = cfg.encoder_attention_heads
+    loc = local_model(params, cfg)
+    args = (loc.encoder_heads, cfg.encoder_head_dim, loc.group)
     for i in range(cfg.encoder_layers):
         lp = layer(enc["layers"], i)
         if remat:
-            x = checkpoint(_encoder_layer, lp, x, heads, use_reentrant=False)
+            x = checkpoint(_encoder_layer, lp, x, *args, use_reentrant=False)
         else:
-            x = _encoder_layer(lp, x, heads)
+            x = _encoder_layer(lp, x, *args)
     return layer_norm(enc["layer_norm"], x)
 
 
@@ -236,34 +255,44 @@ def _decoder_layer_full(
     flash_cross: bool = False,
     ga_weights: Optional[torch.Tensor] = None,
     ga_row_mask: Optional[torch.Tensor] = None,
+    head_dim: Optional[int] = None,
+    group=None,
+    ga_norm: Optional[torch.Tensor] = None,
+    total_heads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer over the whole sequence: causal self attention,
-    cross attention, MLP. With ``ga_weights`` (S, T) and ``ga_row_mask``
-    (B, S) the cross attention is the plain softmax, and the layer also
-    returns the guided-attention penalty: the mean over heads and masked
-    rows of the attention mass weighted by ``ga_weights``."""
-    h = layer_norm(lp["self_attn_layer_norm"], x)
-    q, k, v = attention_qkv(lp["self_attn"], h, None, heads)
+    cross attention, MLP, at ``heads`` heads of ``head_dim`` (of
+    ``total_heads`` over the model axis's ``group``). With ``ga_weights``
+    (S, T) and ``ga_row_mask`` (B, S) the cross attention is the plain
+    softmax, and the layer also returns the guided-attention penalty: the
+    mean over heads and masked rows of the attention mass weighted by
+    ``ga_weights``; its sum is taken over the model axis, its count is
+    ``ga_norm`` masked rows (default: ``ga_row_mask``'s) times
+    ``total_heads``."""
+    h = copy_to_model(layer_norm(lp["self_attn_layer_norm"], x), group)
+    q, k, v = attention_qkv(lp["self_attn"], h, None, heads, head_dim)
     a = merge_heads(mha(q, k, v, causal=True))
-    x = x + dense(lp["self_attn"]["out"], a)
+    x = x + row_dense(lp["self_attn"]["out"], a, group)
 
-    h = layer_norm(lp["encoder_attn_layer_norm"], x)
-    q, k, v = attention_qkv(lp["encoder_attn"], h, enc_states, heads)
+    h = copy_to_model(layer_norm(lp["encoder_attn_layer_norm"], x), group)
+    q, k, v = attention_qkv(lp["encoder_attn"], h, enc_states, heads,
+                            head_dim)
     ga_pen = x.new_zeros((), dtype=torch.float32)
     if ga_weights is not None:
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
         probs = torch.softmax(scores, dim=-1)
         pen_rows = (probs * ga_weights[None, None]).sum(dim=-1)  # B, H, S
         rm = ga_row_mask[:, None, :].to(pen_rows.dtype)
-        ga_pen = (pen_rows * rm).sum() / torch.clamp(rm.sum() * heads,
-                                                     min=1.0)
+        rows = rm.sum() if ga_norm is None else ga_norm
+        ga_pen = reduce_from_model((pen_rows * rm).sum(), group) / \
+            torch.clamp(rows * (total_heads or heads), min=1.0)
         a = merge_heads(torch.matmul(probs.to(v.dtype), v))
     else:
         a = merge_heads(mha(q, k, v, causal=False, use_flash=flash_cross))
-    x = x + dense(lp["encoder_attn"]["out"], a)
+    x = x + row_dense(lp["encoder_attn"]["out"], a, group)
 
-    h = layer_norm(lp["final_layer_norm"], x)
-    x = x + mlp_block(lp, h)
+    h = copy_to_model(layer_norm(lp["final_layer_norm"], x), group)
+    x = x + mlp_block(lp, h, group=group)
     return x, ga_pen
 
 
@@ -275,6 +304,7 @@ def decode_full(
     flash_cross: bool = False,
     ga_weights: Optional[torch.Tensor] = None,
     ga_row_mask: Optional[torch.Tensor] = None,
+    ga_norm: Optional[torch.Tensor] = None,
 ):
     """Teacher-forced decoder forward: tokens (B, S) → logits (B, S, V)
     fp32.
@@ -284,17 +314,23 @@ def decode_full(
     kernel (K1, K4 in the backward), as training runs it. With
     ``ga_weights`` (S, T) and ``ga_row_mask`` (B, S) (the guided-attention
     loss, ``training/train.py::guided_attn_weights``) it returns (logits,
-    the mean of the layers' penalties)."""
+    the mean of the layers' penalties); ``ga_norm`` is the count of masked
+    rows the penalty is normalised by, the whole batch's where the batch is
+    cut over a data axis (default: ``ga_row_mask``'s)."""
     dec = params["decoder"]
     s = tokens.shape[1]
     x = embedding(dec["embed_tokens"], tokens, dtype=enc_states.dtype)
     x = x + dec["embed_positions"][:s].to(x.dtype)[None]
-    heads = cfg.decoder_attention_heads
+    loc = local_model(params, cfg)
+    # every layer's cross k/v read the encoder states: one all-reduce of
+    # their gradient for all of them
+    enc_states = copy_to_model(enc_states, loc.group)
     pens = []
     for i in range(cfg.decoder_layers):
-        x, pen = _decoder_layer_full(layer(dec["layers"], i), x, enc_states,
-                                     heads, flash_cross, ga_weights,
-                                     ga_row_mask)
+        x, pen = _decoder_layer_full(
+            layer(dec["layers"], i), x, enc_states, loc.decoder_heads,
+            flash_cross, ga_weights, ga_row_mask, cfg.decoder_head_dim,
+            loc.group, ga_norm, cfg.decoder_attention_heads)
         pens.append(pen)
     x = layer_norm(dec["layer_norm"], x)
     logits = _vocab_logits(dec, x)
@@ -307,11 +343,13 @@ def decode_full(
 # decoder — incremental decode with static caches
 # --------------------------------------------------------------------------
 
-def cross_attention_q(lp: dict, h: torch.Tensor, heads: int) -> torch.Tensor:
-    """Cross-attention query projection with the (d/heads)**-0.5 scale."""
-    d = h.shape[-1]
+def cross_attention_q(lp: dict, h: torch.Tensor, heads: int,
+                      head_dim: Optional[int] = None) -> torch.Tensor:
+    """Cross-attention query projection with the head_dim**-0.5 scale
+    (``head_dim`` defaults to the width over ``heads``)."""
+    dh = head_dim or h.shape[-1] // heads
     return split_heads(
-        dense(lp["encoder_attn"]["q"], h) * (d // heads) ** -0.5, heads)
+        dense(lp["encoder_attn"]["q"], h) * dh ** -0.5, heads, dh)
 
 
 def compute_cross_kv(params: dict, cfg: WhisperConfig,
@@ -319,15 +357,16 @@ def compute_cross_kv(params: dict, cfg: WhisperConfig,
                      out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V for all layers, once per utterance:
-    (L, B, H, Tp, dh) ×2 with T padded to a multiple of 8 (1500 → 1504);
-    the padding rows are zero and masked by the true length. ``out``: a
-    pair of that shape and dtype whose padding rows are zero, written in
-    place (a captured decode step reads its cross cache there)."""
-    heads = cfg.decoder_attention_heads
+    (L, B, H, Tp, dh) ×2 (H this rank's heads) with T padded to a multiple
+    of 8 (1500 → 1504); the padding rows are zero and masked by the true
+    length. ``out``: a pair of that shape and dtype whose padding rows are
+    zero, written in place (a captured decode step reads its cross cache
+    there)."""
+    heads, dh = local_model(params, cfg).decoder_heads, cfg.decoder_head_dim
     layers = params["decoder"]["layers"]
-    b, t, d = enc_states.shape
+    b, t, _ = enc_states.shape
     tp = -(-t // CROSS_PAD) * CROSS_PAD
-    shape = (cfg.decoder_layers, b, heads, tp, d // heads)
+    shape = (cfg.decoder_layers, b, heads, tp, dh)
     if out is not None:
         ks, vs = out
         if ks.shape != shape or vs.shape != shape or \
@@ -339,20 +378,22 @@ def compute_cross_kv(params: dict, cfg: WhisperConfig,
         vs = enc_states.new_zeros(shape)
     for i in range(cfg.decoder_layers):
         ca = layer(layers, i)["encoder_attn"]
-        ks[i, :, :, :t] = split_heads(dense(ca["k"], enc_states), heads)
-        vs[i, :, :, :t] = split_heads(dense(ca["v"], enc_states), heads)
+        ks[i, :, :, :t] = split_heads(dense(ca["k"], enc_states), heads, dh)
+        vs[i, :, :, :t] = split_heads(dense(ca["v"], enc_states), heads, dh)
     return ks, vs
 
 
 def init_self_kv(cfg: WhisperConfig, batch: int, max_len: Optional[int] = None,
-                 dtype=torch.float32, device=None
+                 dtype=torch.float32, device=None, heads: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Static self-attention KV cache (L, B, H, max_len, dh) ×2 on
-    ``device`` (the CUDA card by default)."""
+    ``device`` (the CUDA card by default); ``heads`` H (default: the
+    config's; a rank's on a cut tree, ``local_model``)."""
     max_len = max_len or cfg.max_target_positions
     device = resolve_device(device)
-    shape = (cfg.decoder_layers, batch, cfg.decoder_attention_heads, max_len,
-             cfg.decoder_head_dim)
+    shape = (cfg.decoder_layers, batch,
+             cfg.decoder_attention_heads if heads is None else heads,
+             max_len, cfg.decoder_head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -395,13 +436,16 @@ def cross_kv_t_major(cfg: WhisperConfig, cross_kv: Tuple[torch.Tensor, ...]
 
 def init_self_kv_quant(cfg: WhisperConfig, batch: int,
                        max_len: Optional[int] = None, dtype=torch.int8,
-                       device=None) -> Tuple[torch.Tensor, ...]:
+                       device=None, heads: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, ...]:
     """Quantized self-KV cache (values int8/fp8 zeros, fp32 scales ones)
-    ×2, leading L axis, on ``device`` (the CUDA card by default)."""
+    ×2, leading L axis, on ``device`` (the CUDA card by default), ``heads``
+    as in ``init_self_kv``."""
     max_len = max_len or cfg.max_target_positions
     device = resolve_device(device)
-    shape = (cfg.decoder_layers, batch, cfg.decoder_attention_heads, max_len,
-             cfg.decoder_head_dim)
+    shape = (cfg.decoder_layers, batch,
+             cfg.decoder_attention_heads if heads is None else heads,
+             max_len, cfg.decoder_head_dim)
     sshape = shape[:-1] + (1,)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.ones(sshape, dtype=torch.float32, device=device),
@@ -461,12 +505,13 @@ def decode_step_plan(params: dict, cfg: WhisperConfig,
                      self_kv: Tuple[torch.Tensor, ...],
                      cross_kv: Tuple[torch.Tensor, ...]) -> bool:
     """True when ``decode_step_kv`` takes the fused step (K6) for these
-    caches: float self and cross tuples, the cross cache dh-minor, and the
-    gate ``_fused_decode_ok``. It depends on the tree and the caches' shapes
+    caches: a tree not cut over more than one model rank, float self and
+    cross tuples, the cross cache dh-minor, and the gate
+    ``_fused_decode_ok``. It depends on the tree and the caches' shapes
     only, so a decode loop decides it once, before its first step (the
     gate walks the weight tree)."""
-    if len(self_kv) == 4 or len(cross_kv) == 4 or cross_kv_t_major(
-            cfg, cross_kv):
+    if local_model(params, cfg).group is not None or len(self_kv) == 4 or \
+            len(cross_kv) == 4 or cross_kv_t_major(cfg, cross_kv):
         return False
     return _fused_decode_ok(params["decoder"], self_kv[0], cross_kv[0])
 
@@ -494,15 +539,15 @@ def _decode_step_fused(dec: dict, cfg: WhisperConfig, x: torch.Tensor,
     LN1 (K5), the k/v projections and the in-place cache append at
     ``pos`` (a 0-d int32 tensor), then one K6 launch for everything else;
     then the final LN and the vocab head. x: (B, 1, d) embedded tokens."""
-    heads = cfg.decoder_attention_heads
+    heads, dh = cfg.decoder_attention_heads, cfg.decoder_head_dim
     enc_len = _encoder_length(cfg.max_source_positions, x.device)
     for i in range(cfg.decoder_layers):
         lp = layer(dec["layers"], i)
         sk, sv = self_kv[0][i], self_kv[1][i]
         h = layer_norm(lp["self_attn_layer_norm"], x)
         sa = lp["self_attn"]
-        update_kv_cache(sk, sv, split_heads(dense(sa["k"], h), heads),
-                        split_heads(dense(sa["v"], h), heads), pos)
+        update_kv_cache(sk, sv, split_heads(dense(sa["k"], h), heads, dh),
+                        split_heads(dense(sa["v"], h), heads, dh), pos)
         x = fused_decoder_layer_step(
             x[:, 0], h[:, 0], pos, lp, sk, sv, cross_kv[0][i],
             cross_kv[1][i], enc_len)[:, None]
@@ -539,6 +584,7 @@ def decode_step_kv(
         raise ValueError("decode_step_kv takes one position for the batch; "
                          "per-lane (B,) positions go to "
                          "decode_step_ragged_kv")
+    loc = local_model(params, cfg)
     if fused is None:
         fused = decode_step_plan(params, cfg, self_kv, cross_kv)
 
@@ -547,18 +593,20 @@ def decode_step_kv(
         x.dtype)[None]
     if fused:
         return _decode_step_fused(dec, cfg, x, pos, self_kv, cross_kv)
-    return _decode_layers(dec, cfg, x, pos, self_kv, cross_kv), self_kv
+    return _decode_layers(dec, cfg, x, pos, self_kv, cross_kv, loc), self_kv
 
 
 def _decode_layers(dec: dict, cfg: WhisperConfig, x: torch.Tensor,
-                   pos: torch.Tensor, self_kv, cross_kv) -> torch.Tensor:
+                   pos: torch.Tensor, self_kv, cross_kv, loc: Local
+                   ) -> torch.Tensor:
     """The unfused layer loop of a decode step: x (B, 1, d) embedded
     tokens at ``pos`` (0-d, or (B,) per lane) → logits (B, V) fp32. Each
     layer appends its K/V at ``pos`` (quantized first for an int8/fp8
     cache) and attends to ``pos + 1`` rows of its self cache and to the
     encoder's length of its cross cache (K2 twice on the card), with K5
-    for its three LayerNorms and once after the last layer."""
-    heads = cfg.decoder_attention_heads
+    for its three LayerNorms and once after the last layer; at ``loc``'s
+    heads, three all-reduces a layer over its group."""
+    heads, dh, group = loc.decoder_heads, cfg.decoder_head_dim, loc.group
     quant_self = len(self_kv) == 4
     quant_cross = len(cross_kv) == 4
     t_major = cross_kv_t_major(cfg, cross_kv)
@@ -570,7 +618,7 @@ def _decode_layers(dec: dict, cfg: WhisperConfig, x: torch.Tensor,
         c = [cache[i] for cache in cross_kv]
         # self attention with the cache append at `pos`
         h = layer_norm(lp["self_attn_layer_norm"], x)
-        q, k_new, v_new = attention_qkv(lp["self_attn"], h, None, heads)
+        q, k_new, v_new = attention_qkv(lp["self_attn"], h, None, heads, dh)
         if quant_self:
             skq, sks, svq, svs = s
             k_q, k_s = quantize_kv(k_new, skq.dtype)
@@ -582,18 +630,18 @@ def _decode_layers(dec: dict, cfg: WhisperConfig, x: torch.Tensor,
         else:
             sk, sv = update_kv_cache(s[0], s[1], k_new, v_new, pos)
             a = mha_decode_step(q, sk, sv, self_len)
-        x = x + dense(lp["self_attn"]["out"], merge_heads(a))
+        x = x + row_dense(lp["self_attn"]["out"], merge_heads(a), group)
         # cross attention; the true encoder length masks the padding rows
         h = layer_norm(lp["encoder_attn_layer_norm"], x)
-        qc = cross_attention_q(lp, h, heads)
+        qc = cross_attention_q(lp, h, heads, dh)
         if quant_cross:
             a = mha_decode_step(qc, c[0], c[2], enc_len, k_scale=c[1],
                                 v_scale=c[3], t_major=t_major)
         else:
             a = mha_decode_step(qc, c[0], c[1], enc_len, t_major=t_major)
-        x = x + dense(lp["encoder_attn"]["out"], merge_heads(a))
+        x = x + row_dense(lp["encoder_attn"]["out"], merge_heads(a), group)
         h = layer_norm(lp["final_layer_norm"], x)
-        x = x + mlp_block(lp, h)
+        x = x + mlp_block(lp, h, group=group)
     x = layer_norm(dec["layer_norm"], x)
     return _vocab_logits(dec, x)[:, 0]
 
@@ -673,7 +721,8 @@ def decode_chunk(
     if cross_kv_t_major(cfg, cross_kv):
         raise ValueError("decode_chunk takes a dh-minor cross cache")
     dec = params["decoder"]
-    heads = cfg.decoder_attention_heads
+    loc = local_model(params, cfg)
+    heads, dh, group = loc.decoder_heads, cfg.decoder_head_dim, loc.group
     s = tokens.shape[1]
     dev = tokens.device
     sk0, sv0 = self_kv
@@ -694,17 +743,17 @@ def decode_chunk(
         lp = layer(dec["layers"], i)
         sk, sv = sk0[i], sv0[i]
         h = layer_norm(lp["self_attn_layer_norm"], x)
-        q, k_new, v_new = attention_qkv(lp["self_attn"], h, None, heads)
+        q, k_new, v_new = attention_qkv(lp["self_attn"], h, None, heads, dh)
         sk.index_copy_(2, rows, k_new.to(sk.dtype))
         sv.index_copy_(2, rows, v_new.to(sv.dtype))
-        x = x + dense(lp["self_attn"]["out"],
-                      merge_heads(mha(q, sk, sv, mask=mask)))
+        x = x + row_dense(lp["self_attn"]["out"],
+                          merge_heads(mha(q, sk, sv, mask=mask)), group)
         h = layer_norm(lp["encoder_attn_layer_norm"], x)
-        qc = cross_attention_q(lp, h, heads)
-        x = x + dense(lp["encoder_attn"]["out"], merge_heads(
-            mha(qc, cross_kv[0][i], cross_kv[1][i], mask=cmask)))
+        qc = cross_attention_q(lp, h, heads, dh)
+        x = x + row_dense(lp["encoder_attn"]["out"], merge_heads(
+            mha(qc, cross_kv[0][i], cross_kv[1][i], mask=cmask)), group)
         h = layer_norm(lp["final_layer_norm"], x)
-        x = x + mlp_block(lp, h)
+        x = x + mlp_block(lp, h, group=group)
     x = layer_norm(dec["layer_norm"], x)
     return _vocab_logits(dec, x), self_kv
 
@@ -741,7 +790,8 @@ def decode_step_ragged_kv(
     x = embedding(dec["embed_tokens"], tokens[:, None])
     x = x + dec["embed_positions"].index_select(0, pos.long()).to(
         x.dtype)[:, None]
-    return _decode_layers(dec, cfg, x, pos, self_kv, cross_kv), self_kv
+    return _decode_layers(dec, cfg, x, pos, self_kv, cross_kv,
+                          local_model(params, cfg)), self_kv
 
 
 def decode_step_ragged(

@@ -12,7 +12,11 @@ in training: Whisper has at most 448 positions) and ``use_flash=False``
 standing for XLA's products, not cases the kernels have yet to take. A case
 inside the flash conditions that K1 does not take (dh > 128) raises on the
 card. The decode step's attention always runs K2 on the card, the paged
-cache's decode too (each lane's blocks gathered into a window first).
+cache's decode too (each lane's blocks gathered into a window first). A
+rank that holds no heads of a tree cut over the model axis
+(``parallel/partition.py``) computes nothing: ``mha`` (by the plain
+formula on its empty tensors) and ``mha_decode_step`` return its empty
+output without a launch.
 """
 
 from __future__ import annotations
@@ -55,6 +59,11 @@ def mha(
     plain formula (see the module docstring)."""
     h, s, dh = q.shape[1:]
     hkv, t = k.shape[1], k.shape[2]
+    if h == 0:
+        # empty products, no launch; kept on autograd's graph, so the
+        # backward reaches the rank's collectives as every rank's does
+        return attention_reference(q, k, v, causal=causal, mask=mask,
+                                   fp32_softmax=fp32_softmax)
     if (use_flash and mask is None and h % hkv == 0 and s > 1
             and dh % 8 == 0
             and (not causal or (s == t and s >= FLASH_CAUSAL_MIN_LEN))):
@@ -167,6 +176,8 @@ def mha_decode_step(
     raises."""
     if bias is not None:
         raise NotImplementedError("attention bias is not ported yet")
+    if q.shape[1] == 0:
+        return torch.empty_like(q)
     if not (isinstance(valid_len, torch.Tensor)
             and valid_len.dtype == torch.int32
             and valid_len.device == q.device):

@@ -8,7 +8,8 @@ computes around it in the JAX package: int8 and fp8 (e4m3fn) caches with
 per-token fp32 scales folded into the scores and the weights, the T-minor
 ``(B, H, dh, T)`` layout, and a per-lane ``(B,)`` ``valid_len``. The
 wrapper takes the plain version only for CPU tensors; for a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. A call with no (batch, head) pair to
+compute returns its empty output and launches nothing.
 """
 
 from __future__ import annotations
@@ -229,8 +230,10 @@ def _launch(q, cache_k, cache_v, valid_len, k_scale, v_scale,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn: unsupported device {q.device}")
     _build.refuse_grad("decode_attn", q, cache_k, cache_v, k_scale, v_scale)
-    lib = _build.load("decode_attention", _SIGNATURES)
     b, h, _, dh = q.shape
+    if b * h == 0:
+        return torch.empty_like(q)
+    lib = _build.load("decode_attention", _SIGNATURES)
     t = cache_k.shape[3] if t_major else cache_k.shape[2]
     splits, chunk, tile, stages = decode_plan(q, cache_k, t_major)
     out = torch.empty_like(q)

@@ -8,7 +8,10 @@ Counterpart of ``whisper_trtllm_tpu/ops/pallas/flash_attention.py``:
 version only for CPU tensors; for a CUDA tensor it launches its kernel or
 raises. ``flash_attention`` is the entry point: where autograd records, it
 goes through ``FlashAttention`` (K1 saving its log-sum-exp, K4 in the
-backward); otherwise it is one K1 launch that writes no log-sum-exp.
+backward); otherwise it is one K1 launch that writes no log-sum-exp. A
+call with no (batch, head) pair to compute (a rank that holds no heads of a
+tree cut over the model axis) returns its empty outputs and launches
+nothing: a grid of no blocks is a launch error.
 """
 
 from __future__ import annotations
@@ -90,7 +93,7 @@ def flash_attention_backward_reference(
     dO summed over each GQA group in fp32, then in k's dtype."""
     b, h, s, dh = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    group = h // hkv
+    group = h // hkv if hkv else 1
     kf, vf = k.float(), v.float()
     if group > 1:
         kf = kf.repeat_interleave(group, dim=1)
@@ -116,7 +119,8 @@ def _check(q, k, v, causal, what="flash_fwd"):
             f"{what}: q (B,H,S,dh), k/v (B,Hkv,T,dh); got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, h, s, dh = q.shape
-    if k.shape[0] != b or k.shape[3] != dh or h % k.shape[1]:
+    hkv = k.shape[1]
+    if k.shape[0] != b or k.shape[3] != dh or (h % hkv if hkv else h):
         raise ValueError(
             f"{what}: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     if causal and s != k.shape[2]:
@@ -166,6 +170,8 @@ def _launch(q, k, v, causal: bool, with_lse: bool = False):
     out = torch.empty_like(q)
     lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if b * h == 0:
+        return (out, lse) if with_lse else out
     with torch.cuda.device(q.device):
         err = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -208,8 +214,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"flash_bwd: lse must be K1's contiguous fp32 "
                          f"({b}, {h}, {s}) log-sum-exp")
-    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b * h == 0:
+        return dq, dk, dv
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_bwd(

@@ -28,6 +28,10 @@ the same order on both devices.
 
 Cross K/V are computed once at batch B and repeated K times beam-major
 (lane ``b * K + j``); the projections are not run K times.
+
+On a tree cut over the model axis (``parallel/partition.py``) the caches
+hold the rank's heads, and ``reorder_caches`` moves only them; ``go``
+comes from the all-reduced logits, the same on every rank of the group.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 
 from whisper_trtllm_tpu_torch.config import GenerationConfig, WhisperConfig
 from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+from whisper_trtllm_tpu_torch.parallel.partition import local_model
 from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
 from whisper_trtllm_tpu_torch.runtime import logits_process as lp
 from whisper_trtllm_tpu_torch.runtime import sampling
@@ -104,9 +109,9 @@ def _go(s: BeamState, es_mode) -> torch.Tensor:
 
 
 def init_beam_state(cfg: WhisperConfig, gen: GenerationConfig, batch: int,
-                    max_len: int, dtype, device) -> BeamState:
-    """A state's buffers; ``reset_beam_state`` gives them their first
-    values."""
+                    max_len: int, dtype, device, heads=None) -> BeamState:
+    """A state's buffers, the self caches at ``heads`` heads (default: the
+    config's); ``reset_beam_state`` gives them their first values."""
     k = gen.num_beams
 
     def tensor(shape, dt):
@@ -120,7 +125,7 @@ def init_beam_state(cfg: WhisperConfig, gen: GenerationConfig, batch: int,
         finished_lengths=tensor((batch, k), torch.int32),
         pos=tensor((), torch.int32),
         self_kv=gen_rt.init_self_cache(cfg, gen, batch * k, max_len, dtype,
-                                       device),
+                                       device, heads),
         es_unsat=tensor((batch,), torch.bool),
         all_hit=tensor((), torch.bool),
         go=tensor((), torch.bool))
@@ -334,11 +339,13 @@ def _beam(params, cfg, enc_states, gen, max_len, prompt=None):
     k = gen.num_beams
     batch, dev, dtype = enc_states.shape[0], enc_states.device, \
         enc_states.dtype
+    heads = local_model(params, cfg).decoder_heads
 
     def make():
         cross = tile_cross(
             gen_rt.build_cross_kv(params, cfg, enc_states, gen), k)
-        return (init_beam_state(cfg, gen, batch, max_len, dtype, dev), cross,
+        return (init_beam_state(cfg, gen, batch, max_len, dtype, dev, heads),
+                cross,
                 gen_rt.make_rules(cfg, gen, max_len, dev,
                                   None if prompt is None else prompt.clone()))
 

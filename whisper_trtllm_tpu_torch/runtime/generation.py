@@ -29,6 +29,14 @@ equal the JAX loop's, which stops at once. The beam search
 The token-buffer semantics are the JAX package's: the start token (or the
 prompt) first, the forced prefix after it, pad after EOS, ``lengths`` =
 EOS position + 1 (or ``max_len``).
+
+On a tree cut over the model axis (``parallel/partition.py``) the loop
+runs at the rank's head count and every rank of a model group takes the
+same branch at each host read: ``finished`` comes from the logits, which
+the step's last all-reduce made equal on every rank. ``transcribe_tokens``
+under a mesh with a data axis cuts the batch over it and gathers every
+rank's tokens and lengths, so each rank returns the whole batch's, as the
+JAX function returns a global array.
 """
 
 from __future__ import annotations
@@ -46,6 +54,13 @@ import torch
 from whisper_trtllm_tpu_torch.config import GenerationConfig, WhisperConfig
 from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
 from whisper_trtllm_tpu_torch.ops.kernels import KERNELS, _launches
+from whisper_trtllm_tpu_torch.parallel import collectives, partition
+from whisper_trtllm_tpu_torch.parallel.mesh import (
+    axis_size,
+    current_mesh,
+    join_batch,
+    split_batch,
+)
 from whisper_trtllm_tpu_torch.runtime import logits_process as lp
 from whisper_trtllm_tpu_torch.runtime import sampling
 from whisper_trtllm_tpu_torch.utils.device import (
@@ -181,16 +196,18 @@ def build_cross_kv(params: dict, cfg: WhisperConfig, enc_states: torch.Tensor,
 
 
 def init_self_cache(cfg: WhisperConfig, gen: GenerationConfig, batch: int,
-                    max_len: int, dtype, device) -> Tuple[torch.Tensor, ...]:
-    """The self caches of a decode's ``batch`` lanes: float (k, v) in
-    ``dtype``, or quantized (kq, ks, vq, vs) for an int8/fp8
-    ``kv_cache_dtype``; ``reset_caches`` gives them their first values."""
+                    max_len: int, dtype, device, heads: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, ...]:
+    """The self caches of a decode's ``batch`` lanes at ``heads`` heads
+    (default: the config's): float (k, v) in ``dtype``, or quantized (kq,
+    ks, vq, vs) for an int8/fp8 ``kv_cache_dtype``; ``reset_caches`` gives
+    them their first values."""
     kv_qdtype = kv_quant_dtype(gen.kv_cache_dtype)
     if kv_qdtype is not None:
         return wmodel.init_self_kv_quant(cfg, batch, max_len, kv_qdtype,
-                                         device=device)
+                                         device=device, heads=heads)
     return wmodel.init_self_kv(cfg, batch, max_len, dtype=dtype,
-                               device=device)
+                               device=device, heads=heads)
 
 
 def reset_caches(self_kv: Tuple[torch.Tensor, ...]) -> None:
@@ -201,14 +218,16 @@ def reset_caches(self_kv: Tuple[torch.Tensor, ...]) -> None:
 
 
 def init_state(cfg: WhisperConfig, gen: GenerationConfig, batch: int,
-               max_len: int, dtype, device) -> GreedyState:
+               max_len: int, dtype, device, heads: Optional[int] = None
+               ) -> GreedyState:
     """A state's buffers; ``reset_state`` gives them their first values."""
     return GreedyState(
         tokens=torch.empty((batch, max_len), dtype=torch.int32, device=device),
         pos=torch.zeros((), dtype=torch.int32, device=device),
         finished=torch.zeros(batch, dtype=torch.bool, device=device),
         lengths=torch.empty(batch, dtype=torch.int32, device=device),
-        self_kv=init_self_cache(cfg, gen, batch, max_len, dtype, device))
+        self_kv=init_self_cache(cfg, gen, batch, max_len, dtype, device,
+                                heads))
 
 
 def reset_state(s: GreedyState, cfg: WhisperConfig, rules: Rules) -> None:
@@ -440,10 +459,14 @@ def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 def warm_and_capture(entry: _StepGraph, step, device: torch.device,
-                     steps: int = WARMUP_STEPS) -> None:
+                     steps: int = WARMUP_STEPS, group=None) -> None:
     """``steps`` eager calls of ``step`` on the warm-up stream (they build
     the kernels and make every lazily made tensor), then its capture into
-    ``entry``."""
+    ``entry``. ``group``: the model axis's group of the weights the step
+    reads, whose communicator (made at its first collective, which a
+    capture cannot hold) an eager all-reduce makes first."""
+    if group is not None:
+        collectives.all_reduce_(torch.zeros(1, device=device), group)
     side = _warmup_stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -488,7 +511,9 @@ def run_decode(key: tuple, params: dict, device: torch.device, limit: int,
     done = 0
     if entry.graph is None and limit > 0:
         done = min(WARMUP_STEPS, limit)
-        warm_and_capture(entry, step, device, done)
+        layout = partition.layout_of(params)
+        warm_and_capture(entry, step, device, done,
+                         None if layout is None else layout.group)
         _store(key, entry, leaves)
     _run(entry.replay, lambda: stopped(entry.state), limit, done, every)
     return entry
@@ -511,8 +536,10 @@ def _decode(params, cfg, enc_states, gen, max_len, prompt=None):
     batch, dev, dtype = enc_states.shape[0], enc_states.device, \
         enc_states.dtype
 
+    heads = partition.local_model(params, cfg).decoder_heads
+
     def make():
-        return (init_state(cfg, gen, batch, max_len, dtype, dev),
+        return (init_state(cfg, gen, batch, max_len, dtype, dev, heads),
                 build_cross_kv(params, cfg, enc_states, gen),
                 make_rules(cfg, gen, max_len, dev,
                            None if prompt is None else prompt.clone()))
@@ -590,8 +617,9 @@ def detect_language(
     ids = torch.as_tensor(np.asarray(lang_token_ids, np.int64), device=dev)
     batch = enc_states.shape[0]
     cross_kv = wmodel.compute_cross_kv(params, cfg, enc_states)
-    self_kv = wmodel.init_self_kv(cfg, batch, 2, dtype=enc_states.dtype,
-                                  device=dev)
+    self_kv = wmodel.init_self_kv(
+        cfg, batch, 2, dtype=enc_states.dtype, device=dev,
+        heads=partition.local_model(params, cfg).decoder_heads)
     start = torch.full((batch,), cfg.decoder_start_token_id,
                        dtype=torch.int32, device=dev)
     logits, _ = wmodel.decode_step_kv(params, cfg, start, 0, self_kv,
@@ -609,12 +637,31 @@ def transcribe_tokens(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """mel (B, 3000, n_mels) → (tokens, lengths): encode + greedy decode on
     ``device`` (the CUDA card by default), where ``params`` must already
-    lie."""
+    lie. Inside a mesh (``with mesh:``) each data rank takes its rows of
+    the batch (which the data axis must divide) and every rank returns the
+    whole batch's tokens and lengths."""
     dev = resolve_device(device)
     set_fp32_precision()
     leaf = params["encoder"]["conv1"]["kernel"]
     if leaf.device.type != dev.type:
         raise ValueError(f"params lie on {leaf.device}, not on {dev}")
-    mel = to_tensor(mel, dev, leaf.dtype)
+    mesh = current_mesh()
+    check_data_axis(gen or GenerationConfig(), mesh)
+    if not isinstance(mel, torch.Tensor):
+        mel = np.asarray(mel)
+    mel = to_tensor(split_batch(mel, mesh), dev, leaf.dtype)
     enc = wmodel.encode(params, cfg, mel)
-    return greedy_decode(params, cfg, enc, gen)
+    tokens, lengths = greedy_decode(params, cfg, enc, gen)
+    return join_batch(tokens, mesh), join_batch(lengths, mesh)
+
+
+def check_data_axis(gen: GenerationConfig, mesh) -> None:
+    """Refuse a sampled decode with the batch cut over a data axis: its
+    draw takes noise of the whole batch's shape, which a rank's rows would
+    not reproduce."""
+    sampled = (gen.temperature != 1.0 or gen.top_k > 0
+               or 0.0 < gen.top_p < 1.0)
+    if sampled and mesh is not None and axis_size(mesh, "data") > 1:
+        raise NotImplementedError(
+            "a sampled decode with the batch cut over a data axis is not "
+            "ported; sample on a mesh without a data axis")

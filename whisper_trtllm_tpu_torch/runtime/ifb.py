@@ -35,6 +35,12 @@ admitted after it was taken.
 Cache precision follows ``GenerationConfig.kv_cache_dtype`` (float, int8 or
 fp8 lanes) and ``cross_kv_layout``; the other decoding fields are not read,
 as in the JAX batcher (greedy only).
+
+On a tree cut over the model axis (``parallel/partition.py``) the batcher
+is built and run inside its mesh, every rank of the model group given the
+same requests in the same order: the lanes hold the rank's heads, and the
+flags the host reads come from the all-reduced logits, so every rank
+admits and retires the same lanes.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from whisper_trtllm_tpu_torch.audio.features import (
 )
 from whisper_trtllm_tpu_torch.config import GenerationConfig, WhisperConfig
 from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+from whisper_trtllm_tpu_torch.parallel import partition
 from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
 from whisper_trtllm_tpu_torch.utils.checkpoint import params_from_numpy
 from whisper_trtllm_tpu_torch.utils.device import (
@@ -175,9 +182,9 @@ class InflightBatcher:
                 pos=torch.zeros(num_lanes, dtype=torch.int32, device=dev),
                 active=self._flags[1],
                 finished=self._flags[0],
-                self_kv=gen_rt.init_self_cache(cfg, gen, num_lanes,
-                                               self.max_len, self._dtype,
-                                               dev),
+                self_kv=gen_rt.init_self_cache(
+                    cfg, gen, num_lanes, self.max_len, self._dtype, dev,
+                    partition.local_model(self.params, cfg).decoder_heads),
                 cross_kv=tuple(
                     torch.zeros((c.shape[0], num_lanes) + c.shape[2:],
                                 dtype=c.dtype, device=dev) for c in probe))
@@ -191,7 +198,10 @@ class InflightBatcher:
                 # every lane idle: the warm-up step changes nothing
                 self._graph = gen_rt._StepGraph(
                     self.state, self.state.cross_kv, self.rules, [])
-                gen_rt.warm_and_capture(self._graph, self._step, dev)
+                layout = partition.layout_of(self.params)
+                gen_rt.warm_and_capture(
+                    self._graph, self._step, dev,
+                    group=None if layout is None else layout.group)
                 # two sets of pinned snapshot buffers: double buffering
                 # fills one while the host reads the other
                 self._pinned = [tuple(

@@ -1,8 +1,16 @@
 """Serving session: device-resident weights, audio or mel in, token ids and
-lengths out (counterpart of ``whisper_trtllm_tpu/runtime/session.py``)."""
+lengths out (counterpart of ``whisper_trtllm_tpu/runtime/session.py``).
+
+With a ``mesh`` (``parallel.make_mesh``) the session holds this rank's
+shards of the weights (``shard_params`` after the load-time chain) and
+runs inside its mesh: each data rank transcribes its rows of the batch,
+the model ranks join their partial sums, and every rank returns the whole
+batch's tokens and lengths.
+"""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -16,6 +24,12 @@ from whisper_trtllm_tpu_torch.config import (
 )
 from whisper_trtllm_tpu_torch import quantization
 from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+from whisper_trtllm_tpu_torch.parallel.mesh import (
+    check_mesh,
+    join_batch,
+    split_batch,
+)
+from whisper_trtllm_tpu_torch.parallel.partition import shard_params
 from whisper_trtllm_tpu_torch.runtime import beam
 from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
 from whisper_trtllm_tpu_torch.utils.checkpoint import (
@@ -64,8 +78,9 @@ def _check_runtime(rt: RuntimeConfig) -> None:
 
 
 class WhisperSession:
-    """End-to-end ASR serving on one device: audio/mel in, token ids
-    (+ lengths) out. ``device`` defaults to the CUDA card."""
+    """End-to-end ASR serving: audio/mel in, token ids (+ lengths) out, on
+    one device or over a ``mesh`` of this device type. ``device`` defaults
+    to the CUDA card."""
 
     def __init__(
         self,
@@ -76,9 +91,12 @@ class WhisperSession:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("sharded sessions are not ported yet")
         self.device = resolve_device(device)
+        check_mesh(mesh)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh lies on {mesh.device_type}, the "
+                             f"session on {self.device}")
+        self.mesh = mesh
         set_fp32_precision()
         self.cfg = cfg
         self.generation = generation or GenerationConfig()
@@ -90,6 +108,7 @@ class WhisperSession:
             beam.check_early_stopping(self.generation)
         else:
             gen_rt.check_greedy_config(self.generation)
+            gen_rt.check_data_axis(self.generation, mesh)
         self._dtype = _COMPUTE_DTYPES[self.runtime.compute_dtype]
         self.params = self._prepare_params(params)
         self.frontend = LogMelSpectrogram(cfg.num_mel_bins, dtype=self._dtype,
@@ -104,7 +123,8 @@ class WhisperSession:
         and SmoothQuant's ``smooth`` included; int8, packed int4 and fp8
         kernels keep their type and dequantize in ``dense``). A SmoothQuant
         tree comes from ``quantization.smooth_quantize_whisper``, made by
-        the caller, as in the JAX package."""
+        the caller, as in the JAX package. With a mesh, this rank's shards of
+        the result."""
         rt = self.runtime
         if rt.fuse_qkv:
             params = wmodel.fuse_qkv_params(params)
@@ -113,41 +133,58 @@ class WhisperSession:
             params = quantize(params)
         if rt.quantize_vocab:
             params = quantization.quantize_vocab_embedding(params)
-        return wmodel.cast_params(params_from_numpy(params, self.device),
-                                  self._dtype)
+        params = wmodel.cast_params(params_from_numpy(params, self.device),
+                                    self._dtype)
+        if self.mesh is not None:
+            return shard_params(params, self.mesh, cfg=self.cfg)
+        return params
+
+    def _in_mesh(self):
+        return self.mesh if self.mesh is not None else contextlib.nullcontext()
 
     @torch.inference_mode()
     def _run(self, mel: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
-        """Encode, then the greedy decode, or with ``num_beams > 1`` the
-        beam search's best hypothesis (greedy's signature, as in the JAX
-        session)."""
-        enc = wmodel.encode(self.params, self.cfg, mel.to(self._dtype))
-        if self.generation.num_beams > 1:
-            tokens, _, lengths = beam.beam_decode(self.params, self.cfg, enc,
-                                                  self.generation)
-            tokens, lengths = tokens[:, 0], lengths[:, 0]
-        else:
-            tokens, lengths = gen_rt.greedy_decode(self.params, self.cfg,
-                                                   enc, self.generation)
+        """Encode this rank's rows, then the greedy decode, or with
+        ``num_beams > 1`` the beam search's best hypothesis (greedy's
+        signature, as in the JAX session); the whole batch's result."""
+        with self._in_mesh():
+            enc = wmodel.encode(self.params, self.cfg, mel.to(self._dtype))
+            if self.generation.num_beams > 1:
+                tokens, _, lengths = beam.beam_decode(
+                    self.params, self.cfg, enc, self.generation)
+                tokens, lengths = tokens[:, 0], lengths[:, 0]
+            else:
+                tokens, lengths = gen_rt.greedy_decode(
+                    self.params, self.cfg, enc, self.generation)
+            tokens = join_batch(tokens, self.mesh)
+            lengths = join_batch(lengths, self.mesh)
         return tokens.cpu().numpy(), lengths.cpu().numpy()
+
+    def _rows(self, x):
+        """This rank's rows of a batch (all of them without a mesh)."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        return split_batch(x, self.mesh)
 
     # -- public API -----------------------------------------------------------
     def transcribe_features(self, mel) -> Tuple[np.ndarray, np.ndarray]:
         """mel (B, 3000, n_mels) → (tokens (B, max_len), lengths (B,))."""
-        return self._run(to_tensor(mel, self.device))
+        return self._run(to_tensor(self._rows(mel), self.device))
 
     def transcribe(self, audio) -> Tuple[np.ndarray, np.ndarray]:
         """Raw 16 kHz audio (B, n_samples) → (tokens, lengths); pads or
         trims to 30 s and runs the frontend on the device."""
-        audio = np.atleast_2d(np.asarray(audio, np.float32))
+        audio = self._rows(np.atleast_2d(np.asarray(audio, np.float32)))
         with torch.inference_mode():
             mel = self.frontend(pad_or_trim(audio))
         return self._run(mel)
 
     @torch.inference_mode()
     def encode(self, mel) -> torch.Tensor:
+        """Encoder states of the rows given (not cut over a data axis)."""
         mel = to_tensor(mel, self.device, self._dtype)
-        return wmodel.encode(self.params, self.cfg, mel)
+        with self._in_mesh():
+            return wmodel.encode(self.params, self.cfg, mel)
 
     def refit(self, params: dict) -> None:
         """Swap in new weights: the tree goes through the same load-time
@@ -179,7 +216,7 @@ class WhisperSession:
         beam step's with ``num_beams > 1``)."""
         mel = torch.zeros((batch, 2 * self.cfg.max_source_positions,
                            self.cfg.num_mel_bins), device=self.device)
-        self._run(mel)
+        self._run(self._rows(mel))
 
     def export_engine(self, path: str, batch: int = 1) -> int:
         """Write the greedy transcribe pipeline at this batch size to one
@@ -195,6 +232,10 @@ class WhisperSession:
             raise NotImplementedError(
                 "export_engine exports the greedy pipeline; beam search "
                 "(num_beams > 1) is not exported")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "export_engine exports the one-device pipeline; a session "
+                "over a mesh is not exported")
         from whisper_trtllm_tpu_torch.runtime.export import export_programs
         from whisper_trtllm_tpu_torch.utils.engine import save_engine
 

@@ -6,12 +6,21 @@ cross attention through the fused flash kernel (K1 forward, K4 backward)
 and every LayerNorm through K5 (a plain-op backward); the decoder's causal
 self attention (S < 768) and the guided-attention cross attention are the
 plain formula, as the JAX package runs them in XLA. The optimizer is
-``optax.adamw``'s arithmetic written out in PyTorch. The JAX package's
-sharded step (``mesh``) is a later slice and raises.
+``optax.adamw``'s arithmetic written out in PyTorch.
+
+With a ``mesh`` the step takes the whole batch, as the JAX step takes a
+global array, and each data rank its rows of it. The parameters are this
+rank's shards (``parallel/partition.py::shard_params``): the model axis
+runs through the collectives of ``parallel/collectives.py``, so each rank's
+gradients are those of its shards, and the data ranks' gradients are
+summed, since the loss is already normalised by the whole batch's count of
+target tokens (a mean of the ranks' means would differ wherever their
+masks do). AdamW is elementwise and updates the shards where they lie.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Union
 
@@ -20,6 +29,13 @@ import torch
 
 from whisper_trtllm_tpu_torch.config import WhisperConfig
 from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
+from whisper_trtllm_tpu_torch.parallel import partition
+from whisper_trtllm_tpu_torch.parallel.collectives import all_reduce_
+from whisper_trtllm_tpu_torch.parallel.mesh import (
+    axis_group,
+    check_mesh,
+    split_batch,
+)
 from whisper_trtllm_tpu_torch.utils.device import set_fp32_precision, to_tensor
 
 
@@ -46,18 +62,22 @@ def cross_entropy_loss(
     ga_weights: Optional[torch.Tensor] = None,
     ga_scale=None,
     remat_encoder: bool = False,
+    mask_total: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """mel (B, T, M); tokens (B, S) int, decoder start included; loss_mask
     (B, S-1) marks the target positions that count. ``ga_weights``
     (S-1, T_enc) with ``ga_scale`` (a number or a 0-d tensor): the
     guided-attention loss, ``ga_scale`` × the mean cross-attention mass
     outside the known word slots (``guided_attn_weights``). Returns the
-    0-d fp32 loss."""
+    0-d fp32 loss. ``mask_total``: the count of target positions both
+    terms are normalised by, the whole batch's where the batch is cut over
+    a data axis (default: ``loss_mask``'s)."""
     enc = wmodel.encode(params, cfg, mel, remat=remat_encoder)
     if ga_weights is not None:
         logits, ga_pen = wmodel.decode_full(
             params, cfg, tokens[:, :-1], enc, flash_cross=True,
-            ga_weights=ga_weights, ga_row_mask=loss_mask)
+            ga_weights=ga_weights, ga_row_mask=loss_mask,
+            ga_norm=mask_total)
     else:
         ga_pen = None
         logits = wmodel.decode_full(params, cfg, tokens[:, :-1], enc,
@@ -66,7 +86,8 @@ def cross_entropy_loss(
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, targets[..., None])[..., 0]
     mask = loss_mask.to(nll.dtype)
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum() if mask_total is None else mask_total
+    loss = (nll * mask).sum() / torch.clamp(count, min=1.0)
     if ga_pen is not None:
         loss = loss + (ga_scale if ga_scale is not None else 1.0) * ga_pen
     return loss
@@ -158,33 +179,51 @@ class AdamW:
 
 
 def loss_and_grads(params: dict, cfg: WhisperConfig, mel, tokens, loss_mask,
-                   ga_weights=None, ga_scale=None, remat: bool = False):
+                   ga_weights=None, ga_scale=None, remat: bool = False,
+                   data_group=None):
     """``jax.value_and_grad`` of ``cross_entropy_loss`` with respect to
     every leaf of ``params`` (all floating point: fine-tuning needs a
     float tree, e.g. ``quantization.dequantize_params`` of an int8 one).
     Inputs may be numpy; they go to the parameters' device. Returns (the
-    0-d loss, a tree of gradients)."""
+    0-d loss, a tree of gradients). With ``data_group`` (the data axis's
+    group) the inputs are this rank's rows: the loss is normalised by the
+    whole batch's target count, and the loss and the gradients returned
+    are summed over the data axis, the whole batch's."""
     leaves = tree_leaves(params)
     if not all(t.is_floating_point() for t in leaves):
         raise TypeError("fine-tuning needs a float parameter tree; "
                         "dequantize int8 weights first")
     dev = leaves[0].device
-    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    live = partition.adopt(
+        tree_map(lambda t: t.detach().requires_grad_(True), params), params)
     mel = to_tensor(mel, dev, leaves[0].dtype)
     tokens = to_tensor(tokens, dev, torch.long)
     loss_mask = to_tensor(loss_mask, dev, torch.float32)
+    mask_total = None
+    if data_group is not None:
+        mask_total = all_reduce_(loss_mask.sum(), data_group)
     if ga_weights is not None:
         ga_weights = to_tensor(ga_weights, dev, torch.float32)
     # full fp32 on the card: cuDNN would run the conv stem in TF32
     set_fp32_precision()
     with torch.enable_grad():
         loss = cross_entropy_loss(live, cfg, mel, tokens, loss_mask,
-                                  ga_weights, ga_scale, remat_encoder=remat)
+                                  ga_weights, ga_scale, remat_encoder=remat,
+                                  mask_total=mask_total)
         flat = tree_leaves(live)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = iter([torch.zeros_like(t) if g is None else g
-                  for t, g in zip(flat, grads)])
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(flat, grads)]
+    loss = loss.detach()
+    if data_group is not None:
+        # one all-reduce for every gradient, and one for the loss
+        summed = all_reduce_(torch.cat([g.reshape(-1) for g in grads]),
+                             data_group)
+        grads = [s.view_as(g) for s, g in zip(
+            summed.split([g.numel() for g in grads]), grads)]
+        loss = all_reduce_(loss.clone(), data_group)
+    grads = iter(grads)
+    return loss, tree_map(lambda _: next(grads), params)
 
 
 def make_train_step(cfg: WhisperConfig, optimizer: Optional[AdamW] = None,
@@ -193,18 +232,24 @@ def make_train_step(cfg: WhisperConfig, optimizer: Optional[AdamW] = None,
     tokens, loss_mask, ga_weights=None, ga_scale=None)`` returns (params,
     opt_state, loss), the first two updated in place. The default
     optimizer is ``AdamW(1e-4)``, as the JAX package's ``optax.adamw(1e-4)``.
-    ``remat=True`` rematerializes the encoder per layer. A ``mesh`` (the
-    JAX package's sharded step) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded train step (mesh) is not ported yet; train on one "
-            "device")
+    ``remat=True`` rematerializes the encoder per layer. With a ``mesh``
+    the step runs inside it on this rank's shards of the parameters and
+    its rows of the whole batch it is given (which the data axis must
+    divide), and returns the whole batch's loss."""
+    check_mesh(mesh)
     optimizer = optimizer or AdamW(1e-4)
+    data_group = None if mesh is None else axis_group(mesh, "data")
+
+    def rows(x):
+        return split_batch(x if isinstance(x, torch.Tensor)
+                           else np.asarray(x), mesh)
 
     def step(params, opt_state, mel, tokens, loss_mask, ga_weights=None,
              ga_scale=None):
-        loss, grads = loss_and_grads(params, cfg, mel, tokens, loss_mask,
-                                     ga_weights, ga_scale, remat=remat)
+        with mesh if mesh is not None else contextlib.nullcontext():
+            loss, grads = loss_and_grads(
+                params, cfg, rows(mel), rows(tokens), rows(loss_mask),
+                ga_weights, ga_scale, remat=remat, data_group=data_group)
         optimizer.update(params, grads, opt_state)
         return params, opt_state, loss
 

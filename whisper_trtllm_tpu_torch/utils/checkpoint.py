@@ -11,10 +11,17 @@ numpy names ``"bfloat16"`` only once ``ml_dtypes`` is imported, which the
 port never does: a bfloat16 payload is read as raw 2-byte words into a
 ``torch.bfloat16`` tensor, and a bfloat16 tensor is written as such a
 payload with the same bits, as flax writes it.
+
+A tree cut over a mesh (``parallel/partition.py``) goes to a sharded
+checkpoint (``save_sharded``/``load_sharded``) in the format of
+``torch.distributed.checkpoint`` (DCP: a directory of ``.distcp`` files
+and a ``.metadata``), where the JAX package writes orbax's: each rank writes
+its shards, and a loader reads only the slices its own shards need.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from pathlib import Path
 from typing import Optional, Tuple
@@ -162,3 +169,116 @@ def save_checkpoint(path: str, params: dict, cfg: WhisperConfig) -> None:
         f.write(packed)
     with open(os.path.join(path, "config.json"), "w") as f:
         f.write(cfg.to_json())
+
+
+def _contiguous_stride(shape: tuple) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= max(n, 1)
+    return tuple(reversed(stride))
+
+
+def save_sharded(path: str, params: dict,
+                 cfg: Optional[WhisperConfig] = None) -> None:
+    """Write ``params`` as a DCP checkpoint in the directory ``path``, each
+    leaf under its dotted path. On a tree that ``shard_params`` cut, every
+    rank of its mesh calls this and writes its own shards: each leaf goes
+    in as a ``DTensor`` whose placements say which shards are whose (a
+    plain tensor would stand for the whole leaf, replicated, and one rank's
+    shard would be written as if it were all of it). A leaf cut over the
+    model axis is stored with its cut dim split into (groups, units, unit)
+    (``Cut.view``), so that DCP's even chunks of the units are the cut by
+    whole heads. A tree without a layout is written whole and needs
+    ``cfg`` for the head counts of that split."""
+    from torch.distributed.checkpoint import save
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from whisper_trtllm_tpu_torch.parallel import partition
+
+    layout = partition.layout_of(params)
+    if layout is None:
+        if cfg is None:
+            raise ValueError("save_sharded: a tree that shard_params did not "
+                             "cut needs cfg (its attention projections are "
+                             "stored by heads)")
+        cuts = partition.tree_cuts(params, cfg)
+    else:
+        cuts = layout.cuts
+    state = {}
+    for p, leaf in partition.leaves(params):
+        t, whole = leaf.detach(), tuple(leaf.shape)
+        cut = cuts.get(p)
+        if cut is not None:
+            n = (cut.count if layout is None else partition.chunk_range(
+                cut.count, layout.tp, layout.rank)[1])
+            t, whole = t.reshape(cut.view(t.shape, n)), cut.view(t.shape)
+        if layout is not None:
+            t = DTensor.from_local(
+                t, layout.mesh, [Replicate(), Shard(cut.dim + 1)
+                                 if cut is not None else Replicate()],
+                run_check=False, shape=torch.Size(whole),
+                stride=_contiguous_stride(whole))
+        state[".".join(p)] = t
+    save(state, checkpoint_id=path)
+
+
+def load_sharded(path: str, shardings=None, device=None) -> dict:
+    """Read a ``save_sharded`` checkpoint. With ``shardings`` (a mesh of
+    ``parallel.make_mesh``) every rank of it calls this and gets its own
+    shards, cut as ``shard_params`` cuts them, read straight into them (no
+    whole tree is formed) on the mesh's device, with their layout recorded;
+    the mesh may differ from the one that wrote the checkpoint. Without, the
+    whole tree on ``device`` (the CUDA card by default)."""
+    from torch.distributed.checkpoint import FileSystemReader, load
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from whisper_trtllm_tpu_torch.parallel import partition
+
+    meta = FileSystemReader(path).read_metadata().state_dict_metadata
+    skeleton: dict = {}
+    for key, m in meta.items():
+        partition.set_path(skeleton, tuple(key.split(".")), m)
+    layout = None if shardings is None else partition.make_layout(
+        shardings, {})
+    dev = (torch.device(shardings.device_type) if shardings is not None
+           else resolve_device(device))
+    state, shapes = {}, {}
+    for p, m, spec in partition.leaves_with_specs(
+            skeleton, partition.default_specs(skeleton)):
+        vshape, dtype = tuple(m.size), m.properties.dtype
+        key, cut, n = ".".join(p), None, None
+        shape = vshape
+        if "model" in spec:
+            dim = spec.index("model")
+            shape = (vshape[:dim] + (math.prod(vshape[dim:dim + 3]),)
+                     + vshape[dim + 3:])
+            cut = partition.leaf_cut(p, shape, spec, {p[0]: vshape[dim + 1]},
+                                     1 if layout is None else layout.tp)
+        if layout is None:
+            state[key] = torch.empty(vshape, dtype=dtype, device=dev)
+        elif cut is None:
+            state[key] = DTensor.from_local(
+                torch.empty(vshape, dtype=dtype, device=dev), shardings,
+                [Replicate(), Replicate()], run_check=False)
+        else:
+            layout.cuts[p] = cut
+            n = partition.chunk_range(cut.count, layout.tp, layout.rank)[1]
+            state[key] = DTensor.from_local(
+                torch.empty(cut.view(shape, n), dtype=dtype, device=dev),
+                shardings, [Replicate(), Shard(cut.dim + 1)],
+                run_check=False, shape=torch.Size(vshape),
+                stride=_contiguous_stride(vshape))
+        shapes[key] = (p, shape, cut, n)
+    load(state, checkpoint_id=path)
+    tree: dict = {}
+    for key, (p, shape, cut, n) in shapes.items():
+        t = state[key]
+        if isinstance(t, DTensor):
+            t = t.to_local()
+        if cut is not None:
+            n = cut.count if n is None else n
+            t = t.reshape(shape[:cut.dim] + (cut.groups * n * cut.unit,)
+                          + shape[cut.dim + 1:])
+        partition.set_path(tree, p, t)
+    return tree if layout is None else partition.record(tree, layout)
