@@ -11,7 +11,7 @@ K5, its fused decoder-layer step K6 and its bias+GELU K8 from its own
 (parent, this, this, parent), as ``parent_ms`` on their lines; without it
 nothing else is built.
 
-Seven phases (and phase 5b), each timed; any failure raises and the script exits non-zero:
+Seven phases (and phases 2b and 5b), each timed; any failure raises and the script exits non-zero:
 
 1. build — compiles every kernel of the main paths from ``csrc/`` with
    ``nvcc`` for sm_90a (one ``nvcc`` per source, all at once: eight
@@ -35,11 +35,43 @@ Seven phases (and phase 5b), each timed; any failure raises and the script exits
    phase's 16 lanes: the quantized decode attention, the decode step's
    LayerNorm and the fused decoder-layer step; and from a fourth, the
    decode attention at the in-flight batcher's shape, 8 lanes at lengths
-   1..225 in one launch, float and int8 caches, fp32 q), and times the kernel, the plain
+   1..225 in one launch, float and int8 caches, fp32 q; and the zoo's:
+   K1 causal at 800 positions at gpt_350m's heads and llama_7b's, 32
+   heads over 32 and over 8 key/value heads, K2 at the zoo's steps), every
+   input drawn on the card by a CUDA generator seeded from the check's
+   own tag (``CardRng``), K3 held to its plain version's formula in
+   float64 (the witness), and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
    same function (the yardstick; the port never calls it), and the launch
    floor: PyTorch's spin kernel given nothing to do,
    ``torch.cuda._sleep(0)``, the least time one launch takes;
+2b. zoo (right after phase 2) — the causal-LM zoo's generation path (``runtime/causal_lm.py``,
+   ``runtime/beam_lm.py``) on weights from ``init_params(seed=0)`` drawn
+   on the host beside the kernels phase: gpt_350m at full width and depth
+   (24 layers, d 1024, vocabulary 51200) in fp32, lockstep greedy at
+   batch 4 from a prompt of 800 (K1 in the prefill) and of 32 (no K1),
+   ragged at lengths 800/790/780/770 (each lane equal to its own lockstep
+   run at batch 1), a repetition penalty with a bad and a stop word, a
+   sampled call (its seed twice equal, another seed otherwise),
+   p-tuning with a prompt table of 2 tasks, beams K 4 at batch 2, and a
+   bf16 lockstep call (printed, not gated); opt_350m lockstep and ragged;
+   llama_7b's widths cut to 2 layers, lockstep at batch 2 from 800 and
+   beams, and the same widths with 8 key/value heads (GQA in K1 and in
+   the step). Every call's launches are exact over the steps it ran (K1 a
+   layer for a prompt past 768, K2 a layer a step, K5 2L + 1 a prefill
+   and a step for GPT and OPT, none for LLaMA), with one capture and
+   then replays, and a repeat call that only replays and gives the same
+   outputs; a gpt_350m call from the long prompt (8 new tokens) counts
+   what the profiler counts over it. Lane 0 of
+   each greedy call equals the argmax of the port's teacher-forced
+   ``forward`` on the CPU over the card's sequence (the rules applied for
+   the rule-bound call), a step whose CPU top-two gap lies under
+   ``ZOO_GAP`` of max |logit| ending the comparison; beam scores within
+   ``ZOO_BEAM_SCORE_TOLERANCE`` of the CPU's beams. Then ``bench_zoo``
+   (``benchmarks/benchmark.py --model gpt_350m``, one row) and
+   ``cli/run_zoo.py --family gpt`` as subprocesses (the latter's tokens
+   against the CPU's argmax). Each call's ms, its capture's and the
+   prefill's, and a repeat's ms a step are printed;
 3. hardware check and example — runs ``python -m
    whisper_trtllm_tpu_torch.cli.gpu_check`` (every check of the port's
    counterpart of ``cli/tpu_check.py``, among them K7's
@@ -178,7 +210,8 @@ the beam path's first transcribe's (B; E for K6) as "beam_launches",
 the in-flight batcher's first drain in int8-auto as "serve_launches",
 one speculative utterance (S1 at gamma 4; S2 for K6) as "spec_launches";
 K2's batcher shape under "batcher"; K1's, K2's and K4's rows at the local
-head counts under "local_heads");
+head counts under "local_heads"; K1's and K2's at the zoo's shapes under
+"zoo", and gpt_350m's lockstep call at prompt 800 as "zoo_launches");
 the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -195,6 +228,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(ROOT, "artifacts", "tiny_en_synth_int8")
@@ -216,8 +250,9 @@ FLASH_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # bf16 before P·V, and a bf16 LayerNorm output may round the other way (one
 # bf16 step, checked relative to max(|plain|, 1))
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
-# log10-mel values: the JAX package's STFT tolerance (fp32 DFT sums in
-# another order, amplified by log10 near the floor)
+# log10-mel values of K3 against the plain version's formula in float64:
+# the JAX package's STFT tolerance (fp32 DFT sums, amplified by log10 near
+# the floor)
 STFT_TOLERANCE = 2e-4
 SOURCES = ["flash_attention", "flash_attention_bwd", "decode_attention",
            "stft", "layer_norm", "fused_decoder_step", "cross_attention",
@@ -280,13 +315,29 @@ def time_ms(torch, fn, arg_sets, iters: int) -> float:
         iters //= 2
 
 
-def device_normal(torch, rng, shape, scale=1.0):
-    """fp32 standard normals times ``scale`` on the card, drawn by a CUDA
-    generator seeded from ``rng`` (the local-head checks; numpy draws ~55 M
-    values a second on the host)."""
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(int(rng.integers(2 ** 62)))
-    return torch.randn(shape, generator=gen, device=DEVICE) * scale
+class CardRng:
+    """The kernel checks' normals, drawn on the card by a CUDA generator
+    seeded from ``SEED`` and the check's tag: each check's inputs depend on
+    its own draws only, whatever the checks before it drew (numpy draws
+    ~55 M values a second on the host). ``standard_normal`` takes numpy's
+    arguments and returns an fp32 tensor on the card."""
+
+    def __init__(self, torch, tag: str):
+        import zlib
+
+        self.torch = torch
+        self.gen = torch.Generator(device=DEVICE)
+        self.gen.manual_seed(SEED * 2 ** 32 + zlib.crc32(tag.encode()))
+
+    def standard_normal(self, shape, dtype="float32"):
+        return self.torch.randn(shape, generator=self.gen, device=DEVICE)
+
+
+def card_tensor(torch, x, dtype=None):
+    """``x`` (a tensor or a numpy array) on the card, in ``dtype``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(x)
+    return x.to(DEVICE, dtype)
 
 
 def n_sets(set_bytes: float) -> int:
@@ -364,11 +415,18 @@ FLASH_CASES = [  # (name, B, H, Hkv, S=T, dh, causal)
 BENCH_FLASH_CASES = [("encoder", 32, 6, 6, 1500, 64, False),
                      ("encoder", 16, 16, 16, 1500, 64, False),
                      ("encoder", 16, 20, 20, 1500, 64, False)]
+# the zoo phase's causal prefills: gpt_350m and opt_350m at batch 4, the
+# 2-layer llama_7b widths at batch 2, its 32 heads over 32 and over 8
+# key/value heads, 800 positions
+ZOO_FLASH_CASES = [("zoo gpt", 4, 16, 16, 800, 64, True),
+                   ("zoo llama", 2, 32, 32, 800, 128, True),
+                   ("zoo llama gqa", 2, 32, 8, 800, 128, True)]
 
 
 def check_flash(torch, rng, card, cases=FLASH_CASES):
     """K1 at ``cases``; returns the batch-4 encoder's numbers (fp32, the
-    bf16 ones under "bfloat16"), None where ``cases`` has no such case."""
+    bf16 ones under "bfloat16"), or the zoo cases' by name and dtype, None
+    where ``cases`` has neither."""
     import torch.nn.functional as F
 
     from whisper_trtllm_tpu_torch.ops.kernels import (
@@ -387,7 +445,7 @@ def check_flash(torch, rng, card, cases=FLASH_CASES):
                 q = rng.standard_normal((b, h, s, dh), dtype="float32") / math.sqrt(dh)
                 k = rng.standard_normal((b, hkv, s, dh), dtype="float32")
                 v = rng.standard_normal((b, hkv, s, dh), dtype="float32")
-                sets.append(tuple(torch.from_numpy(x).to(DEVICE, dtype)
+                sets.append(tuple(card_tensor(torch, x, dtype)
                                   for x in (q, k, v)))
             q, k, v = sets[0]
             out = flash_fwd(q, k, v, causal=causal)
@@ -414,13 +472,17 @@ def check_flash(torch, rng, card, cases=FLASH_CASES):
                   f"(tol {TOLERANCE[dn]}) ms={ms:.4f} plain_ms={plain:.4f} "
                   f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
                   f"[{card}]")
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib)
             if (name, b) == ("encoder", 4):
-                row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                           bound_ms=b_ms, bound_by=b_by, library_ms=lib)
                 if dtype == torch.float32:
                     headline = row
                 else:
                     headline["bfloat16"] = row
+            elif name.startswith("zoo"):
+                if headline is None:
+                    headline = {}
+                headline.setdefault(name, {})[dn] = row
             del sets
     return headline
 
@@ -468,7 +530,7 @@ def check_decode(torch, rng, card, parent=None):
                 q = rng.standard_normal((b, h, 1, dh), dtype="float32") / math.sqrt(dh)
                 k = rng.standard_normal((b, h, t, dh), dtype="float32")
                 v = rng.standard_normal((b, h, t, dh), dtype="float32")
-                sets.append(tuple(torch.from_numpy(x).to(DEVICE, dtype)
+                sets.append(tuple(card_tensor(torch, x, dtype)
                                   for x in (q, k, v)))
             q, k, v = sets[0]
             err = 0.0
@@ -512,6 +574,72 @@ def check_decode(torch, rng, card, parent=None):
                 else:
                     headline["bfloat16"] = row
     return headline
+
+
+# the zoo phase's steps, float caches in q's dtype: (name, B, H, T, dh,
+# valid lengths a lane at the timed step): gpt_350m's last step at batch 4
+# (800 + 64 rows), its ragged lanes, its beams (B·K 8, 32 + 64 rows), the
+# 2-layer llama_7b's last step at batch 2 (800 + 32 rows, the cache
+# repeated to 32 heads)
+ZOO_DECODE_CASES = [("gpt step", 4, 16, 864, 64, [864] * 4),
+                    ("gpt ragged", 4, 16, 864, 64, [864, 854, 844, 834]),
+                    ("gpt beam", 8, 16, 96, 64, [96] * 8),
+                    ("llama step", 2, 32, 832, 128, [832] * 2)]
+
+
+def check_decode_zoo(torch, rng, card):
+    """K2 at the zoo's step shapes (``ZOO_DECODE_CASES``), fp32 and bf16,
+    with a per-lane valid length; timed beside SDPA over the same rows (a
+    boolean mask past each lane's length). Returns the rows by case name
+    and dtype."""
+    import torch.nn.functional as F
+
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        decode_attention_reference,
+        decode_attn,
+    )
+
+    rows_out = {}
+    for name, b, h, t, dh, lens in ZOO_DECODE_CASES:
+        vlt = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        mask = (torch.arange(t, device=DEVICE)[None, :]
+                < vlt[:, None])[:, None, None, :]
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            item = torch.tensor([], dtype=dtype).element_size()
+            sets = []
+            for _ in range(n_sets(2 * b * h * t * dh * item)):
+                q = rng.standard_normal((b, h, 1, dh)) / math.sqrt(dh)
+                k = rng.standard_normal((b, h, t, dh))
+                v = rng.standard_normal((b, h, t, dh))
+                sets.append(tuple(card_tensor(torch, x, dtype)
+                                  for x in (q, k, v)))
+            out = decode_attn(*sets[0], vlt)
+            ref = decode_attention_reference(*sets[0], vlt)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if not math.isfinite(err) or err > TOLERANCE[dn]:
+                fail(f"decode_attn {name} {dn}: max |kernel - plain| = "
+                     f"{err} > {TOLERANCE[dn]}")
+            ms = time_ms(torch, lambda q, k, v: decode_attn(q, k, v, vlt),
+                         sets, 200)
+            plain = time_ms(torch, lambda q, k, v: decode_attention_reference(
+                q, k, v, vlt), sets, 200)
+            lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=1.0), sets, 200)
+            rows = h * sum(lens)
+            nbytes = 2 * b * h * dh * item + 2 * rows * dh * item + 4 * b
+            b_ms, b_by = bound(nbytes, 4.0 * rows * dh, dn)
+            print(f"kernel decode_attn {name} {dn} B={b} H={h} T={t} dh={dh} "
+                  f"valid_len={lens} {_split_note(sets[0][0], sets[0][1], False)}"
+                  f": max_abs_err={err:.3e} (tol {TOLERANCE[dn]}) "
+                  f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+            rows_out.setdefault(name, {})[dn] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+            del sets
+    return rows_out
 
 
 # (name, B, H, T, valid lengths checked, valid length timed): a per-lane
@@ -565,12 +693,12 @@ def check_decode_quant(torch, rng, card, parent=None, cases=QUANT_CASES):
                         q = rng.standard_normal((b, h, 1, dh), dtype="float32") / math.sqrt(dh)
                         k = rng.standard_normal((b, h, t, dh), dtype="float32")
                         v = rng.standard_normal((b, h, t, dh), dtype="float32")
-                        kq, ks = quantize_kv(torch.from_numpy(k).to(DEVICE), qdt)
-                        vq, vs = quantize_kv(torch.from_numpy(v).to(DEVICE), qdt)
+                        kq, ks = quantize_kv(card_tensor(torch, k), qdt)
+                        vq, vs = quantize_kv(card_tensor(torch, v), qdt)
                         if t_major:
                             kq = kq.transpose(-1, -2).contiguous()
                             vq = vq.transpose(-1, -2).contiguous()
-                        sets.append((torch.from_numpy(q).to(DEVICE, dtype),
+                        sets.append((card_tensor(torch, q, dtype),
                                      kq, vq, ks, vs))
                     q, kq, vq, ks, vs = sets[0]
                     err = 0.0
@@ -634,12 +762,20 @@ BENCH_STFT_CASES = [(32, 80)]
 def check_stft(torch, rng, card, parent=None, cases=STFT_CASES):
     """K3 at the frontend's shapes, 3003 blocks of 160 samples, half of one
     utterance silent (``STFT_CASES``, or the bench's ``BENCH_STFT_CASES``);
-    timed beside the ``parent``'s K3 where one is given. Returns the
-    batch-4, 80-mel numbers, None where ``cases`` has no such case."""
+    timed beside the ``parent``'s K3 where one is given. The kernel is held
+    to the plain version's formula run in float64 (the witness), within
+    ``STFT_TOLERANCE``: the plain version in fp32 is the farther of the two
+    from the witness where they part by more than the limit (PERF.md §6;
+    ``benchmarks/stft_witness.py``), so |kernel - plain| is printed beside
+    it, not gated. Returns the batch-4, 80-mel numbers, None where
+    ``cases`` has no such case."""
     from whisper_trtllm_tpu_torch.audio.features import (
         HOP_LENGTH,
         N_FFT,
         LogMelSpectrogram,
+    )
+    from whisper_trtllm_tpu_torch.benchmarks.stft_witness import (
+        stft_log_mel_witness,
     )
     from whisper_trtllm_tpu_torch.ops.kernels import (
         stft_log_mel,
@@ -655,14 +791,17 @@ def check_stft(torch, rng, card, parent=None, cases=STFT_CASES):
         for _ in range(n_sets(b * n_blocks * HOP_LENGTH * 4)):
             x = rng.standard_normal((b, n_blocks, HOP_LENGTH), dtype="float32") * 0.1
             x[1, n_blocks // 2:] = 0.0  # silence: power at the 1e-10 floor
-            sets.append((torch.from_numpy(x).to(DEVICE),))
+            sets.append((card_tensor(torch, x),))
         out = stft_log_mel(sets[0][0], basis, mel_fb)
         ref = stft_log_mel_reference(sets[0][0], basis, mel_fb)
+        wit = stft_log_mel_witness(sets[0][0], basis, mel_fb)
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
+        err = (out - wit).abs().max().item()
+        plain_err = (ref - wit).abs().max().item()
+        kp = (out - ref).abs().max().item()
         if not math.isfinite(err) or err > STFT_TOLERANCE:
-            fail(f"stft_log_mel B={b} M={n_mels}: max |kernel - plain| = {err} > "
-                 f"{STFT_TOLERANCE}")
+            fail(f"stft_log_mel B={b} M={n_mels}: max |kernel - witness| = "
+                 f"{err} > {STFT_TOLERANCE}")
         ms, p_ms = time_beside(
             torch, lambda x: stft_log_mel(x, basis, mel_fb),
             parent and (lambda x: parent["stft_log_mel"](x, basis, mel_fb)),
@@ -683,7 +822,9 @@ def check_stft(torch, rng, card, parent=None, cases=STFT_CASES):
         b_by = "operations" if t_ops >= t_bytes else "bytes"
         print(f"kernel stft_log_mel B={b} blocks={n_blocks}x{HOP_LENGTH} "
               f"taps={N_FFT} M={n_mels} float32: max_abs_err={err:.3e} "
-              f"(tol {STFT_TOLERANCE}) ms={ms:.4f} {parent_note(p_ms)}"
+              f"against the fp64 witness (tol {STFT_TOLERANCE}; plain fp32 "
+              f"{plain_err:.3e} from it, |kernel - plain| {kp:.3e}) "
+              f"ms={ms:.4f} {parent_note(p_ms)}"
               f"plain_ms={plain:.4f} library_ms=none bound_ms={b_ms:.4f} "
               f"({b_by}) [{card}]")
         if (b, n_mels) == (4, 80):
@@ -737,7 +878,7 @@ def check_layer_norm(torch, rng, card, floor_ms, parent=None,
                 x = rng.standard_normal(shape, dtype="float32") * 2 + 0.5
                 g = 1 + 0.1 * rng.standard_normal(d, dtype="float32")
                 bb = 0.1 * rng.standard_normal(d, dtype="float32")
-                sets.append(tuple(torch.from_numpy(a).to(DEVICE, dtype)
+                sets.append(tuple(card_tensor(torch, a, dtype)
                                   for a in (x, g, bb)))
             x, g, bb = sets[0]
             err = 0.0
@@ -816,7 +957,7 @@ def check_fused(torch, rng, card, parent=None, cases=FUSED_CASES):
 
         def tensor(shape, scale):
             x = rng.standard_normal(shape, dtype="float32") * scale
-            return torch.from_numpy(x).to(DEVICE, dtype)
+            return card_tensor(torch, x, dtype)
 
         def dense(din, dout):
             return {"kernel": tensor((din, dout), din ** -0.5),
@@ -930,7 +1071,7 @@ def check_flash_bwd(torch, rng, card):
                 k = rng.standard_normal((b, hkv, t, dh), dtype="float32")
                 v = rng.standard_normal((b, hkv, t, dh), dtype="float32")
                 do = rng.standard_normal((b, h, s, dh), dtype="float32")
-                q, k, v, do = (torch.from_numpy(x).to(DEVICE, dtype)
+                q, k, v, do = (card_tensor(torch, x, dtype)
                                for x in (q, k, v, do))
                 _, lse = flash_fwd(q, k, v, causal=causal, with_lse=True)
                 sets.append((q, k, v, lse, do))
@@ -1016,7 +1157,7 @@ def check_cross(torch, rng, card, parent=None):
                 q = rng.standard_normal((b, h * dh), dtype="float32") / math.sqrt(dh)
                 k = rng.standard_normal((b, t, h * dh), dtype="float32")
                 v = rng.standard_normal((b, t, h * dh), dtype="float32")
-                sets.append(tuple(torch.from_numpy(x).to(DEVICE, dtype)
+                sets.append(tuple(card_tensor(torch, x, dtype)
                                   for x in (q, k, v)))
             q, k, v = sets[0]
             err = 0.0
@@ -1084,8 +1225,8 @@ def check_gelu(torch, rng, card, floor_ms, parent=None):
         for _ in range(n_sets(2 * rows * d * item)):
             x = rng.standard_normal((rows, d), dtype="float32")
             bias = rng.standard_normal(d, dtype="float32")
-            sets.append((torch.from_numpy(x).to(DEVICE, dtype),
-                         torch.from_numpy(bias).to(DEVICE, dtype)))
+            sets.append((card_tensor(torch, x, dtype),
+                         card_tensor(torch, bias, dtype)))
         out = fused_bias_gelu(*sets[0])
         ref = fused_bias_gelu_reference(*sets[0])
         torch.cuda.synchronize()
@@ -1309,16 +1450,37 @@ def k6_gate_cost(torch, session, enc, gen, card):
 
 # the kernels a captured decode step launches, by the names the profiler
 # traces (csrc/decode_attention.cu, layer_norm.cu, fused_decoder_step.cu)
+# host seconds a trace keeps on each side of the traced call (traced_run)
+TRACE_PAD_S = 1.0
+# traces of one call that may come out short of kernel records before the
+# last one is returned as it is (traced_run)
+TRACE_ATTEMPTS = 5
 KERNEL_SYMBOLS = {"decode_attn": ("decode_dh_minor", "decode_direct",
                                   "decode_t_minor"),
                   "layer_norm": ("layer_norm_kernel",),
                   "fused_decoder_layer_step": ("fused_step_kernel",)}
 
 
-def traced_run(torch, fn):
+def traced_run(torch, fn, symbols=None):
     """``fn`` under ``torch.profiler``, counted from zero: (the card's busy
-    ms, the kernel launches the trace holds of each wrapper in
-    ``KERNEL_SYMBOLS``, the wrappers' own counts of them)."""
+    ms, the kernel launches the trace holds of each wrapper in ``symbols``
+    (default ``KERNEL_SYMBOLS``), the wrappers' own counts of them).
+
+    The trace keeps the card's records that fall inside its window on the
+    host's clock, the card's timestamps mapped onto it: ``TRACE_PAD_S`` of
+    the host's time on both sides of ``fn`` keep its first and last
+    launches away from the window's edges. CUPTI is torn down after each
+    trace and attaches again at the next one's first CUDA calls: a few
+    small kernels and a sync (some microseconds of the busy time) make
+    those calls before the pad, so that ``fn``'s first launches are not.
+
+    CUPTI has dropped a few kernel records from a trace of a replayed
+    call whose next trace held them all. A trace that holds fewer records
+    of some wrapper's kernel than the wrapper counted, and more of none,
+    is printed and taken again, the decode loop's counts put back as they
+    were before it, up to ``TRACE_ATTEMPTS`` traces. The caller holds the
+    returned trace to the counters exactly, so a count that is wrong on
+    every call still fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1326,20 +1488,38 @@ def traced_run(torch, fn):
         KERNELS,
         reset_launch_counts,
     )
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
     from whisper_trtllm_tpu_torch.utils.profile_transcribe import _device_us
 
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    symbols = symbols or KERNEL_SYMBOLS
+    loop_before = dict(vars(gen_rt.LOOP))
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        vars(gen_rt.LOOP).update(loop_before)
         torch.cuda.synchronize()
-    counted = {k: KERNELS[k].launches for k in KERNEL_SYMBOLS}
-    traced = {k: 0 for k in KERNEL_SYMBOLS}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            for k, names in KERNEL_SYMBOLS.items():
-                traced[k] += any(n in e.name for n in names)
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            warm = torch.zeros(1, device=DEVICE)
+            for _ in range(4):
+                warm.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+        counted = {k: KERNELS[k].launches for k in symbols}
+        traced = {k: 0 for k in symbols}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                for k, names in symbols.items():
+                    traced[k] += any(n in e.name for n in names)
+        short = any(traced[k] < counted[k] for k in symbols)
+        over = any(traced[k] > counted[k] for k in symbols)
+        if not short or over or attempt == TRACE_ATTEMPTS:
+            break
+        print(f"traced_run: trace {attempt} of at most {TRACE_ATTEMPTS} "
+              f"holds {traced} kernel records for the wrappers' {counted} "
+              f"launches; tracing the call again")
     busy = sum(_device_us(e) for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and not e.key.startswith("Activity Buffer")) / 1e3
@@ -2483,8 +2663,9 @@ def clis_and_engine(torch, np, card):
     a call equal to the session's and to the profiler's (K1, K2, K5 in B;
     K1, K5, K6 in E), one capture and a second call that only replays;
     and a fresh process that exports before any decode transcribes C1's
-    fp32 tokens. C3: ``cli.warm_cache`` builds every kernel library into
-    an empty directory and warms batch 1 and 4; a fresh process whose
+    fp32 tokens. C3: ``cli.warm_cache`` over a directory that holds phase
+    1's libraries finds every kernel built and warms batch 1 and 4; a
+    fresh process whose
     session has ``persistent_cache_dir`` there transcribes 4/4 and runs no
     ``nvcc`` (the libraries' mtimes unchanged, no new log). C4: B with each
     inert option (``INERT_OPTIONS``) set False: B's tokens and launches.
@@ -2508,6 +2689,7 @@ def clis_and_engine(torch, np, card):
     from whisper_trtllm_tpu_torch.models.whisper import encode, init_params
     from whisper_trtllm_tpu_torch.ops.kernels import (
         KERNELS,
+        _build,
         reset_launch_counts,
     )
     from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import layer_norm
@@ -2536,7 +2718,16 @@ def clis_and_engine(torch, np, card):
     cache = os.path.join(d, "cache")
     toy = os.path.join(d, "toy")
 
-    # C3 (a) and C6 start first: the build and the toy loop take longest
+    # C3 (a) and C6 start first: the warm-ups and the toy loop take
+    # longest. The cache directory starts with phase 1's libraries (the
+    # same digests), so warm_cache finds them built: rebuilding all seven
+    # here took ~100 s of nvcc beside the toy loop and checked nothing
+    # phase 1 does not
+    os.makedirs(cache)
+    for src in SOURCES:
+        lib = _build.library_path(src)
+        for f in (lib, lib.with_suffix(".log")):
+            shutil.copy2(f, cache)
     warm = Child("warm_cache", [
         "-m", "whisper_trtllm_tpu_torch.cli.warm_cache", "--checkpoint",
         ARTIFACT, "--batch", "1", "4", "--gen-tokens", "48", "--cache-dir",
@@ -3031,7 +3222,7 @@ def check_local_heads(torch, rng, card):
     out = {"flash_fwd": [], "flash_bwd": [], "decode_attn": []}
 
     def normal(*shape, scale=1.0):
-        return device_normal(torch, rng, shape, scale)
+        return rng.standard_normal(shape) * scale
 
     for h, why in LOCAL_HEADS:
         for dtype in (torch.float32, torch.bfloat16):
@@ -3344,7 +3535,7 @@ def parallel(torch, np, card):
         fail(f"scaling: rows {rows}")
     print(f"parallel scaling (torchrun --nproc-per-node 1): {rows[0]} "
           f"[{card}]")
-    return check_local_heads(torch, np.random.default_rng(SEED + 4), card)
+    return check_local_heads(torch, CardRng(torch, "local heads"), card)
 
 
 # --------------------------------------------------------------------------
@@ -3702,10 +3893,10 @@ def check_decode_batcher(torch, rng, card):
     for kind in ("float", "int8"):
         sets = []
         for _ in range(n_sets(2 * b * h * t * dh * 4)):
-            q = torch.from_numpy(rng.standard_normal(
-                (b, h, 1, dh), dtype="float32") / math.sqrt(dh)).to(DEVICE)
-            k, v = (torch.from_numpy(rng.standard_normal(
-                (b, h, t, dh), dtype="float32")).to(DEVICE) for _ in "kv")
+            q = card_tensor(torch, rng.standard_normal(
+                (b, h, 1, dh), dtype="float32") / math.sqrt(dh))
+            k, v = (card_tensor(torch, rng.standard_normal(
+                (b, h, t, dh), dtype="float32")) for _ in "kv")
             if kind == "int8":
                 (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
                 sets.append((q, kq, vq, ks, vs))
@@ -4179,6 +4370,528 @@ def load_drain(torch, card, params, cfg, waves, expected):
           f"{dbl / plain:.4f} of the median wall")
 
 
+# --------------------------------------------------------------------------
+# phase 2b: the causal-LM zoo's generation path
+# --------------------------------------------------------------------------
+
+ZOO_BATCH = 4
+ZOO_NEW = 64
+# a prompt of 800 positions: the prefill's causal attention is K1 (from
+# 768 on, the JAX package's dispatch); 32: the plain formula
+ZOO_LONG, ZOO_SHORT = 800, 32
+ZOO_RAGGED = (800, 790, 780, 770)
+ZOO_LLAMA_BATCH, ZOO_LLAMA_NEW = 2, 32
+ZOO_BEAM_BATCH, ZOO_BEAM_K, ZOO_BEAM_NEW = 2, 4, 32
+ZOO_LLAMA_BEAM_NEW = 16
+# a step whose CPU logits' two largest lie closer than this share of
+# max |logit| may go either way under fp32 sums in another order: it ends
+# the token comparison, and is printed with its gap
+ZOO_GAP = 1e-4
+ZOO_BEAM_SCORE_TOLERANCE = 1e-3
+ZOO_PTUNING = (2, 8)  # tasks, virtual tokens a task
+ZOO_RULES = dict(repetition_penalty=1.3)
+ZOO_SAMPLED = dict(temperature=0.8, top_k=40)
+ZOO_KERNELS = ("flash_fwd", "decode_attn", "layer_norm")
+ZOO_TRACED_NEW = 8
+
+
+def zoo_weights() -> dict:
+    """The zoo phase's trees on the host, ``init_params(seed=0)``:
+    gpt_350m and opt_350m at full width and depth, llama_7b's widths cut
+    to 2 layers (depth only), with 32 and with 8 key/value heads."""
+    import dataclasses
+
+    from whisper_trtllm_tpu_torch.benchmarks.allowed_configs import (
+        build_model,
+    )
+
+    out = {}
+    for name in ("gpt_350m", "opt_350m", "llama_7b"):
+        _, cfg, init, _, _ = build_model(name)
+        if name == "llama_7b":
+            cfg = dataclasses.replace(cfg, n_layer=2)
+            gqa = dataclasses.replace(cfg, n_kv_head=8)
+            out["llama_7b gqa"] = (gqa, init(gqa, seed=0, device="cpu"))
+        out[name] = (cfg, init(cfg, seed=0, device="cpu"))
+    return out
+
+
+def zoo_launches(fam: str, cfg, long: bool, steps: int) -> dict:
+    """A generate call's launches: a prefill (K1 a layer when long; K5 for
+    GPT's and OPT's 2L + 1 LayerNorms) and ``steps`` steps (K2 a layer,
+    K5 2L + 1 again for GPT and OPT; LLaMA's RMSNorm has no kernel)."""
+    n = cfg.n_layer
+    norms = 0 if fam == "llama" else 2 * n + 1
+    return {"flash_fwd": n if long else 0, "decode_attn": n * steps,
+            "layer_norm": norms * (1 + steps)}
+
+
+def zoo_run(torch, tag: str, fam: str, cfg, long: bool, fn, repeat=False):
+    """One generate call from zero counts, its launches held to
+    ``zoo_launches`` over the steps the loop ran, each other kernel at 0,
+    at most one capture (a warm-up step before it) and the rest replays;
+    ``repeat``: a call whose entry is cached, replays only. Returns (the
+    output, the steps, the ms)."""
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        KERNELS,
+        reset_launch_counts,
+    )
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    gen_rt.reset_loop_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    loop = gen_rt.LOOP
+    steps = loop.steps
+    want = {k: 0 for k in KERNELS}
+    want.update(zoo_launches(fam, cfg, long, steps))
+    got = {k: f.launches for k, f in KERNELS.items()}
+    if got != want:
+        fail(f"zoo {tag}: launches {got}, expected {want} over {steps} steps")
+    if loop.captures > (0 if repeat else 1) or \
+            loop.eager_steps != gen_rt.WARMUP_STEPS * loop.captures or \
+            loop.replays != steps - loop.eager_steps:
+        fail(f"zoo {tag}: {loop.captures} captures, {loop.eager_steps} eager "
+             f"steps, {loop.replays} replays over {steps} steps")
+    return out, steps, ms
+
+
+def zoo_prefill_ms(torch, mod, params, cfg, prompt, kv_heads: int) -> float:
+    """The median ms of the model's prefill alone (5 calls, fresh caches)."""
+    b, p = prompt.shape
+    shape = (cfg.n_layer, b, kv_heads, p, cfg.head_dim)
+    dtype = next(t for t in params.values()
+                 if isinstance(t, torch.Tensor)).dtype
+    ck = torch.zeros(shape, dtype=dtype, device=DEVICE)
+    cv = torch.zeros_like(ck)
+    with torch.inference_mode():
+        _, ms, _, _ = timed(torch, lambda: mod._prefill(params, cfg, prompt,
+                                                        ck, cv))
+    return ms
+
+
+def zoo_tokens_match(torch, tag, logits, seq, prompt_len, eos, process=None,
+                     stop=None) -> int:
+    """Lane 0 of a card run against the CPU: ``logits`` (S, V) the port's
+    teacher-forced ``forward`` on the CPU over the card's sequence ``seq``
+    (S,); at each position p from ``prompt_len - 1`` the card's token
+    ``seq[p + 1]`` must be the argmax of the CPU's logits (through
+    ``process(logits (1, V), seq, p)`` for a rule-bound run), until the
+    lane's EOS or stop word. A step whose two largest lie within
+    ``ZOO_GAP`` of max |logit| ends the comparison (printed). Returns the
+    steps compared."""
+    from whisper_trtllm_tpu_torch.runtime import sampling
+
+    seq_t = torch.as_tensor(seq, dtype=torch.int32)[None]
+    n = 0
+    for p in range(prompt_len - 1, len(seq) - 1):
+        row = logits[p][None].float()
+        if process is not None:
+            row = process(row, seq_t, p)
+        top2 = torch.topk(row[0], 2).values
+        gap = (top2[0] - top2[1]).item()
+        want, got = int(torch.argmax(row[0])), int(seq[p + 1])
+        if want != got:
+            if gap < ZOO_GAP * row[0].abs().max().item():
+                print(f"zoo {tag}: step {n} (position {p + 1}) is a near "
+                      f"tie on the CPU (top-two gap {gap:.3e}), card "
+                      f"{got}, CPU {want}: the comparison ends there")
+                return n
+            fail(f"zoo {tag}: position {p + 1}: card token {got}, CPU "
+                 f"argmax {want} (top-two gap {gap:.3e})")
+        n += 1
+        if got == eos or (stop is not None and bool(
+                sampling.match_stop_words(seq_t, p + 1, stop)[0])):
+            break
+    return n
+
+
+def zoo_bad_word_absent(np, out, prompt_len, word) -> None:
+    gen = np.asarray(out)[:, prompt_len:]
+    if (gen == word).any():
+        fail(f"zoo rules: the bad word {word} was generated")
+
+
+def zoo_beams_match(torch, tag, card_out, cpu_out) -> int:
+    """The card's beams against the CPU's: every score (best first) within
+    ``ZOO_BEAM_SCORE_TOLERANCE`` of the CPU's at its rank; tokens equal up
+    to the first rank of a lane where they part (printed). Returns the
+    hypotheses compared token for token."""
+    toks, scores, lens = (x.cpu() for x in card_out)
+    ctoks, cscores, clens = cpu_out
+    diff = (scores - cscores).abs().max().item()
+    if not math.isfinite(diff) or diff > ZOO_BEAM_SCORE_TOLERANCE:
+        fail(f"zoo {tag}: beam scores {scores.tolist()} against the CPU's "
+             f"{cscores.tolist()} (max diff {diff:.3e})")
+    same = 0
+    for b in range(toks.shape[0]):
+        for k in range(toks.shape[1]):
+            if not (torch.equal(toks[b, k], ctoks[b, k])
+                    and int(lens[b, k]) == int(clens[b, k])):
+                print(f"zoo {tag}: lane {b} parts from the CPU at rank {k} "
+                      f"(scores {scores[b].tolist()} / "
+                      f"{cscores[b].tolist()})")
+                break
+            same += 1
+    print(f"zoo {tag}: beam scores within {diff:.3e} of the CPU's, "
+          f"{same} of {toks.shape[0] * toks.shape[1]} hypotheses "
+          f"token-equal")
+    return same
+
+
+def zoo_ragged_lanes(torch, np, tag, mod, params, cfg, prompt, out_r,
+                     new: int, cpu_forward, long_lens) -> None:
+    """Each ragged lane equals its own lockstep run at batch 1 (a near tie
+    on the CPU, where they part, is printed and ends that lane)."""
+    for b, n in enumerate(long_lens):
+        lane = zoo_run(torch, f"{tag} lane {b} lockstep", mod.__name__.split(
+            ".")[-2], cfg, n >= 768, lambda: mod.generate(
+                params, cfg, prompt[b:b + 1, :n], new))[0].cpu().numpy()[0]
+        got = np.asarray(out_r[b, :n + new])
+        if np.array_equal(got, lane):
+            continue
+        at = int(np.nonzero(got != lane)[0][0])
+        logits = cpu_forward(lane[None, :at])[0]
+        top2 = torch.topk(logits[at - 1].float(), 2).values
+        gap = (top2[0] - top2[1]).item()
+        if gap >= ZOO_GAP * logits[at - 1].abs().max().item():
+            fail(f"zoo {tag}: lane {b} parts from its lockstep run at "
+                 f"position {at} (CPU top-two gap {gap:.3e})")
+        print(f"zoo {tag}: lane {b} parts from its lockstep run at a near "
+              f"tie, position {at} (CPU top-two gap {gap:.3e})")
+
+
+def zoo(torch, np, card, trees) -> dict:
+    """The phase of the module docstring; returns the launches of
+    gpt_350m's long lockstep call (the kernel table's "zoo" column)."""
+    from whisper_trtllm_tpu_torch.models import gpt, llama, opt
+    from whisper_trtllm_tpu_torch.models.gpt import model as gpt_model
+    from whisper_trtllm_tpu_torch.models.llama import model as llama_model
+    from whisper_trtllm_tpu_torch.models.opt import model as opt_model
+    from whisper_trtllm_tpu_torch.runtime import causal_lm
+    from whisper_trtllm_tpu_torch.utils.checkpoint import params_from_numpy
+
+    # the CPU's checks run beside the card's calls, in a thread started
+    # after the traced call: traces that followed one taken while another
+    # thread ran torch ops lost kernel records. Those that run a decode
+    # loop (the CPU's beams) wait until the card's calls are done, whose
+    # loop counts they would join
+    cpu = None
+    jobs, after = [], []
+    rng = np.random.default_rng(SEED)
+    counts = {}
+
+    def cpu_check(fn):
+        nonlocal cpu
+        cpu = cpu or ThreadPoolExecutor(1)
+        jobs.append(cpu.submit(fn))
+
+    # ---- gpt_350m, fp32 ----------------------------------------------------
+    cfg, host = trees["gpt_350m"]
+    params = params_from_numpy(host, DEVICE)
+    v = cfg.vocab_size
+    long_p = rng.integers(3, v, (ZOO_BATCH, ZOO_LONG)).astype(np.int32)
+    short_p = rng.integers(3, v, (ZOO_BATCH, ZOO_SHORT)).astype(np.int32)
+    prefill = {"long": zoo_prefill_ms(
+        torch, gpt_model, params, cfg, torch.from_numpy(long_p).to(DEVICE),
+        cfg.n_head), "short": zoo_prefill_ms(
+        torch, gpt_model, params, cfg, torch.from_numpy(short_p).to(DEVICE),
+        cfg.n_head)}
+
+    def report(tag, fam, cfg_, long, fn, first, steps, ms, pre=None):
+        """The first call's ms and its capture's; then the call again,
+        replays only, its outputs the first call's, and its ms a step: the
+        call's less the prefill's, over its steps."""
+        from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+
+        cap = gen_rt.LOOP.capture_ms
+        out, _, ms2 = zoo_run(torch, f"{tag} repeat", fam, cfg_, long, fn,
+                              repeat=True)
+        for a, b in zip(out if isinstance(out, tuple) else (out,),
+                        first if isinstance(first, tuple) else (first,)):
+            if not torch.equal(a, b):
+                fail(f"zoo {tag}: a repeat call gave other outputs")
+        per = "" if pre is None else (
+            f", prefill {pre:.3f} ms, {(ms2 - pre) / max(steps, 1):.4f} ms a "
+            f"step")
+        print(f"zoo {tag}: {steps} steps; first call {ms:.2f} ms (capture "
+              f"{cap:.2f}), repeat {ms2:.2f} ms{per} [{card}]")
+
+    def cpu_forward(mod, host_tree, cfg_, **kw):
+        def fwd(seq):
+            with torch.inference_mode():
+                return mod.forward(host_tree, cfg_, seq, **kw)
+        return fwd
+
+    def greedy_vs_cpu(tag, mod, host_tree, cfg_, out, prompt_len, **kw):
+        seq = out[0].cpu().numpy()
+
+        def job():
+            logits = cpu_forward(mod, host_tree, cfg_, **kw)(seq[None])[0]
+            n = zoo_tokens_match(torch, tag, logits, seq, prompt_len,
+                                 cfg_.eos_token_id)
+            print(f"zoo {tag}: lane 0 equals the CPU's argmax over {n} "
+                  f"steps")
+        cpu_check(job)
+
+    out_long, steps, ms = zoo_run(
+        torch, "gpt long", "gpt", cfg, True,
+        lambda: gpt.generate(params, cfg, long_p, ZOO_NEW))
+    counts = zoo_launches("gpt", cfg, True, steps)
+    report(f"gpt_350m lockstep B {ZOO_BATCH} prompt {ZOO_LONG}", "gpt", cfg,
+           True, lambda: gpt.generate(params, cfg, long_p, ZOO_NEW), out_long,
+           steps, ms, prefill["long"])
+    # the profiler's count over one traced call: the long prompt's
+    # prefill and a few replayed steps
+    out_t, _, _ = zoo_run(
+        torch, "gpt traced", "gpt", cfg, True,
+        lambda: gpt.generate(params, cfg, long_p, ZOO_TRACED_NEW))
+    box = {}
+
+    def again():
+        box["out"], box["steps"], _ = zoo_run(
+            torch, "gpt traced repeat", "gpt", cfg, True,
+            lambda: gpt.generate(params, cfg, long_p, ZOO_TRACED_NEW),
+            repeat=True)
+    _, traced, counted = traced_run(torch, again, ENGINE_SYMBOLS)
+    if not torch.equal(box["out"], out_t):
+        fail("zoo gpt traced: a repeat call gave other tokens")
+    if {k: traced[k] for k in ZOO_KERNELS} != {k: counted[k]
+                                               for k in ZOO_KERNELS}:
+        fail(f"zoo gpt traced: profiler {traced} != counters {counted}")
+    print(f"zoo gpt traced ({ZOO_TRACED_NEW} new tokens, {box['steps']} "
+          f"steps, replays only): launches {counted} equal the profiler's")
+    greedy_vs_cpu("gpt long", gpt, host, cfg, out_long, ZOO_LONG)
+
+    out_short, steps, ms = zoo_run(
+        torch, "gpt short", "gpt", cfg, False,
+        lambda: gpt.generate(params, cfg, short_p, ZOO_NEW))
+    report(f"gpt_350m lockstep B {ZOO_BATCH} prompt {ZOO_SHORT}", "gpt", cfg,
+           False, lambda: gpt.generate(params, cfg, short_p, ZOO_NEW),
+           out_short, steps, ms, prefill["short"])
+    greedy_vs_cpu("gpt short", gpt, host, cfg, out_short, ZOO_SHORT)
+
+    out_r, steps, ms = zoo_run(
+        torch, "gpt ragged", "gpt", cfg, True,
+        lambda: gpt.generate_ragged(params, cfg, long_p, list(ZOO_RAGGED),
+                                    ZOO_NEW))
+    report(f"gpt_350m ragged {list(ZOO_RAGGED)}", "gpt", cfg, True,
+           lambda: gpt.generate_ragged(params, cfg, long_p, list(ZOO_RAGGED),
+                                       ZOO_NEW), out_r, steps, ms,
+           prefill["long"])
+    zoo_ragged_lanes(torch, np, "gpt ragged", gpt_model, params, cfg, long_p,
+                     out_r.cpu().numpy(), ZOO_NEW,
+                     cpu_forward(gpt, host, cfg), ZOO_RAGGED)
+
+    # repetition penalty, a bad word (lane 0's first greedy token) and a
+    # stop word (its tokens 5 and 6 of the greedy run)
+    g0 = out_short[0].cpu().numpy()[ZOO_SHORT:]
+    bad, stop = [[int(g0[0])]], [[int(g0[5]), int(g0[6])]]
+    sc = causal_lm.make_sampling_cfg(bad_words=bad, stop_words=stop,
+                                     **ZOO_RULES)
+    out_rules, steps, ms = zoo_run(
+        torch, "gpt rules", "gpt", cfg, False,
+        lambda: gpt.generate(params, cfg, short_p, ZOO_NEW, sampling_cfg=sc))
+    report("gpt_350m penalty, bad and stop words", "gpt", cfg, False,
+           lambda: gpt.generate(params, cfg, short_p, ZOO_NEW,
+                                sampling_cfg=sc), out_rules, steps, ms,
+           prefill["short"])
+    zoo_bad_word_absent(np, out_rules.cpu(), ZOO_SHORT, bad[0][0])
+    words = causal_lm.device_words(sc, "cpu")
+
+    def rules(row, seq_t, p, eos=cfg.eos_token_id):
+        return causal_lm.process_logits(sc, row, seq_t, p,
+                                        p + 1 - ZOO_SHORT, eos, words)
+
+    seq_rules = out_rules[0].cpu().numpy()
+
+    # (the CPU's jobs run later: each binds the trees it reads now)
+    def rules_job(host=host, cfg=cfg):
+        logits = gpt.forward(host, cfg, seq_rules[None])[0]
+        n = zoo_tokens_match(torch, "gpt rules", logits, seq_rules,
+                             ZOO_SHORT, cfg.eos_token_id, rules, words.stop)
+        print(f"zoo gpt rules: lane 0 equals the CPU's processed argmax over "
+              f"{n} steps")
+    cpu_check(rules_job)
+
+    draws = []
+    for seed in (1, 1, 2):
+        out_s, steps, ms = zoo_run(
+            torch, f"gpt sampled seed {seed}", "gpt", cfg, False,
+            lambda: gpt.generate(params, cfg, short_p, ZOO_NEW, seed=seed,
+                                 **ZOO_SAMPLED), repeat=len(draws) == 1)
+        draws.append(out_s.cpu())
+    if not torch.equal(draws[0], draws[1]) or torch.equal(draws[0], draws[2]):
+        fail("zoo gpt sampled: a seed must repeat its draw and another seed "
+             "draw otherwise")
+    print(f"zoo gpt sampled (temperature 0.8, top-k 40): seed 1 twice "
+          f"equal, seed 2 differs; {steps} steps {ms:.2f} ms")
+
+    tasks, virt = ZOO_PTUNING
+    table = (rng.standard_normal((tasks, virt, cfg.d_model)) * 0.02).astype(
+        np.float32)
+    ids = short_p.copy()
+    ids[:, :virt] = v + np.arange(virt)
+    task_ids = np.arange(ZOO_BATCH, dtype=np.int32) % tasks
+    out_pt, steps, ms = zoo_run(
+        torch, "gpt p-tuning", "gpt", cfg, False,
+        lambda: gpt.generate_ptuning(params, cfg, ids, table, task_ids,
+                                     ZOO_NEW))
+    report("gpt_350m p-tuning", "gpt", cfg, False,
+           lambda: gpt.generate_ptuning(params, cfg, ids, table, task_ids,
+                                        ZOO_NEW), out_pt, steps, ms,
+           prefill["short"])
+    greedy_vs_cpu("gpt p-tuning", gpt, host, cfg, out_pt, ZOO_SHORT,
+                  ptuning=(torch.from_numpy(table),
+                           torch.from_numpy(task_ids[:1]).long()))
+
+    bp = short_p[:ZOO_BEAM_BATCH]
+    out_b, steps, ms = zoo_run(
+        torch, "gpt beams", "gpt", cfg, False,
+        lambda: gpt.generate_beam(params, cfg, bp, ZOO_BEAM_NEW, ZOO_BEAM_K))
+    report(f"gpt_350m beams K {ZOO_BEAM_K} B {ZOO_BEAM_BATCH}", "gpt", cfg,
+           False, lambda: gpt.generate_beam(params, cfg, bp, ZOO_BEAM_NEW,
+                                            ZOO_BEAM_K), out_b, steps, ms)
+    out_b = tuple(x.cpu() for x in out_b)
+
+    def beams_job(host=host, cfg=cfg):
+        zoo_beams_match(torch, "gpt beams", out_b, gpt.generate_beam(
+            host, cfg, bp, ZOO_BEAM_NEW, ZOO_BEAM_K, device="cpu"))
+    after.append(beams_job)
+
+    # bf16: printed, not gated
+    p16 = params_from_numpy(host, DEVICE, torch.bfloat16)
+    out16, steps, ms = zoo_run(
+        torch, "gpt bf16", "gpt", cfg, True,
+        lambda: gpt.generate(p16, cfg, long_p, ZOO_NEW))
+    same = (out16.cpu()[:, ZOO_LONG:] == out_long.cpu()[:, ZOO_LONG:]).float(
+    ).mean().item()
+    report(f"gpt_350m bf16 lockstep B {ZOO_BATCH} prompt {ZOO_LONG}", "gpt",
+           cfg, True, lambda: gpt.generate(p16, cfg, long_p, ZOO_NEW), out16,
+           steps, ms, zoo_prefill_ms(torch, gpt_model, p16, cfg,
+                                     torch.from_numpy(long_p).to(DEVICE),
+                                     cfg.n_head))
+    print(f"zoo gpt bf16: {same:.4f} of its new tokens equal the fp32 "
+          f"run's (not gated)")
+    del p16, params
+
+    # ---- opt_350m, fp32 ----------------------------------------------------
+    cfg, host = trees["opt_350m"]
+    params = params_from_numpy(host, DEVICE)
+    op = long_p % cfg.vocab_size
+    out_o, steps, ms = zoo_run(
+        torch, "opt long", "opt", cfg, True,
+        lambda: opt.generate(params, cfg, op, ZOO_NEW))
+    pre = zoo_prefill_ms(torch, opt_model, params, cfg,
+                         torch.from_numpy(op).to(DEVICE), cfg.n_head)
+    report(f"opt_350m lockstep B {ZOO_BATCH} prompt {ZOO_LONG}", "opt", cfg,
+           True, lambda: opt.generate(params, cfg, op, ZOO_NEW), out_o, steps,
+           ms, pre)
+    greedy_vs_cpu("opt long", opt, host, cfg, out_o, ZOO_LONG)
+    out_r, steps, ms = zoo_run(
+        torch, "opt ragged", "opt", cfg, True,
+        lambda: opt.generate_ragged(params, cfg, op, list(ZOO_RAGGED),
+                                    ZOO_NEW))
+    report(f"opt_350m ragged {list(ZOO_RAGGED)}", "opt", cfg, True,
+           lambda: opt.generate_ragged(params, cfg, op, list(ZOO_RAGGED),
+                                       ZOO_NEW), out_r, steps, ms, pre)
+    zoo_ragged_lanes(torch, np, "opt ragged", opt_model, params, cfg, op,
+                     out_r.cpu().numpy(), ZOO_NEW,
+                     cpu_forward(opt, host, cfg), ZOO_RAGGED)
+    del params
+
+    # ---- llama_7b widths, 2 layers, fp32 -----------------------------------
+    for name in ("llama_7b", "llama_7b gqa"):
+        cfg, host = trees[name]
+        params = params_from_numpy(host, DEVICE)
+        lp = long_p[:ZOO_LLAMA_BATCH] % cfg.vocab_size
+        out_l, steps, ms = zoo_run(
+            torch, f"{name} long", "llama", cfg, True,
+            lambda: llama.generate(params, cfg, lp, ZOO_LLAMA_NEW))
+        report(f"{name} (2 layers, {cfg.n_kv_head} kv heads) lockstep B "
+               f"{ZOO_LLAMA_BATCH} prompt {ZOO_LONG}", "llama", cfg, True,
+               lambda: llama.generate(params, cfg, lp, ZOO_LLAMA_NEW), out_l,
+               steps, ms, zoo_prefill_ms(torch, llama_model, params, cfg,
+                                         torch.from_numpy(lp).to(DEVICE),
+                                         cfg.n_kv_head))
+        greedy_vs_cpu(f"{name} long", llama, host, cfg, out_l, ZOO_LONG)
+        if name == "llama_7b":
+            bpl = short_p[:ZOO_BEAM_BATCH] % cfg.vocab_size
+            out_lb, steps, ms = zoo_run(
+                torch, "llama beams", "llama", cfg, False,
+                lambda: llama.generate_beam(params, cfg, bpl,
+                                            ZOO_LLAMA_BEAM_NEW, ZOO_BEAM_K))
+            report(f"llama_7b (2 layers) beams K {ZOO_BEAM_K} B "
+                   f"{ZOO_BEAM_BATCH}", "llama", cfg, False,
+                   lambda: llama.generate_beam(params, cfg, bpl,
+                                               ZOO_LLAMA_BEAM_NEW,
+                                               ZOO_BEAM_K), out_lb, steps, ms)
+            out_lb = tuple(x.cpu() for x in out_lb)
+
+            def lbeams_job(host=host, cfg=cfg, bpl=bpl, out_lb=out_lb):
+                zoo_beams_match(torch, "llama beams", out_lb,
+                                llama.generate_beam(
+                                    host, cfg, bpl, ZOO_LLAMA_BEAM_NEW,
+                                    ZOO_BEAM_K, device="cpu"))
+            after.append(lbeams_job)
+        del params
+
+    # ---- bench_zoo and run_zoo: subprocesses, the card to themselves, while
+    # the CPU's checks finish -------------------------------------------------
+    for job in after:
+        cpu_check(job)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    bench_argv = ["--model", "gpt_350m", "--batch", str(ZOO_BATCH),
+                  "--in-len", str(ZOO_SHORT), "--gen-tokens", str(ZOO_NEW),
+                  "--iters", "3"]
+    run_ids = ["5", "11", "17", "23"]
+    children = {
+        "bench_zoo": subprocess.Popen(
+            [sys.executable, "-m", "whisper_trtllm_tpu_torch.benchmarks."
+             "benchmark", *bench_argv], cwd=ROOT, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE),
+        "run_zoo": subprocess.Popen(
+            [sys.executable, "-m", "whisper_trtllm_tpu_torch.cli.run_zoo",
+             "--family", "gpt", "--prompt-ids", *run_ids,
+             "--max-new-tokens", "16"], cwd=ROOT, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)}
+    t_wait = time.perf_counter()
+    for job in jobs:
+        job.result()
+    cpu.shutdown()
+    outs = {}
+    for name, child in children.items():
+        try:
+            stdout, stderr = child.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            stdout, stderr = child.communicate()
+        if child.returncode != 0:
+            fail(f"zoo {name} exited {child.returncode}:\n{stdout[-3000:]}\n"
+                 f"{stderr[-3000:]}")
+        outs[name] = json.loads(stdout.strip().splitlines()[-1])
+    print(f"zoo: waited {time.perf_counter() - t_wait:.2f} s for the CPU "
+          f"checks and the subprocesses")
+    row = outs["bench_zoo"]
+    if not (row["tokens_per_s"] > 0 and math.isfinite(row["latency_ms_p50"])
+            and row["launches"].get("decode_attn") and
+            row["launches"].get("layer_norm")):
+        fail(f"zoo bench_zoo: {row}")
+    print(f"zoo bench_zoo gpt_350m: {json.dumps(row)}")
+    tiny = gpt.GPTConfig.testing()
+    seq = np.asarray(outs["run_zoo"]["output_ids"], np.int32)
+    tp = gpt.init_params(tiny, seed=0, device="cpu")
+    n = zoo_tokens_match(torch, "run_zoo", gpt.forward(tp, tiny, seq[None])[0],
+                         seq, len(run_ids), tiny.eos_token_id)
+    print(f"zoo run_zoo --family gpt: {outs['run_zoo']['output_ids']}, equal "
+          f"to the CPU's argmax over {n} steps")
+    return counts
+
+
 def main() -> None:
     import argparse
 
@@ -4231,44 +4944,63 @@ def main() -> None:
 
     parent = load_parent(args.parent) if args.parent else None
     set_fp32_precision()
+    # the zoo phase's weights, drawn on the host (numpy releases the GIL
+    # while it fills an array) while the kernels run on the card
+    zoo_pool = ThreadPoolExecutor(1)
+    zoo_trees = zoo_pool.submit(zoo_weights)
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED)
-    flash = check_flash(torch, rng, card)
-    decode = check_decode(torch, rng, card, parent)
-    decode["serving"] = check_decode_quant(torch, rng, card, parent)
-    stft = check_stft(torch, rng, card, parent)
+
+    def rng(tag):
+        return CardRng(torch, tag)
+
+    flash = check_flash(torch, rng("flash"), card)
+    decode = check_decode(torch, rng("decode"), card, parent)
+    decode["serving"] = check_decode_quant(torch, rng("decode quant"), card,
+                                           parent)
+    stft = check_stft(torch, rng("stft"), card, parent)
     floor_ms = launch_floor(torch, card)
-    norm = check_layer_norm(torch, rng, card, floor_ms, parent)
-    fused = check_fused(torch, rng, card, parent)
-    flash_bwd = check_flash_bwd(torch, rng, card)
-    cross = check_cross(torch, rng, card, parent)
-    gelu = check_gelu(torch, rng, card, floor_ms, parent)
+    norm = check_layer_norm(torch, rng("layer norm"), card, floor_ms, parent)
+    fused = check_fused(torch, rng("fused"), card, parent)
+    flash_bwd = check_flash_bwd(torch, rng("flash bwd"), card)
+    cross = check_cross(torch, rng("cross"), card, parent)
+    gelu = check_gelu(torch, rng("gelu"), card, floor_ms, parent)
     norm["floor_ms"] = gelu["floor_ms"] = floor_ms
-    # every kernel of the bench's paths at their shapes, after the cases
-    # above and from a stream of their own, so that neither's inputs hang
-    # on the other's: K1, K2 (quantized), K3 and K5 at the headline's and
-    # the sections' widths, K6 at the benchmark grid's
-    rng = np.random.default_rng(SEED + 1)
-    check_flash(torch, rng, card, BENCH_FLASH_CASES)
-    check_decode_quant(torch, rng, card, parent, BENCH_QUANT_CASES)
-    check_stft(torch, rng, card, parent, BENCH_STFT_CASES)
-    check_layer_norm(torch, rng, card, floor_ms, parent, BENCH_NORM_CASES)
-    check_fused(torch, rng, card, parent, BENCH_FUSED_CASES)
-    # and the beam phase's (K2, K5 and K6 at B·K = 16 lanes), from a third
-    rng = np.random.default_rng(SEED + 2)
-    check_decode_quant(torch, rng, card, parent, BEAM_QUANT_CASES)
-    check_layer_norm(torch, rng, card, floor_ms, parent, BEAM_NORM_CASES)
-    check_fused(torch, rng, card, parent, BEAM_FUSED_CASES)
-    # and the in-flight batcher's K2 (8 lanes at lengths 1..225), from a
-    # fourth
-    rng = np.random.default_rng(SEED + 3)
-    decode["batcher"] = check_decode_batcher(torch, rng, card)
+    # every kernel of the bench's paths at their shapes: K1, K2
+    # (quantized), K3 and K5 at the headline's and the sections' widths, K6
+    # at the benchmark grid's
+    check_flash(torch, rng("bench flash"), card, BENCH_FLASH_CASES)
+    check_decode_quant(torch, rng("bench decode quant"), card, parent,
+                       BENCH_QUANT_CASES)
+    check_stft(torch, rng("bench stft"), card, parent, BENCH_STFT_CASES)
+    check_layer_norm(torch, rng("bench layer norm"), card, floor_ms, parent,
+                     BENCH_NORM_CASES)
+    check_fused(torch, rng("bench fused"), card, parent, BENCH_FUSED_CASES)
+    # and the beam phase's (K2, K5 and K6 at B·K = 16 lanes)
+    check_decode_quant(torch, rng("beam decode quant"), card, parent,
+                       BEAM_QUANT_CASES)
+    check_layer_norm(torch, rng("beam layer norm"), card, floor_ms, parent,
+                     BEAM_NORM_CASES)
+    check_fused(torch, rng("beam fused"), card, parent, BEAM_FUSED_CASES)
+    # the in-flight batcher's K2 (8 lanes at lengths 1..225)
+    decode["batcher"] = check_decode_batcher(torch, rng("batcher"), card)
+    # the zoo's: K1 at its causal prefills (GQA included), K2 at its steps
+    flash["zoo"] = check_flash(torch, rng("zoo flash"), card,
+                               ZOO_FLASH_CASES)
+    decode["zoo"] = check_decode_zoo(torch, rng("zoo decode"), card)
     phase_s["kernels"] = time.perf_counter() - t0
+    # the zoo, its weights drawn on the host beside the kernels phase
+    t0 = time.perf_counter()
+    trees = zoo_trees.result()
+    zoo_pool.shutdown()
+    del zoo_trees
+    zoo_counts = zoo(torch, np, card, trees)
+    del trees
+    phase_s["zoo"] = time.perf_counter() - t0
     # each kernel's launches from a path that runs it: configuration B, the
     # serving precision, for K1, K2, K3 and K5; E, the float-weight path,
     # for K6; one training step for K4; the hardware check's
     # cross_attn_kernel for K7; the example's main() for K8
-    counts = {}
+    counts = {"zoo": zoo_counts}
     t0 = time.perf_counter()
     counts["gpu_check"], counts["example"] = hardware_check(card)
     phase_s["hardware check"] = time.perf_counter() - t0
@@ -4370,6 +5102,9 @@ def main() -> None:
         # K1, K2 and K4 at the local head counts of tensor parallelism
         if r["name"] in local_heads:
             r["local_heads"] = local_heads[r["name"]]
+        # gpt_350m's lockstep call at prompt 800 (K1, K2, K5)
+        if counts["zoo"].get(r["name"]):
+            r["zoo_launches"] = counts["zoo"][r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # K1, K4 and K5 also carry their bf16 numbers at the encoder's shape;
@@ -4380,10 +5115,11 @@ def main() -> None:
         {k: r[k] for k in keys + [x for x in ("bench_launches",
                                               "beam_launches",
                                               "serve_launches",
-                                              "spec_launches", "bfloat16",
+                                              "spec_launches",
+                                              "zoo_launches", "bfloat16",
                                               "serving", "batcher", "decode",
                                               "encoder_mlp", "floor_ms",
-                                              "local_heads")
+                                              "local_heads", "zoo")
                                   if x in r]}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {

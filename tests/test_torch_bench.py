@@ -308,15 +308,22 @@ def test_entry_points_exit_nonzero_without_a_card(main, monkeypatch, capsys,
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(model="gpt_350m"), "item 11"),
-    (dict(model="llama_7b"), "item 11"),
-    (dict(model="tiny.en", quant="int8"), "item 11"),
+    (dict(name="gptj_6b"), "item 11"),
+    (dict(name="chatglm_6b"), "item 11"),
+    (dict(name="gpt_350m", quant="sq"), "item 11"),
 ])
 def test_unported_inputs_raise_naming_their_roadmap_item(kwargs, item):
-    args = dict(batch=1, dtype="float32", gen_tokens=2, iters=1,
+    args = dict(batch=1, in_len=4, out_len=2, dtype="float32", iters=1,
                 device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        benchmark.bench_config(**{**args, **kwargs})
+        benchmark.bench_zoo(**{**args, **kwargs})
+    # a zoo name or --quant is not a Whisper row's
+    with pytest.raises(ValueError):
+        benchmark.bench_config("gpt_350m", 1, "float32", gen_tokens=2,
+                               iters=1, device="cpu")
+    with pytest.raises(ValueError, match="quant"):
+        benchmark.bench_config("tiny.en", 1, "float32", gen_tokens=2,
+                               iters=1, quant="int8", device="cpu")
 
 
 def test_bench_config_row_has_the_jax_rows_keys_on_the_cpu():

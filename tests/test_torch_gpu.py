@@ -2377,3 +2377,116 @@ def test_world_of_one_over_nccl(cuda, tmp_path):
                    for p, t in leaves(sharded))
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# K3 against the fp64 witness, and the causal-LM zoo on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("source,seed,n_mels", [
+    ("numpy", 9, 128), ("numpy", 21, 128), ("card", 1, 128),
+    ("numpy", 21, 80)])
+def test_stft_kernel_within_the_witness_where_the_plain_version_parts(
+        cuda, source, seed, n_mels):
+    """The inputs (B 4, 3003 hop blocks, utterance 1 silent from the middle)
+    at which K3 and its fp32 plain version part by more than 2e-4 on the
+    card (NVIDIA H100 80GB HBM3; ``benchmarks/stft_witness.py``): K3 stays
+    within 2e-4 of the plain formula in float64, and wherever the two part
+    by more than 2e-4 the plain version is the farther from it."""
+    from whisper_trtllm_tpu_torch.audio.features import N_FFT, LogMelSpectrogram
+    from whisper_trtllm_tpu_torch.benchmarks.stft_witness import (
+        draw,
+        stft_log_mel_witness,
+    )
+
+    fe = LogMelSpectrogram(n_mels, device=cuda)
+    basis = fe.dft_basis[:N_FFT].contiguous()
+    x = draw(seed, 4, source == "card", cuda)
+    out = stft_log_mel(x, basis, fe.mel_fb)
+    ref = stft_log_mel_reference(x, basis, fe.mel_fb)
+    wit = stft_log_mel_witness(x, basis, fe.mel_fb)
+    kw, pw = (out - wit).abs(), (ref - wit).abs()
+    assert kw.max().item() <= 2e-4
+    parted = (out - ref).abs() > 2e-4
+    assert bool((pw[parted] > kw[parted]).all())
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,h,hkv,dh", [(4, 16, 16, 64), (2, 32, 8, 128)])
+def test_flash_kernel_at_the_zoo_prefills_matches_plain(cuda, dtype, tol, b,
+                                                        h, hkv, dh):
+    """K1 causal at 800 positions: gpt_350m's heads, and llama_7b's 32
+    heads over 8 key/value heads (GQA) at head dim 128."""
+    rng = np.random.default_rng(h + hkv)
+    q = _normal(rng, (b, h, 800, dh), dh ** -0.5, cuda, dtype)
+    k = _normal(rng, (b, hkv, 800, dh), 1.0, cuda, dtype)
+    v = _normal(rng, (b, hkv, 800, dh), 1.0, cuda, dtype)
+    out = flash_fwd(q, k, v, causal=True)
+    ref = attention_reference(q, k, v, causal=True)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _zoo_model(family: str):
+    """A small tree of ``family`` on the card (2 layers, head dim 64)."""
+    from whisper_trtllm_tpu_torch.models import gpt, llama, opt
+
+    mod = {"gpt": gpt, "opt": opt, "llama": llama}[family]
+    if family == "gpt":
+        cfg = gpt.GPTConfig(vocab_size=512, n_positions=128, d_model=256,
+                            n_layer=2, n_head=4, ffn_dim=512, eos_token_id=7)
+    elif family == "opt":
+        cfg = opt.OPTConfig(vocab_size=512, max_positions=128, d_model=256,
+                            n_layer=2, n_head=4, ffn_dim=512, eos_token_id=7)
+    else:
+        cfg = llama.LlamaConfig(vocab_size=512, max_positions=128,
+                                d_model=256, n_layer=2, n_head=4,
+                                n_kv_head=2, ffn_dim=512, eos_token_id=7)
+    return mod, cfg, mod.init_params(cfg, seed=0)
+
+
+@pytest.mark.parametrize("family,call", [
+    ("gpt", "lockstep"), ("gpt", "ragged"), ("gpt", "rules"),
+    ("gpt", "sampled"), ("opt", "beams"), ("llama", "lockstep"),
+    ("llama", "beams")])
+def test_zoo_captured_step_equals_the_eager_steps(cuda, monkeypatch, family,
+                                                  call):
+    """The zoo's loops (``runtime/causal_lm.py``, ``runtime/beam_lm.py``)
+    with their step captured and replayed (a capturing call, then a call
+    that only replays) give bit for bit what the same step run eagerly on
+    the card gives."""
+    from whisper_trtllm_tpu_torch.runtime import causal_lm
+
+    mod, cfg, params = _zoo_model(family)
+    prompt = np.random.default_rng(1).integers(8, 512, (3, 20)).astype(
+        np.int32)
+
+    def run():
+        if call == "ragged":
+            return (mod.generate_ragged(params, cfg, prompt, [20, 13, 17],
+                                        24),)
+        if call == "beams":
+            return mod.generate_beam(params, cfg, prompt, 16, 3)
+        kw = {}
+        if call == "rules":
+            kw["sampling_cfg"] = causal_lm.make_sampling_cfg(
+                repetition_penalty=1.2, min_new_tokens=3,
+                bad_words=[[9], [30, 31]], stop_words=[[40, 41]])
+        elif call == "sampled":
+            kw = dict(temperature=0.9, top_k=30, top_p=0.9, seed=3)
+        return (mod.generate(params, cfg, prompt, 24, **kw),)
+
+    captured = []
+    for _ in range(2):
+        generation.reset_loop_counts()
+        captured.append(run())
+    assert generation.LOOP.captures == 0 and generation.LOOP.replays > 0
+    orig = generation.run_decode
+    monkeypatch.setattr(generation, "run_decode",
+                        lambda key, tree, dev, *a, **k: orig(
+                            key, tree, torch.device("cpu"), *a, **k))
+    generation.reset_loop_counts()
+    eager = run()
+    assert generation.LOOP.replays == 0
+    for got in captured:
+        for g, e in zip(got, eager):
+            assert g.is_cuda and torch.equal(g, e)

@@ -8,7 +8,9 @@
 - Entry points called without ``device=`` raise when there is no CUDA;
   the fine-tuning, serving and dataset CLIs (transcribe, cal_wer, accept,
   synthetic_asr, warm_cache, build, visualize) without ``--cpu`` too, the
-  speculative scripts without ``--device cpu``.
+  speculative scripts without ``--device cpu``; the zoo's models,
+  ``cli/run_zoo.py`` and ``bench_zoo`` too, and the parallel dry run's
+  ranks run on the cards unless told ``cpu=True``.
 - ``chip_smoke.py`` exits non-zero and prints no result without a card.
 """
 
@@ -88,7 +90,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "utils.profiler", "utils.debugging", "utils.engine",
                  "runtime.export", "parallel", "parallel.mesh",
                  "parallel.partition", "parallel.collectives",
-                 "parallel.dryrun", "benchmarks.scaling"):
+                 "parallel.dryrun", "benchmarks.scaling", "models.zoo",
+                 "models.gpt", "models.gpt.model", "models.opt",
+                 "models.opt.model", "models.llama", "models.llama.model",
+                 "runtime.causal_lm", "runtime.beam_lm",
+                 "benchmarks.allowed_configs", "benchmarks.stft_witness",
+                 "cli.run_zoo"):
         assert f"whisper_trtllm_tpu_torch.{name}" in _port_modules()
 
 
@@ -214,6 +221,37 @@ def test_dataset_clis_default_to_the_card_and_raise_without_one(no_cuda,
     # with --cpu it gets past the device and reads its input
     with pytest.raises(FileNotFoundError):
         transcribe.main(["--checkpoint", ART, "--dataset", pkl, "--cpu"])
+
+
+def test_zoo_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
+    import inspect
+
+    from whisper_trtllm_tpu_torch.benchmarks import benchmark
+    from whisper_trtllm_tpu_torch.cli import run_zoo
+    from whisper_trtllm_tpu_torch.models import gpt, llama, opt
+    from whisper_trtllm_tpu_torch.parallel import dryrun
+
+    prompt = np.asarray([[3, 4, 5]], np.int32)
+    for mod, cfg in ((gpt, gpt.GPTConfig.testing()),
+                     (opt, opt.OPTConfig.testing()),
+                     (llama, llama.LlamaConfig.testing())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.init_params(cfg)
+        params = mod.init_params(cfg, device="cpu")
+        for call in (lambda: mod.generate(params, cfg, prompt, 2),
+                     lambda: mod.generate_ragged(params, cfg, prompt, [3], 2),
+                     lambda: mod.generate_beam(params, cfg, prompt, 2, 2)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_zoo.main(["--family", "gpt", "--prompt-ids", "3"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchmark.bench_zoo("gpt_tiny", 1, 4, 2, "float32", 1)
+    # the parallel dry run spawns NCCL ranks on the cards unless told
+    assert inspect.signature(dryrun.spawn).parameters["cpu"].default is False
+    for fn in (dryrun.serve_checks, dryrun.train_checks,
+               dryrun.dryrun_checks):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_transcribe_tokens_refuses_params_on_another_device():

@@ -56,7 +56,7 @@ def world(tmp_path_factory):
     pool = ThreadPoolExecutor(1)
     yield pool.submit(dryrun.spawn, WORLD, "serve",
                       workdir=str(tmp_path_factory.mktemp("serve_world")),
-                      timeout=WORLD_TIMEOUT_S)
+                      cpu=True, timeout=WORLD_TIMEOUT_S)
     pool.shutdown(wait=True)
 
 

@@ -66,7 +66,7 @@ class World:
         self._pool = ThreadPoolExecutor(1)
         self._run = self._pool.submit(dryrun.spawn, WORLD, "train",
                                       workdir=self.workdir,
-                                      timeout=WORLD_TIMEOUT_S)
+                                      cpu=True, timeout=WORLD_TIMEOUT_S)
 
     def ranks(self):
         return self._run.result()

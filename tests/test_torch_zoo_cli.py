@@ -1,0 +1,108 @@
+"""PyTorch port: the zoo's entry points on the CPU.
+
+- ``cli/run_zoo.py --cpu`` prints the JAX CLI's (``cli/run_zoo.py``)
+  tokens: on a tiny HF GPT-2 saved to a local directory, and on each
+  family's testing-width random weights.
+- ``benchmarks/benchmark.py::bench_zoo``, with the registry holding one
+  tiny gpt entry, returns finite rows (fp32 and bf16, float and
+  weight-only int8 weights).
+- The families not ported yet, and ``--quant sq``, raise naming ROADMAP
+  Queue 1 item 11.
+"""
+
+import json
+import math
+import runpy
+import sys
+
+import pytest
+import torch
+
+from whisper_trtllm_tpu_torch.benchmarks import allowed_configs, benchmark
+from whisper_trtllm_tpu_torch.cli import run_zoo
+
+
+def _jax_cli(argv, capsys) -> dict:
+    old = sys.argv
+    sys.argv = ["run_zoo"] + argv
+    try:
+        runpy.run_module("cli.run_zoo", run_name="__main__")
+    finally:
+        sys.argv = old
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def _port_cli(argv, capsys) -> dict:
+    run_zoo.main(argv + ["--cpu"])
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_run_zoo_on_a_local_hf_gpt2_prints_the_jax_clis_tokens(tmp_path,
+                                                              capsys):
+    from transformers import GPT2Config, GPT2LMHeadModel
+
+    torch.manual_seed(0)
+    GPT2LMHeadModel(GPT2Config(
+        vocab_size=89, n_positions=32, n_embd=32, n_layer=2, n_head=4,
+        eos_token_id=2, bos_token_id=1)).save_pretrained(tmp_path / "hf")
+    argv = ["--family", "gpt", "--hf-model", str(tmp_path / "hf"),
+            "--prompt-ids", "3", "4", "5", "--max-new-tokens", "8"]
+    row = _port_cli(argv, capsys)
+    assert row == _jax_cli(argv, capsys)
+    assert len(row["output_ids"]) == 11
+
+
+@pytest.mark.parametrize("family", ["gpt", "opt", "llama"])
+def test_run_zoo_testing_weights_print_the_jax_clis_tokens(family, capsys):
+    argv = ["--family", family, "--prompt-ids", "5", "9", "12",
+            "--max-new-tokens", "6", "--repetition-penalty", "1.2"]
+    assert _port_cli(argv, capsys) == _jax_cli(argv, capsys)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--family", "gptj"], ["--family", "gptneox"], ["--family", "bloom"],
+    ["--family", "chatglm6b"], ["--config", "gptj_6b"],
+    ["--config", "bert_base"]])
+def test_run_zoo_refuses_the_families_not_ported(argv):
+    with pytest.raises(NotImplementedError, match="item 11"):
+        run_zoo.main(argv + ["--prompt-ids", "3", "--cpu"])
+
+
+@pytest.fixture
+def tiny_registry(monkeypatch):
+    entry = allowed_configs.BenchConfig(
+        family="gpt",
+        model_kwargs=dict(n_layer=2, n_head=4, d_model=32, ffn_dim=64,
+                          vocab_size=97, n_positions=64),
+        max_batch_size=4, max_input_len=8, max_output_len=6)
+    monkeypatch.setattr(allowed_configs, "ALLOWED_CONFIGS",
+                        {"gpt_test": entry})
+    monkeypatch.setattr(benchmark, "ALLOWED_CONFIGS", {"gpt_test": entry})
+
+
+@pytest.mark.parametrize("dtype,quant", [("float32", None),
+                                         ("bfloat16", None),
+                                         ("float32", "int8")])
+def test_bench_zoo_on_the_cpu_returns_a_finite_row(tiny_registry, dtype,
+                                                   quant):
+    # batch, input and output lengths are cut to the entry's limits
+    row = benchmark.bench_zoo("gpt_test", batch=8, in_len=12, out_len=10,
+                              dtype=dtype, iters=2, quant=quant,
+                              device="cpu")
+    assert (row["batch"], row["input_len"], row["output_len"]) == (4, 8, 6)
+    assert row["family"] == "gpt" and row["quant"] == quant
+    assert row["backend"] == "cpu" and row["device"] is None
+    for key in ("latency_ms_p50", "latency_ms_p95", "latency_ms_p99",
+                "tokens_per_s"):
+        assert math.isfinite(row[key]) and row[key] > 0, key
+    assert row["launches"] == {}  # the plain versions launch nothing
+
+
+@pytest.mark.parametrize("name,quant", [("gptj_6b", None),
+                                        ("chatglm_6b", None),
+                                        ("bert_base", None),
+                                        ("gpt_350m", "sq")])
+def test_bench_zoo_refuses_what_is_not_ported(name, quant):
+    with pytest.raises(NotImplementedError, match="item 11"):
+        benchmark.bench_zoo(name, 1, 4, 2, "float32", 1, quant=quant,
+                            device="cpu")

@@ -1,11 +1,13 @@
-"""Benchmark CLI: latency and throughput grids over Whisper presets, batch
-sizes and compute dtypes, on the card (counterpart of the JAX package's
-``benchmarks/benchmark.py``, Whisper part).
+"""Benchmark CLI: latency and throughput grids over Whisper presets and
+the causal-LM zoo's named configurations, batch sizes and compute dtypes,
+on the card (counterpart of the JAX package's ``benchmarks/benchmark.py``).
 
 Usage:
   python -m whisper_trtllm_tpu_torch.benchmarks.benchmark \
       --model tiny.en base.en --batch 1 8 --dtype float32 bfloat16 \
       [--gen-tokens 48] [--iters 10] [--checkpoint DIR]
+  python -m whisper_trtllm_tpu_torch.benchmarks.benchmark \
+      --model gpt_350m --batch 4 --in-len 32 --gen-tokens 48 [--quant int8]
 
 Each configuration prints one JSON row: p50/p95/p99 latency, tokens/s and
 audio-seconds/s of one ``WhisperSession.transcribe_features`` call on
@@ -18,11 +20,15 @@ that is the only bench path that takes K6.
 ``--num-beams`` K > 1 runs the session's beam branch (K beams a
 lane: decode steps at batch B·K, K6 while B·K <= 16); the row's
 formulas stay the JAX row's, ``tokens_per_s`` counting the best
-hypothesis' ``batch * gen_tokens``. Not ported yet, and refused with
-``NotImplementedError``: the causal-LM zoo's names
-(``allowed_configs.py``, ``bench_zoo``; ROADMAP Queue 1 item 11) and
-``--quant`` (the zoo's weight-only modes). Without a card it exits
-non-zero and prints no row.
+hypothesis' ``batch * gen_tokens``.
+
+A zoo name (``allowed_configs.py``) runs ``bench_zoo``: the family's
+``generate`` over random prompts of ``--in-len`` tokens with EOS
+disabled, tokens/s over ``batch * gen_tokens``, with ``--quant int8``
+the weight-only int8 tree. Not ported yet, and refused with
+``NotImplementedError`` naming ROADMAP Queue 1 item 11: the families
+other than gpt, opt and llama, and ``--quant sq`` (SmoothQuant for GPT).
+Without a card it exits non-zero and prints no row.
 """
 
 from __future__ import annotations
@@ -37,6 +43,10 @@ import time
 import numpy as np
 import torch
 
+from whisper_trtllm_tpu_torch.benchmarks.allowed_configs import (
+    ALLOWED_CONFIGS,
+    build_model,
+)
 from whisper_trtllm_tpu_torch.benchmarks.mem_monitor import MemoryMonitor
 from whisper_trtllm_tpu_torch.config import (
     GenerationConfig,
@@ -46,7 +56,11 @@ from whisper_trtllm_tpu_torch.config import (
 from whisper_trtllm_tpu_torch.models.whisper import init_params
 from whisper_trtllm_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
 from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
-from whisper_trtllm_tpu_torch.utils.checkpoint import load_checkpoint
+from whisper_trtllm_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    params_from_numpy,
+)
+from whisper_trtllm_tpu_torch.utils.device import resolve_device
 
 
 def card_info() -> dict:
@@ -85,15 +99,12 @@ def timed_calls(fn, device: torch.device, iters: int, warmup: int = 1):
 
 
 def whisper_preset(model: str) -> WhisperConfig:
-    """The Whisper preset named ``model``; any other name is one of the
-    causal-LM zoo's, which is not ported yet."""
-    try:
-        return WhisperConfig.preset(model)
-    except ValueError:
-        raise NotImplementedError(
-            f"{model!r} is not a Whisper preset; the causal-LM zoo "
-            "(allowed_configs.py, bench_zoo) is not ported yet (ROADMAP "
-            "Queue 1 item 11)") from None
+    """The Whisper preset named ``model``; a zoo name raises, pointing to
+    ``bench_zoo``."""
+    if model in ALLOWED_CONFIGS:
+        raise ValueError(f"{model!r} is a causal-LM zoo name: bench_zoo "
+                         "runs it, bench_config runs Whisper presets")
+    return WhisperConfig.preset(model)
 
 
 def bench_config(model: str, batch: int, dtype: str, gen_tokens: int,
@@ -104,9 +115,8 @@ def bench_config(model: str, batch: int, dtype: str, gen_tokens: int,
     warm-up call (which also builds the kernels), each ending in a sync on
     the card; ``device`` defaults to the card."""
     if quant is not None:
-        raise NotImplementedError(
-            "--quant selects the causal-LM zoo's weight-only modes; the zoo "
-            "is not ported yet (ROADMAP Queue 1 item 11)")
+        raise ValueError("--quant selects the causal-LM zoo's weight modes "
+                         "(bench_zoo), not a Whisper row's")
     if checkpoint:
         params, cfg = load_checkpoint(checkpoint, device="cpu")
     else:
@@ -151,20 +161,90 @@ def bench_config(model: str, batch: int, dtype: str, gen_tokens: int,
     }
 
 
+def bench_zoo(name: str, batch: int, in_len: int, out_len: int, dtype: str,
+              iters: int, quant: str | None = None, device=None) -> dict:
+    """One row of a named zoo configuration: ``iters`` timed ``generate``
+    calls after one warm-up call (which builds the kernels and captures
+    the step), each between two syncs of ``device`` (the card by default).
+    Batch, input and output lengths are cut to the entry's limits; EOS is
+    disabled, so every call runs ``out_len`` steps. Weights from
+    ``init_params(seed=0)`` on the host, ``--quant int8`` through the
+    port's ``weight_only_quantize``, cast to ``dtype``."""
+    from whisper_trtllm_tpu_torch.quantization import weight_only_quantize
+
+    entry = ALLOWED_CONFIGS[name]
+    fam, cfg, init_params_fn, generate, _ = build_model(name)
+    if quant == "sq":
+        raise NotImplementedError(
+            "--quant sq needs smooth_quantize_gpt, not ported yet (ROADMAP "
+            "Queue 1 item 11)")
+    if quant not in (None, "int8"):
+        raise ValueError(f"--quant is int8 or sq, got {quant!r}")
+    dev = resolve_device(device)
+    batch = min(batch, entry.max_batch_size)
+    in_len = min(in_len, entry.max_input_len)
+    out_len = min(out_len, entry.max_output_len)
+    params = init_params_fn(cfg, seed=0, device="cpu")
+    if quant == "int8":
+        params = weight_only_quantize(params)
+    params = params_from_numpy(
+        params, dev, torch.bfloat16 if dtype == "bfloat16" else None)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        3, cfg.vocab_size, (batch, in_len)).astype(np.int32)).to(dev)
+    # EOS disabled for a stable measurement (random weights)
+    cfg = dataclasses.replace(cfg, eos_token_id=-1)
+
+    def run():
+        return generate(params, cfg, tokens, max_new_tokens=out_len,
+                        device=dev)
+
+    run()  # warm-up: builds the kernels, captures the step
+    sync(dev)
+    reset_launch_counts()
+    mon = MemoryMonitor(dev).start()
+    _, lats = timed_calls(run, dev, iters, warmup=0)
+    peak_gib = mon.stop()
+    med_s = float(np.median(lats)) / 1e3
+    return {
+        "peak_mem_gib": peak_gib,
+        "model": name,
+        "family": fam,
+        "batch": batch,
+        "input_len": in_len,
+        "output_len": out_len,
+        "dtype": dtype,
+        "quant": quant,
+        "latency_ms_p50": float(np.percentile(lats, 50)),
+        "latency_ms_p95": float(np.percentile(lats, 95)),
+        "latency_ms_p99": float(np.percentile(lats, 99)),
+        "tokens_per_s": batch * out_len / med_s,
+        "backend": dev.type,
+        "device": card_info() if dev.type == "cuda" else None,
+        "iters": iters,
+        "launches": {k: f.launches for k, f in KERNELS.items()
+                     if f.launches},
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", nargs="+", default=["tiny.en"],
                     help="Whisper presets (tiny.en, base.en, small.en, "
-                         "medium.en, large-v3)")
+                         "medium.en, large-v3) or zoo names from "
+                         "allowed_configs.py (gpt_350m, opt_350m, llama_7b, "
+                         "...)")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--dtype", nargs="+", default=["float32"],
                     choices=["float32", "bfloat16"])
     ap.add_argument("--gen-tokens", type=int, default=48)
+    ap.add_argument("--in-len", type=int, default=32,
+                    help="prompt length of a zoo row")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--num-beams", type=int, default=1)
     ap.add_argument("--quant", choices=["int8", "sq"], default=None,
-                    help="weight-only modes of the causal-LM zoo (not "
-                         "ported yet)")
+                    help="a zoo row's weights: weight-only int8 (sq, "
+                         "SmoothQuant, is not ported yet)")
     ap.add_argument("--checkpoint", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -174,9 +254,14 @@ def main(argv=None) -> int:
     for model in args.model:
         for dtype in args.dtype:
             for batch in args.batch:
-                row = bench_config(model, batch, dtype, args.gen_tokens,
-                                   args.iters, args.checkpoint,
-                                   args.num_beams, args.quant)
+                if model in ALLOWED_CONFIGS:
+                    row = bench_zoo(model, batch, args.in_len,
+                                    args.gen_tokens, dtype, args.iters,
+                                    args.quant)
+                else:
+                    row = bench_config(model, batch, dtype, args.gen_tokens,
+                                       args.iters, args.checkpoint,
+                                       args.num_beams, args.quant)
                 print(json.dumps(row), flush=True)
     return 0
 

@@ -42,7 +42,27 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-ACT2FN = {"gelu": gelu}
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return F.relu(x)
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """Mish: x · tanh(softplus(x))."""
+    return x * torch.tanh(F.softplus(x))
+
+
+# the JAX package's activation table: "gelu_new" (and its alias
+# "gelu_pytorch_tanh") is the tanh approximation of GELU, GPT-2's
+ACT2FN = {
+    "gelu": gelu,
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": relu,
+    "silu": F.silu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+    "mish": mish,
+}
 
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -116,6 +136,56 @@ def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     if _build.needs_grad(x, scale, bias):
         return LayerNorm.apply(x, scale, bias, eps)
     return layer_norm_kernel(x, scale, bias, eps)
+
+
+def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with fp32 statistics (the LLaMA family's norm; the JAX
+    package has no Pallas kernel for it and runs it in XLA)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * params["scale"].float()
+    return y.to(x.dtype)
+
+
+def softmax_fp32(scores: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Softmax computed in fp32, returned in ``dtype`` (default: the
+    scores' dtype)."""
+    out = torch.softmax(scores.float(), dim=-1)
+    return out.to(dtype or scores.dtype)
+
+
+def gather_last_token_logits(x: torch.Tensor,
+                             lengths: torch.Tensor) -> torch.Tensor:
+    """Each row's last valid position of a right-padded batch: x (B, S,
+    ...) and lengths (B,) → (B, ...) at index ``lengths - 1``, clamped into
+    [0, S - 1]. Reads nothing on the host."""
+    idx = (lengths.to(torch.int64) - 1).clamp(0, x.shape[1] - 1)
+    idx = idx.reshape((idx.shape[0],) + (1,) * (x.dim() - 1))
+    return torch.gather(x, 1, idx.expand((x.shape[0], 1) + x.shape[2:]))[:, 0]
+
+
+def prompt_tuning_embedding(table: torch.Tensor, prompt_table: torch.Tensor,
+                            ids: torch.Tensor, tasks=None,
+                            dtype=None) -> torch.Tensor:
+    """Embedding lookup with prompt-tuning slots: an id at or past the
+    vocabulary indexes ``prompt_table`` instead. With ``tasks`` (B,), the
+    table is one page a task (num_tasks, task_vocab, d) and ``id - vocab``
+    indexes the row's page; without, one (P, d) table serves the batch.
+    Virtual ids past the table are clamped to its last row, as JAX clamps
+    a gather."""
+    vocab = table.shape[0]
+    ids = ids.long()
+    is_prompt = ids >= vocab
+    tok = table[torch.where(is_prompt, 0, ids)]
+    if tasks is None:
+        vt = prompt_table[(ids - vocab).clamp(0, prompt_table.shape[0] - 1)]
+    else:
+        virt = (ids - vocab).clamp(0, prompt_table.shape[1] - 1)
+        pages = prompt_table[torch.as_tensor(tasks, device=ids.device).long()]
+        vt = torch.gather(pages, 1, virt[:, :, None].expand(
+            virt.shape + (pages.shape[2],)))
+    out = torch.where(is_prompt[..., None], vt.to(tok.dtype), tok)
+    return out.to(dtype) if dtype is not None else out
 
 
 def embedding(table, ids: torch.Tensor, dtype=None) -> torch.Tensor:

@@ -226,7 +226,7 @@ def _raises(fn, kind) -> str:
     return ""
 
 
-def serve_checks(out: dict, device="cpu", workdir: str = "") -> None:
+def serve_checks(out: dict, device="cuda", workdir: str = "") -> None:
     """The inference cases of ``tests/test_torch_parallel.py``, into
     ``out`` (numpy)."""
     from whisper_trtllm_tpu_torch import quantization
@@ -332,7 +332,7 @@ def serve_checks(out: dict, device="cpu", workdir: str = "") -> None:
     out["dryrun"] = dryrun(device)
 
 
-def train_checks(out: dict, device="cpu", workdir: str = "") -> None:
+def train_checks(out: dict, device="cuda", workdir: str = "") -> None:
     """The training, checkpoint and scaling cases of
     ``tests/test_torch_parallel_train.py``, into ``out`` (numpy); the DCP
     checkpoint goes to ``<workdir>/ckpt``."""
@@ -392,7 +392,7 @@ def train_checks(out: dict, device="cpu", workdir: str = "") -> None:
     out["scaling"] = text.getvalue()
 
 
-def dryrun_checks(out: dict, device="cpu", workdir: str = "") -> None:
+def dryrun_checks(out: dict, device="cuda", workdir: str = "") -> None:
     out["dryrun"] = dryrun(device)
 
 
@@ -416,12 +416,13 @@ def _rank_main(args) -> None:
 
 
 def spawn(n: int, run: str = "dryrun", workdir: str = None,
-          cpu: bool = True, timeout: float = 600.0) -> list:
+          cpu: bool = False, timeout: float = 600.0) -> list:
     """Run ``run`` on a world of ``n`` rank processes (``python -m`` this
     module), their store, logs and outputs in ``workdir`` (default: a new
     temporary directory); returns each rank's pickled ``out`` dict. A rank
     that exits non-zero, or a world still running after ``timeout``
-    seconds, raises with the ranks' logs; every child is killed first."""
+    seconds, raises with the ranks' logs; every child is killed first.
+    The ranks run NCCL over the cards unless ``cpu`` (gloo on the CPU)."""
     with (contextlib.nullcontext(workdir) if workdir
           else tempfile.TemporaryDirectory()) as tmp:
         out = tmp
