@@ -5,11 +5,11 @@ CUDA card.
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR`` (a checkout of an earlier commit) builds that commit's
-decode-attention kernels K2 and K7, its STFT frontend K3, its LayerNorm
-K5, its fused decoder-layer step K6 and its bias+GELU K8 from its own
-``csrc/`` and times them beside these on the same inputs, in turns
-(parent, this, this, parent), as ``parent_ms`` on their lines; without it
-nothing else is built.
+flash attention forward K1, decode-attention kernels K2 and K7, its STFT
+frontend K3, its LayerNorm K5, its fused decoder-layer step K6 and its
+bias+GELU K8 from its own ``csrc/`` and times them beside these on the
+same inputs, in turns (parent, this, this, parent), as ``parent_ms`` on
+their lines; without it nothing else is built.
 
 Seven phases (and phases 2b and 5b), each timed; any failure raises and the script exits non-zero:
 
@@ -37,7 +37,10 @@ Seven phases (and phases 2b and 5b), each timed; any failure raises and the scri
    decode attention at the in-flight batcher's shape, 8 lanes at lengths
    1..225 in one launch, float and int8 caches, fp32 q; and the zoo's:
    K1 causal at 800 positions at gpt_350m's heads and llama_7b's, 32
-   heads over 32 and over 8 key/value heads, K2 at the zoo's steps), every
+   heads over 32 and over 8 key/value heads, GPT-J's 16 heads of 256 and
+   GPT-NeoX's 64 of 96, K2 at the zoo's steps (GPT-J's heads of 256 and
+   GPT-NeoX's of 96 among them), K5 at the zoo's widths 4096, 6144, 9216
+   and 12288 over a prefill's rows (2 x 800) and a decode step's (2)), every
    input drawn on the card by a CUDA generator seeded from the check's
    own tag (``CardRng``), K3 held to its plain version's formula in
    float64 (the witness), and times the kernel, the plain
@@ -57,12 +60,16 @@ Seven phases (and phases 2b and 5b), each timed; any failure raises and the scri
    bf16 lockstep call (printed, not gated); opt_350m lockstep and ragged;
    llama_7b's widths cut to 2 layers, lockstep at batch 2 from 800 and
    beams, and the same widths with 8 key/value heads (GQA in K1 and in
-   the step). Every call's launches are exact over the steps it ran (K1 a
-   layer for a prompt past 768, K2 a layer a step, K5 2L + 1 a prefill
-   and a step for GPT and OPT, none for LLaMA), with one capture and
+   the step); gptj_6b's and gptneox_20b's widths cut to 2 layers (heads
+   of 256 and of 96, K5 at 4096 and 6144), lockstep at batch 2 from 800,
+   ragged at 800/790 and beams K 2 from 32. Every call's launches are
+   exact over the steps it ran (K1 a layer for a prompt past 768, K2 a
+   layer a step, K5 2L + 1 a prefill and a step for GPT, OPT and
+   GPT-NeoX, L + 1 for GPT-J, none for LLaMA), with one capture and
    then replays, and a repeat call that only replays and gives the same
-   outputs; a gpt_350m call from the long prompt (8 new tokens) counts
-   what the profiler counts over it. Lane 0 of
+   outputs; a gpt_350m call from the long prompt (8 new tokens), and
+   GPT-J's and GPT-NeoX's, count what the profiler counts over them.
+   Lane 0 of
    each greedy call equals the argmax of the port's teacher-forced
    ``forward`` on the CPU over the card's sequence (the rules applied for
    the rule-bound call), a step whose CPU top-two gap lies under
@@ -210,8 +217,10 @@ the beam path's first transcribe's (B; E for K6) as "beam_launches",
 the in-flight batcher's first drain in int8-auto as "serve_launches",
 one speculative utterance (S1 at gamma 4; S2 for K6) as "spec_launches";
 K2's batcher shape under "batcher"; K1's, K2's and K4's rows at the local
-head counts under "local_heads"; K1's and K2's at the zoo's shapes under
-"zoo", and gpt_350m's lockstep call at prompt 800 as "zoo_launches");
+head counts under "local_heads"; K1's, K2's and K5's at the zoo's shapes
+under "zoo", and gpt_350m's lockstep call at prompt 800 as "zoo_launches",
+GPT-J's and GPT-NeoX's at theirs under "zoo_launches_gptj" and
+"zoo_launches_gptneox");
 the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -363,11 +372,13 @@ def parent_note(parent_ms) -> str:
 
 
 def load_parent(root: str) -> dict:
-    """K2's, K3's, K5's, K6's, K7's and K8's wrappers from the checkout of
+    """K1's, K2's, K3's, K5's, K6's, K7's and K8's wrappers from the checkout of
     another commit at ``root``, built from its own ``csrc/`` into its own
     ``build/`` by its own ``_build``, so that the same calls time both.
     Their launch counts are their own."""
     import importlib.util
+
+    from whisper_trtllm_tpu_torch.ops.kernels import _build as own_build
 
     package = os.path.join(os.path.abspath(root), "whisper_trtllm_tpu_torch")
     kernels = os.path.join(package, "ops", "kernels")
@@ -377,18 +388,29 @@ def load_parent(root: str) -> dict:
             f"parent_{name}", os.path.join(folder, f"{name}.py"))
         mod = importlib.util.module_from_spec(spec)
         sys.modules[spec.name] = mod
-        spec.loader.exec_module(mod)
+        # a wrapper module registers its torch.ops.wtpu operator when it is
+        # imported (through this package's _build, which it imports by
+        # name), and these names are taken: the parent's eager wrappers
+        # launch without them
+        define_op = own_build.define_op
+        own_build.define_op = lambda *args: None
+        try:
+            spec.loader.exec_module(mod)
+        finally:
+            own_build.define_op = define_op
         for key, value in attrs.items():
             setattr(mod, key, value)  # its functions look it up at call time
         return mod
 
     build = load("_build")
     t0 = time.perf_counter()
-    build.build(["decode_attention", "cross_attention", "stft",
-                 "layer_norm", "fused_decoder_step", "fused_bias_gelu"])
-    print(f"parent: built K2, K3, K5, K6, K7 and K8 from {kernels} in "
+    build.build(["flash_attention", "decode_attention", "cross_attention",
+                 "stft", "layer_norm", "fused_decoder_step",
+                 "fused_bias_gelu"])
+    print(f"parent: built K1, K2, K3, K5, K6, K7 and K8 from {kernels} in "
           f"{time.perf_counter() - t0:.2f} s")
-    return {"decode_attn": load("decode_attention", _build=build).decode_attn,
+    return {"flash_fwd": load("flash_attention", _build=build).flash_fwd,
+            "decode_attn": load("decode_attention", _build=build).decode_attn,
             "cross_decode_mha": load("cross_attention",
                                      _build=build).cross_decode_mha,
             "stft_log_mel": load("stft", _build=build).stft_log_mel,
@@ -421,12 +443,17 @@ BENCH_FLASH_CASES = [("encoder", 32, 6, 6, 1500, 64, False),
 ZOO_FLASH_CASES = [("zoo gpt", 4, 16, 16, 800, 64, True),
                    ("zoo llama", 2, 32, 32, 800, 128, True),
                    ("zoo llama gqa", 2, 32, 8, 800, 128, True)]
+# GPT-J's prefill (16 heads of 256) and GPT-NeoX-20B's (64 heads of 96) at
+# batch 2, 800 positions: K1 past 128 and at a head width padded to 128
+ZOO_WIDE_FLASH_CASES = [("zoo gptj", 2, 16, 16, 800, 256, True),
+                        ("zoo gptneox", 2, 64, 64, 800, 96, True)]
 
 
-def check_flash(torch, rng, card, cases=FLASH_CASES):
-    """K1 at ``cases``; returns the batch-4 encoder's numbers (fp32, the
-    bf16 ones under "bfloat16"), or the zoo cases' by name and dtype, None
-    where ``cases`` has neither."""
+def check_flash(torch, rng, card, cases=FLASH_CASES, parent=None):
+    """K1 at ``cases``, timed beside the ``parent``'s K1 where one is given;
+    returns the batch-4 encoder's numbers (fp32, the bf16 ones under
+    "bfloat16"), or the zoo cases' by name and dtype, None where ``cases``
+    has neither."""
     import torch.nn.functional as F
 
     from whisper_trtllm_tpu_torch.ops.kernels import (
@@ -456,8 +483,10 @@ def check_flash(torch, rng, card, cases=FLASH_CASES):
                 fail(f"flash_fwd {name} {dn}: max |kernel - plain| = {err} "
                      f"> {TOLERANCE[dn]}")
             iters = 20
-            ms = time_ms(torch, lambda q, k, v: flash_fwd(q, k, v, causal=causal),
-                         sets, iters)
+            ms, p_ms = time_beside(
+                torch, lambda q, k, v: flash_fwd(q, k, v, causal=causal),
+                parent and (lambda q, k, v: parent["flash_fwd"](
+                    q, k, v, causal=causal)), sets, iters)
             plain = time_ms(torch, lambda q, k, v: attention_reference(
                 q, k, v, causal=causal), sets, iters)
             lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
@@ -469,9 +498,9 @@ def check_flash(torch, rng, card, cases=FLASH_CASES):
             b_ms, b_by = bound(nbytes, flops, dn, FLASH_PEAK_FLOPS)
             print(f"kernel flash_fwd {name} {dn} B={b} H={h} Hkv={hkv} "
                   f"S=T={s} dh={dh} causal={causal}: max_abs_err={err:.3e} "
-                  f"(tol {TOLERANCE[dn]}) ms={ms:.4f} plain_ms={plain:.4f} "
-                  f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-                  f"[{card}]")
+                  f"(tol {TOLERANCE[dn]}) ms={ms:.4f} {parent_note(p_ms)}"
+                  f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
             if (name, b) == ("encoder", 4):
@@ -585,13 +614,17 @@ ZOO_DECODE_CASES = [("gpt step", 4, 16, 864, 64, [864] * 4),
                     ("gpt ragged", 4, 16, 864, 64, [864, 854, 844, 834]),
                     ("gpt beam", 8, 16, 96, 64, [96] * 8),
                     ("llama step", 2, 32, 832, 128, [832] * 2)]
+# GPT-J's last step at batch 2 (800 + 32 rows, 16 heads of 256) and
+# GPT-NeoX-20B's (64 heads of 96)
+ZOO_WIDE_DECODE_CASES = [("gptj step", 2, 16, 832, 256, [832] * 2),
+                         ("gptneox step", 2, 64, 832, 96, [832] * 2)]
 
 
-def check_decode_zoo(torch, rng, card):
-    """K2 at the zoo's step shapes (``ZOO_DECODE_CASES``), fp32 and bf16,
-    with a per-lane valid length; timed beside SDPA over the same rows (a
-    boolean mask past each lane's length). Returns the rows by case name
-    and dtype."""
+def check_decode_zoo(torch, rng, card, cases=ZOO_DECODE_CASES):
+    """K2 at the zoo's step shapes (``cases``), fp32 and bf16, with a
+    per-lane valid length; timed beside SDPA over the same rows (a boolean
+    mask past each lane's length). Returns the rows by case name and
+    dtype."""
     import torch.nn.functional as F
 
     from whisper_trtllm_tpu_torch.ops.kernels import (
@@ -600,7 +633,7 @@ def check_decode_zoo(torch, rng, card):
     )
 
     rows_out = {}
-    for name, b, h, t, dh, lens in ZOO_DECODE_CASES:
+    for name, b, h, t, dh, lens in cases:
         vlt = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
         mask = (torch.arange(t, device=DEVICE)[None, :]
                 < vlt[:, None])[:, None, None, :]
@@ -849,15 +882,22 @@ BENCH_NORM_CASES = [("encoder", (32, 1500, 384)), ("decode", (32, 1, 384)),
                     ("encoder", (16, 1500, 1280)), ("decode", (16, 1, 1280))]
 # the beam phase's decode rows, B·K = 16 lanes
 BEAM_NORM_CASES = [("decode", (16, 1, 384))]
+# the zoo's widths past 2048 (a block a row): GPT-J's 4096, GPT-NeoX-20B's
+# 6144, opt_66b's 9216 and gpt_175b's 12288, over a prefill's rows (batch
+# 2, 800 positions) and a decode step's (batch 2)
+ZOO_NORM_CASES = [(f"zoo {kind} d{d}", (2, s, d)) for d in (4096, 6144, 9216,
+                                                           12288)
+                  for kind, s in (("prefill", 800), ("decode", 1))]
 
 
 def check_layer_norm(torch, rng, card, floor_ms, parent=None,
                      cases=NORM_CASES):
     """K5 at the encoder's rows (batch 4) and the decode step's, both
     dtypes, with and without bias (``NORM_CASES``), or at the bench's
-    (``BENCH_NORM_CASES``); timed beside the ``parent``'s K5 where one is
-    given. Returns the encoder's fp32 numbers, with its bf16 ones
-    under "bfloat16" and the decode step's under "decode"."""
+    (``BENCH_NORM_CASES``) or the zoo's (``ZOO_NORM_CASES``); timed beside
+    the ``parent``'s K5 where one is given. Returns the encoder's fp32
+    numbers, with its bf16 ones under "bfloat16" and the decode step's
+    under "decode"; or the zoo cases' by name and dtype."""
     import torch.nn.functional as F
 
     from whisper_trtllm_tpu_torch.ops.kernels import (
@@ -917,6 +957,9 @@ def check_layer_norm(torch, rng, card, floor_ms, parent=None,
                 headline = row
             elif name == "encoder":
                 headline["bfloat16"] = row
+            elif name.startswith("zoo"):
+                headline = headline or {}
+                headline.setdefault(name, {})[dn] = row
             elif headline is not None:
                 headline.setdefault("decode", {})[dn] = row
     return headline
@@ -1455,9 +1498,13 @@ TRACE_PAD_S = 1.0
 # traces of one call that may come out short of kernel records before the
 # last one is returned as it is (traced_run)
 TRACE_ATTEMPTS = 5
+# small kernels a trace launches before its pad: PRIME_LAUNCHES, and
+# RETRACE_SHIFT more on each retrace of the same call
+PRIME_LAUNCHES = 4
+RETRACE_SHIFT = 256
 KERNEL_SYMBOLS = {"decode_attn": ("decode_dh_minor", "decode_direct",
                                   "decode_t_minor"),
-                  "layer_norm": ("layer_norm_kernel",),
+                  "layer_norm": ("layer_norm_kernel", "layer_norm_wide_kernel"),
                   "fused_decoder_layer_step": ("fused_step_kernel",)}
 
 
@@ -1478,7 +1525,11 @@ def traced_run(torch, fn, symbols=None):
     call whose next trace held them all. A trace that holds fewer records
     of some wrapper's kernel than the wrapper counted, and more of none,
     is printed and taken again, the decode loop's counts put back as they
-    were before it, up to ``TRACE_ATTEMPTS`` traces. The caller holds the
+    were before it, up to ``TRACE_ATTEMPTS`` traces. Within one process
+    the same record went missing from every retrace of the same call (S2:
+    571 of 572 K5 records, five times), so each retrace launches
+    ``RETRACE_SHIFT`` more small kernels before its pad, which changes
+    where the call's records fall among the trace's. The caller holds the
     returned trace to the counters exactly, so a count that is wrong on
     every call still fails."""
     from torch.autograd import DeviceType
@@ -1500,7 +1551,7 @@ def traced_run(torch, fn, symbols=None):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             warm = torch.zeros(1, device=DEVICE)
-            for _ in range(4):
+            for _ in range(PRIME_LAUNCHES + RETRACE_SHIFT * (attempt - 1)):
                 warm.add_(1)
             torch.cuda.synchronize()
             time.sleep(TRACE_PAD_S)
@@ -4393,35 +4444,54 @@ ZOO_RULES = dict(repetition_penalty=1.3)
 ZOO_SAMPLED = dict(temperature=0.8, top_k=40)
 ZOO_KERNELS = ("flash_fwd", "decode_attn", "layer_norm")
 ZOO_TRACED_NEW = 8
+# gptj_6b's and gptneox_20b's widths at 2 layers: lockstep at batch 2 from
+# 800, ragged at 800/790, beams K 2 at batch 2 from 32 (16 new)
+ZOO_WIDE = ("gptj_6b", "gptneox_20b")
+ZOO_WIDE_BATCH, ZOO_WIDE_NEW = 2, 32
+ZOO_WIDE_RAGGED = (800, 790)
+ZOO_WIDE_BEAM_K, ZOO_WIDE_BEAM_NEW = 2, 16
 
 
 def zoo_weights() -> dict:
     """The zoo phase's trees on the host, ``init_params(seed=0)``:
     gpt_350m and opt_350m at full width and depth, llama_7b's widths cut
-    to 2 layers (depth only), with 32 and with 8 key/value heads."""
+    to 2 layers (depth only), with 32 and with 8 key/value heads, and
+    gptj_6b's and gptneox_20b's widths cut to 2 layers (0.82 G and 1.53 G
+    parameters). Each model draws from its own generator in a thread of
+    its own (numpy releases the GIL while it fills an array): drawn one
+    after another, the 4.3 G values outlasted the kernels phase by ~40 s
+    (NVIDIA H100 80GB HBM3 host, 700 W)."""
     import dataclasses
 
     from whisper_trtllm_tpu_torch.benchmarks.allowed_configs import (
         build_model,
     )
 
-    out = {}
-    for name in ("gpt_350m", "opt_350m", "llama_7b"):
+    def draw(name):
         _, cfg, init, _, _ = build_model(name)
-        if name == "llama_7b":
+        if name not in ("gpt_350m", "opt_350m"):
             cfg = dataclasses.replace(cfg, n_layer=2)
+        trees = {name: (cfg, init(cfg, seed=0, device="cpu"))}
+        if name == "llama_7b":
             gqa = dataclasses.replace(cfg, n_kv_head=8)
-            out["llama_7b gqa"] = (gqa, init(gqa, seed=0, device="cpu"))
-        out[name] = (cfg, init(cfg, seed=0, device="cpu"))
+            trees["llama_7b gqa"] = (gqa, init(gqa, seed=0, device="cpu"))
+        return trees
+
+    names = ("gpt_350m", "opt_350m", "llama_7b") + ZOO_WIDE
+    out = {}
+    with ThreadPoolExecutor(len(names)) as pool:
+        for trees in pool.map(draw, names):
+            out.update(trees)
     return out
 
 
 def zoo_launches(fam: str, cfg, long: bool, steps: int) -> dict:
     """A generate call's launches: a prefill (K1 a layer when long; K5 for
-    GPT's and OPT's 2L + 1 LayerNorms) and ``steps`` steps (K2 a layer,
-    K5 2L + 1 again for GPT and OPT; LLaMA's RMSNorm has no kernel)."""
+    GPT's, OPT's and GPT-NeoX's 2L + 1 LayerNorms, GPT-J's L + 1) and
+    ``steps`` steps (K2 a layer, K5 as many again; LLaMA's RMSNorm has no
+    kernel)."""
     n = cfg.n_layer
-    norms = 0 if fam == "llama" else 2 * n + 1
+    norms = {"llama": 0, "gptj": n + 1}.get(fam, 2 * n + 1)
     return {"flash_fwd": n if long else 0, "decode_attn": n * steps,
             "layer_norm": norms * (1 + steps)}
 
@@ -4567,9 +4637,12 @@ def zoo_ragged_lanes(torch, np, tag, mod, params, cfg, prompt, out_r,
 
 def zoo(torch, np, card, trees) -> dict:
     """The phase of the module docstring; returns the launches of
-    gpt_350m's long lockstep call (the kernel table's "zoo" column)."""
-    from whisper_trtllm_tpu_torch.models import gpt, llama, opt
+    gpt_350m's long lockstep call (the kernel table's "zoo" column) under
+    "", and GPT-J's and GPT-NeoX's under "_gptj" and "_gptneox"."""
+    from whisper_trtllm_tpu_torch.models import gpt, gptj, gptneox, llama, opt
     from whisper_trtllm_tpu_torch.models.gpt import model as gpt_model
+    from whisper_trtllm_tpu_torch.models.gptj import model as gptj_model
+    from whisper_trtllm_tpu_torch.models.gptneox import model as gptneox_model
     from whisper_trtllm_tpu_torch.models.llama import model as llama_model
     from whisper_trtllm_tpu_torch.models.opt import model as opt_model
     from whisper_trtllm_tpu_torch.runtime import causal_lm
@@ -4627,7 +4700,8 @@ def zoo(torch, np, card, trees) -> dict:
                 return mod.forward(host_tree, cfg_, seq, **kw)
         return fwd
 
-    def greedy_vs_cpu(tag, mod, host_tree, cfg_, out, prompt_len, **kw):
+    def greedy_vs_cpu(tag, mod, host_tree, cfg_, out, prompt_len,
+                      check=None, **kw):
         seq = out[0].cpu().numpy()
 
         def job():
@@ -4636,7 +4710,86 @@ def zoo(torch, np, card, trees) -> dict:
                                  cfg_.eos_token_id)
             print(f"zoo {tag}: lane 0 equals the CPU's argmax over {n} "
                   f"steps")
-        cpu_check(job)
+        (check or cpu_check)(job)
+
+    def traced_call(tag, fam, cfg_, call):
+        """The profiler's count over one call whose entry is cached
+        (replays only), against the counters: the call once untraced
+        (its capture), then traced."""
+        first, _, _ = zoo_run(torch, f"{tag} traced", fam, cfg_, True, call)
+        box = {}
+
+        def again():
+            box["out"], box["steps"], _ = zoo_run(
+                torch, f"{tag} traced repeat", fam, cfg_, True, call,
+                repeat=True)
+        _, traced, counted = traced_run(torch, again, ENGINE_SYMBOLS)
+        if not torch.equal(box["out"], first):
+            fail(f"zoo {tag} traced: a repeat call gave other tokens")
+        if {k: traced[k] for k in ZOO_KERNELS} != {k: counted[k]
+                                                   for k in ZOO_KERNELS}:
+            fail(f"zoo {tag} traced: profiler {traced} != counters "
+                 f"{counted}")
+        print(f"zoo {tag} traced ({ZOO_TRACED_NEW} new tokens, "
+              f"{box['steps']} steps, replays only): launches {counted} "
+              f"equal the profiler's")
+
+    # ---- gptj_6b's and gptneox_20b's widths, 2 layers, fp32 ----------------
+    # first, while no CPU check runs: their checks wait in `early` until
+    # the CPU's thread starts after gpt's traced call
+    early = []
+    wide_counts = {}
+    for name, fam, mod, mod_model in (
+            ("gptj_6b", "gptj", gptj, gptj_model),
+            ("gptneox_20b", "gptneox", gptneox, gptneox_model)):
+        wcfg, whost = trees[name]
+        wparams = params_from_numpy(whost, DEVICE)
+        wp = long_p[:ZOO_WIDE_BATCH] % wcfg.vocab_size
+        tag = f"{name} (2 layers, {wcfg.n_head} heads of {wcfg.head_dim})"
+        out_w, steps, ms = zoo_run(
+            torch, f"{name} long", fam, wcfg, True,
+            lambda: mod.generate(wparams, wcfg, wp, ZOO_WIDE_NEW))
+        wide_counts["_" + fam] = zoo_launches(fam, wcfg, True, steps)
+        pre = zoo_prefill_ms(torch, mod_model, wparams, wcfg,
+                             torch.from_numpy(wp).to(DEVICE), wcfg.n_head)
+        report(f"{tag} lockstep B {ZOO_WIDE_BATCH} prompt {ZOO_LONG}", fam,
+               wcfg, True,
+               lambda: mod.generate(wparams, wcfg, wp, ZOO_WIDE_NEW), out_w,
+               steps, ms, pre)
+        traced_call(name, fam, wcfg,
+                    lambda: mod.generate(wparams, wcfg, wp, ZOO_TRACED_NEW))
+        greedy_vs_cpu(f"{name} long", mod, whost, wcfg, out_w, ZOO_LONG,
+                      early.append)
+        out_r, steps, ms = zoo_run(
+            torch, f"{name} ragged", fam, wcfg, True,
+            lambda: mod.generate_ragged(wparams, wcfg, wp,
+                                        list(ZOO_WIDE_RAGGED), ZOO_WIDE_NEW))
+        report(f"{tag} ragged {list(ZOO_WIDE_RAGGED)}", fam, wcfg, True,
+               lambda: mod.generate_ragged(wparams, wcfg, wp,
+                                           list(ZOO_WIDE_RAGGED),
+                                           ZOO_WIDE_NEW), out_r, steps, ms,
+               pre)
+        zoo_ragged_lanes(torch, np, f"{name} ragged", mod_model, wparams,
+                         wcfg, wp, out_r.cpu().numpy(), ZOO_WIDE_NEW,
+                         cpu_forward(mod, whost, wcfg), ZOO_WIDE_RAGGED)
+        bpw = short_p[:ZOO_WIDE_BATCH] % wcfg.vocab_size
+        out_wb, steps, ms = zoo_run(
+            torch, f"{name} beams", fam, wcfg, False,
+            lambda: mod.generate_beam(wparams, wcfg, bpw, ZOO_WIDE_BEAM_NEW,
+                                      ZOO_WIDE_BEAM_K))
+        report(f"{tag} beams K {ZOO_WIDE_BEAM_K} B {ZOO_WIDE_BATCH}", fam,
+               wcfg, False, lambda: mod.generate_beam(
+                   wparams, wcfg, bpw, ZOO_WIDE_BEAM_NEW, ZOO_WIDE_BEAM_K),
+               out_wb, steps, ms)
+        out_wb = tuple(x.cpu() for x in out_wb)
+
+        def wbeams_job(name=name, mod=mod, whost=whost, wcfg=wcfg, bpw=bpw,
+                       out_wb=out_wb):
+            zoo_beams_match(torch, f"{name} beams", out_wb, mod.generate_beam(
+                whost, wcfg, bpw, ZOO_WIDE_BEAM_NEW, ZOO_WIDE_BEAM_K,
+                device="cpu"))
+        after.append(wbeams_job)
+        del wparams
 
     out_long, steps, ms = zoo_run(
         torch, "gpt long", "gpt", cfg, True,
@@ -4647,24 +4800,10 @@ def zoo(torch, np, card, trees) -> dict:
            steps, ms, prefill["long"])
     # the profiler's count over one traced call: the long prompt's
     # prefill and a few replayed steps
-    out_t, _, _ = zoo_run(
-        torch, "gpt traced", "gpt", cfg, True,
-        lambda: gpt.generate(params, cfg, long_p, ZOO_TRACED_NEW))
-    box = {}
-
-    def again():
-        box["out"], box["steps"], _ = zoo_run(
-            torch, "gpt traced repeat", "gpt", cfg, True,
-            lambda: gpt.generate(params, cfg, long_p, ZOO_TRACED_NEW),
-            repeat=True)
-    _, traced, counted = traced_run(torch, again, ENGINE_SYMBOLS)
-    if not torch.equal(box["out"], out_t):
-        fail("zoo gpt traced: a repeat call gave other tokens")
-    if {k: traced[k] for k in ZOO_KERNELS} != {k: counted[k]
-                                               for k in ZOO_KERNELS}:
-        fail(f"zoo gpt traced: profiler {traced} != counters {counted}")
-    print(f"zoo gpt traced ({ZOO_TRACED_NEW} new tokens, {box['steps']} "
-          f"steps, replays only): launches {counted} equal the profiler's")
+    traced_call("gpt", "gpt", cfg,
+                lambda: gpt.generate(params, cfg, long_p, ZOO_TRACED_NEW))
+    for job in early:
+        cpu_check(job)
     greedy_vs_cpu("gpt long", gpt, host, cfg, out_long, ZOO_LONG)
 
     out_short, steps, ms = zoo_run(
@@ -4889,7 +5028,7 @@ def zoo(torch, np, card, trees) -> dict:
                          seq, len(run_ids), tiny.eos_token_id)
     print(f"zoo run_zoo --family gpt: {outs['run_zoo']['output_ids']}, equal "
           f"to the CPU's argmax over {n} steps")
-    return counts
+    return {"": counts, **wide_counts}
 
 
 def main() -> None:
@@ -4897,9 +5036,9 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="the checkout of an earlier commit: its K2, K3, K5, "
-                         "K6, K7 and K8 are built from its csrc/ and timed "
-                         "beside these")
+                    help="the checkout of an earlier commit: its K1, K2, "
+                         "K3, K5, K6, K7 and K8 are built from its csrc/ and "
+                         "timed beside these")
     args = ap.parse_args()
     import torch
 
@@ -4953,7 +5092,7 @@ def main() -> None:
     def rng(tag):
         return CardRng(torch, tag)
 
-    flash = check_flash(torch, rng("flash"), card)
+    flash = check_flash(torch, rng("flash"), card, parent=parent)
     decode = check_decode(torch, rng("decode"), card, parent)
     decode["serving"] = check_decode_quant(torch, rng("decode quant"), card,
                                            parent)
@@ -4987,6 +5126,14 @@ def main() -> None:
     flash["zoo"] = check_flash(torch, rng("zoo flash"), card,
                                ZOO_FLASH_CASES)
     decode["zoo"] = check_decode_zoo(torch, rng("zoo decode"), card)
+    # and GPT-J's and GPT-NeoX's: K1 and K2 at heads of 256 and 96, K5 at
+    # widths 4096 to 12288 (from streams of their own)
+    flash["zoo"].update(check_flash(torch, rng("zoo wide flash"), card,
+                                    ZOO_WIDE_FLASH_CASES))
+    decode["zoo"].update(check_decode_zoo(torch, rng("zoo wide decode"),
+                                          card, ZOO_WIDE_DECODE_CASES))
+    norm["zoo"] = check_layer_norm(torch, rng("zoo layer norm"), card,
+                                   floor_ms, cases=ZOO_NORM_CASES)
     phase_s["kernels"] = time.perf_counter() - t0
     # the zoo, its weights drawn on the host beside the kernels phase
     t0 = time.perf_counter()
@@ -5102,9 +5249,11 @@ def main() -> None:
         # K1, K2 and K4 at the local head counts of tensor parallelism
         if r["name"] in local_heads:
             r["local_heads"] = local_heads[r["name"]]
-        # gpt_350m's lockstep call at prompt 800 (K1, K2, K5)
-        if counts["zoo"].get(r["name"]):
-            r["zoo_launches"] = counts["zoo"][r["name"]]
+        # gpt_350m's lockstep call at prompt 800 (K1, K2, K5), and GPT-J's
+        # and GPT-NeoX's at batch 2
+        for tag in ("", "_gptj", "_gptneox"):
+            if counts["zoo"][tag].get(r["name"]):
+                r["zoo_launches" + tag] = counts["zoo"][tag][r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # K1, K4 and K5 also carry their bf16 numbers at the encoder's shape;
@@ -5116,7 +5265,10 @@ def main() -> None:
                                               "beam_launches",
                                               "serve_launches",
                                               "spec_launches",
-                                              "zoo_launches", "bfloat16",
+                                              "zoo_launches",
+                                              "zoo_launches_gptj",
+                                              "zoo_launches_gptneox",
+                                              "bfloat16",
                                               "serving", "batcher", "decode",
                                               "encoder_mlp", "floor_ms",
                                               "local_heads", "zoo")

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.audio import log_mel_spectrogram as jax_log_mel
 from whisper_trtllm_tpu.config import GenerationConfig as JaxGenerationConfig
 from whisper_trtllm_tpu.runtime.generation import (

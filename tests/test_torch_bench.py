@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu import config as jax_config
 from whisper_trtllm_tpu.audio.features import (
     log_mel_spectrogram as jax_log_mel_spectrogram,
@@ -297,6 +298,26 @@ def test_gate_missing_record_fails_main_before_measuring(state_path,
 # without a card, and what is not ported
 # --------------------------------------------------------------------------
 
+@pytest.mark.parametrize("name,family,width", [
+    ("gptj_6b", "gptj", 4096), ("gptneox_20b", "gptneox", 6144),
+    ("gpt_175b", "gpt", 12288), ("opt_66b", "opt", 9216)])
+def test_the_wide_zoo_configs_build(name, family, width):
+    """The names whose widths reach K5 past 2048 (and GPT-J's head dim of
+    256, K1 and K2 past 128) build: family, config class and widths."""
+    from whisper_trtllm_tpu_torch.benchmarks.allowed_configs import (
+        ALLOWED_CONFIGS,
+        build_model,
+    )
+
+    fam, cfg, init_params, generate, forward = build_model(name)
+    assert fam == family == ALLOWED_CONFIGS[name].family
+    assert cfg.d_model == width and width <= 16384
+    assert cfg.head_dim <= 256
+    assert callable(init_params) and callable(generate) and callable(forward)
+    if name == "gptj_6b":
+        assert cfg.head_dim == 256 and cfg.rotary_dim == 64
+
+
 @pytest.mark.parametrize("main", [bench.main, benchmark.main])
 def test_entry_points_exit_nonzero_without_a_card(main, monkeypatch, capsys,
                                                   state_path):
@@ -308,7 +329,7 @@ def test_entry_points_exit_nonzero_without_a_card(main, monkeypatch, capsys,
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(name="gptj_6b"), "item 11"),
+    (dict(name="bert_base"), "item 11"),
     (dict(name="chatglm_6b"), "item 11"),
     (dict(name="gpt_350m", quant="sq"), "item 11"),
 ])

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from flax import serialization
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu import config as jax_config
 from whisper_trtllm_tpu.models.whisper import cast_params
 from whisper_trtllm_tpu.models.whisper import init_params as jax_init_params

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 from test_accept_cli import _FakeTok, dataset, hf_dir  # noqa: F401
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.config import WhisperConfig
 from whisper_trtllm_tpu.models.whisper import init_params
 from whisper_trtllm_tpu.utils.checkpoint import save_checkpoint

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from examples.custom_kernel import custom_gelu_kernel as jax_gelu
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.ops.pallas.cross_attention import (
     cross_decode_mha as jax_cross_decode_mha,
 )

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu import config as jax_config
 from whisper_trtllm_tpu.models.whisper import init_params
 from whisper_trtllm_tpu.runtime import generation as jax_gen

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.ops import attention as jax_att
 from whisper_trtllm_tpu.ops.pallas.cross_attention import (
     cross_decode_mha as jax_cross_decode_mha,
@@ -59,19 +60,22 @@ DTYPES = [pytest.param(torch.float32, id="fp32"),
 def slot_count(dh, elem, threads=None):
     """Rows a dh-minor block takes at once: its threads (128, or 256 for a
     lone block that reads one small tile in place), a power-of-two group of
-    lanes a row, each lane reading 16 bytes (fp32, bf16) or 8 (int8, fp8)."""
+    lanes a row up to 32, each lane reading 16 bytes (fp32, bf16) or 8
+    (int8, fp8) a vector (two vectors an fp32 lane at dh > 128)."""
     vec = 4 if elem == 4 else 8
     lanes = 1
-    while lanes * vec < dh:
+    while lanes * vec < dh and lanes < 32:
         lanes *= 2
     return (threads or THREADS) // lanes
 
 
 def dh_minor_slots(dh, elem, plan):
     """The slots of K2's dh-minor block under ``plan``: a lone block of
-    one tile of at most 64 rows reads it in place with 256 threads."""
+    one tile of at most 64 rows (32 at dh > 128) reads it in place with
+    256 threads."""
     splits, chunk, tile = plan
-    direct = splits == 1 and tile == chunk <= 64 and (dh * elem) % 16 == 0
+    direct = (splits == 1 and tile == chunk <= (64 if dh <= 128 else 32)
+              and (dh * elem) % 16 == 0)
     return slot_count(dh, elem, 256 if direct else None)
 
 
@@ -363,3 +367,66 @@ def test_split_plan_fills_the_card_from_the_shape(b, t, elem, t_major):
     if b == 4 and t == 1504:
         assert 8 <= splits <= 16 and chunk >= MIN_ROWS
         assert splits * b * 6 >= H100_SMS
+
+
+# the kernel's limits (csrc/decode_split.cuh): dynamic shared memory a
+# block, and all of it (static included) on an H100
+MAX_SMEM = 200 * 1024
+BLOCK_SMEM = 232448
+
+
+def kernel_smem(dh, elem, plan, t_major):
+    """Shared memory of a K2 block under ``plan`` (splits, chunk, tile,
+    stages): the stages' K, V and scales (``tile_smem``), T-minor's scores
+    and partial sums, and the static arrays of a head up to 256 wide (its
+    partial, rank 0's gather of 16 partials, the slots' sums)."""
+    splits, chunk, tile, stages = plan
+    vec = 16 // elem if elem > 1 else 8
+    dhp = dh if t_major else -(-dh // vec) * vec
+    r16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    dyn = stages * (2 * r16(tile * dhp * elem) + 2 * tile * 4)
+    if t_major:
+        dyn += (tile + max(8 * tile, max(THREADS, dhp))) * 4
+    dhm = 256 if dh > 128 else 128
+    static = (2 + dhm) * 4 + 16 * (dhm + 2) * 4 + 16 * 4 + 4 + 8 * 8
+    static += 4 * dhm * 4 + 2 * 4 * 4 if not t_major else dhm * 4 + 4 * 4
+    return dyn, static
+
+
+@pytest.mark.parametrize("t_major", [False, True], ids=["bhtd", "bhdt"])
+@pytest.mark.parametrize("elem", [4, 2, 1])
+@pytest.mark.parametrize("b,h,t", [(2, 16, 832), (1, 16, 33), (4, 16, 2048),
+                                   (2, 64, 832)])
+def test_wide_head_plan_fits_the_block(b, h, t, elem, t_major):
+    """At dh 256 (GPT-J: 16 heads, prompt 800 + 32 new) a tile row takes
+    twice dh 128's bytes: the plan's tiles shrink to hold TILE_BYTES, the
+    stages and the static arrays stay within a block's shared memory, and
+    the plan covers T as the kernel's launch demands."""
+    rb = tile_row_bytes(256, elem, t_major)
+    plan = split_plan(t, b * h, rb, H100_SMS, t_major)
+    check_plan(t, plan[:3])
+    dyn, static = kernel_smem(256, elem, plan, t_major)
+    assert dyn <= MAX_SMEM and MAX_SMEM + static <= BLOCK_SMEM
+    assert plan[2] * rb <= 32 * 1024 or plan[2] == ROW_ALIGN
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t_major", [False, True], ids=["bhtd", "bhdt"])
+@pytest.mark.parametrize("t,valid_len", [(200, 200), (200, 37), (40, 40)])
+def test_split_decode_wide_head_matches_decode_mha(dtype, t_major, t,
+                                                   valid_len):
+    """dh 256 on the card's plan: 32 lanes a row (two 4-value vectors an
+    fp32 lane), 16-row tiles; T 40 a lone block that reads in place."""
+    rng = np.random.default_rng(t + valid_len + t_major)
+    q = _normal(rng, (1, 2, 1, 256), 0.0625)
+    k, v = _normal(rng, (1, 2, t, 256)), _normal(rng, (1, 2, t, 256))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = decode_mha(*(jnp.asarray(x, jdt) for x in (q, k, v)),
+                      jnp.int32(valid_len), interpret=True)
+    tk, tv = (torch.from_numpy(x).to(dtype) for x in (k, v))
+    if t_major:
+        tk, tv = (x.transpose(-1, -2).contiguous() for x in (tk, tv))
+    got = split_decode(torch.from_numpy(q).to(dtype), tk, tv, valid_len,
+                       t_major=t_major)
+    assert got.dtype == dtype
+    assert _err(got, want.astype(jnp.float32)) <= LIMIT[dtype]

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.ops import functional as jax_fn
 from whisper_trtllm_tpu.ops.pallas.flash_attention import _bwd_impl, flash_mha
 from whisper_trtllm_tpu_torch.ops import attention as att

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.ops.pallas.flash_attention import _bwd_impl, _fwd_impl
 
 TILE = 64  # the kernels' K/V tile rows

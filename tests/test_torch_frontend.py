@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.audio import features as jax_features
 from whisper_trtllm_tpu.audio import mel as jax_mel
 from whisper_trtllm_tpu_torch.audio import features, mel

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.layers import transformer as jax_tf
 from whisper_trtllm_tpu.ops import attention as jax_att
 from whisper_trtllm_tpu.ops import functional as jax_fn

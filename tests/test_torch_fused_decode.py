@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu import config as jax_config
 from whisper_trtllm_tpu.layers.transformer import (
     attention_qkv as jax_attention_qkv,

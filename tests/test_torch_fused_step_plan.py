@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.ops.pallas.fused_decoder_step import (
     CROSS_BLOCK,
     fused_decoder_layer_step as jax_fused_step,

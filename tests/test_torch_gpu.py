@@ -46,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu_torch.ops.attention import quantize_kv
 from whisper_trtllm_tpu_torch.ops.kernels import (
     KERNELS,
@@ -98,6 +99,9 @@ def _normal(rng, shape, scale, device, dtype):
     (1, 1500, 1500, 64, True),   # MQA, causal, the 28-row tail
     (1, 200, 200, 8, False),     # dh 8, padded to 64
     (3, 130, 130, 72, False),    # dh 72, padded to 128
+    (2, 200, 200, 256, True),    # GPT-J's head: 32-row K/V tiles
+    (3, 130, 130, 256, False),
+    (6, 77, 77, 136, False),     # dh 136, padded to 256
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, tol, hkv, s, t, dh, causal):
     rng = np.random.default_rng(s)
@@ -154,7 +158,9 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, tol, b, hkv, s, t, dh,
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("t,valid_len,dh", [(33, 1, 64), (33, 33, 64),
                                             (1504, 1500, 64), (1504, 0, 64),
-                                            (40, 17, 8), (64, 64, 128)])
+                                            (40, 17, 8), (64, 64, 128),
+                                            (832, 832, 256), (16, 9, 256),
+                                            (96, 50, 200), (832, 801, 96)])
 def test_decode_kernel_matches_plain(cuda, dtype, tol, t, valid_len, dh):
     rng = np.random.default_rng(t + valid_len)
     q = _normal(rng, (4, 6, 1, dh), dh ** -0.5, cuda, dtype)
@@ -201,6 +207,35 @@ def test_decode_kernel_cache_kinds_match_plain(cuda, dtype, tol, t_major,
     ref = decode_attention_reference(q, ck, cv, vl, t_major=t_major, **scales)
     assert out.dtype == dtype
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("t_major", [False, True], ids=["bhtd", "bhdt"])
+@pytest.mark.parametrize("kind", ["int8", "fp8", "float"])
+@pytest.mark.parametrize("t,valid_len", [(33, [0, 5, 33, 17]),
+                                         (832, [832, 700])])
+def test_decode_kernel_wide_head_cache_kinds_match_plain(cuda, dtype, tol,
+                                                         t_major, kind, t,
+                                                         valid_len):
+    """Heads of 256 (32 lanes a row, two 4-value vectors an fp32 lane;
+    T-minor's P.V two d rows a thread) in every cache kind and layout."""
+    rng = np.random.default_rng(t + 256)
+    b = len(valid_len)
+    q = _normal(rng, (b, 4, 1, 256), 0.0625, cuda, dtype)
+    ck = _normal(rng, (b, 4, t, 256), 1.0, cuda, torch.float32)
+    cv = _normal(rng, (b, 4, t, 256), 1.0, cuda, torch.float32)
+    scales = {}
+    if kind == "float":
+        ck, cv = ck.to(dtype), cv.to(dtype)
+    else:
+        ck, ks = quantize_kv(ck, _QUANT[kind])
+        cv, vs = quantize_kv(cv, _QUANT[kind])
+        scales = dict(k_scale=ks, v_scale=vs)
+    if t_major:
+        ck = ck.transpose(-1, -2).contiguous()
+        cv = cv.transpose(-1, -2).contiguous()
+    vl = torch.tensor(valid_len, dtype=torch.int32, device=cuda)
+    _k2_once(q, ck, cv, vl, t_major, scales, tol)
 
 
 def _k2_cache(rng, cuda, b, t, kind, t_major, dtype):
@@ -469,7 +504,8 @@ def _norm_error(out, ref):
 
 @pytest.mark.parametrize("x_dtype,p_dtype", _NORM_PAIRS)
 @pytest.mark.parametrize("rows", [1, 4, 6000])
-@pytest.mark.parametrize("d", [6, 100, 384, 1280, 2048])
+@pytest.mark.parametrize("d", [6, 100, 384, 1280, 2048, 2056, 4096, 4100,
+                               6144, 9216, 12288, 16384])
 def test_layer_norm_kernel_over_widths_and_dtype_pairs(cuda, x_dtype, p_dtype,
                                                        rows, d):
     """Every vector and scalar plan K5 takes, in each of its four x and
@@ -610,7 +646,19 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     # in the JAX package's flash conditions but beyond K1's head_dim
     from whisper_trtllm_tpu_torch.ops.attention import mha
     with pytest.raises(ValueError, match="head_dim"):
-        mha(*(torch.zeros(1, 2, 16, 136, device=cuda),) * 3)
+        mha(*(torch.zeros(1, 2, 16, 264, device=cuda),) * 3)
+    # past the limits: K1 and K2 heads of 256, K5 rows of 16384; K4 128
+    wide = torch.zeros(1, 2, 16, 264, device=cuda)
+    with pytest.raises(ValueError, match="up to 256"):
+        flash_fwd(wide, wide, wide)
+    with pytest.raises(ValueError, match="up to 256"):
+        decode_attn(torch.zeros(1, 2, 1, 264, device=cuda), wide, wide, vl)
+    with pytest.raises(ValueError, match="at most 16384"):
+        layer_norm(torch.zeros(2, 16392, device=cuda),
+                   torch.ones(16392, device=cuda))
+    x256 = torch.zeros(1, 2, 16, 256, device=cuda)
+    with pytest.raises(ValueError, match="up to 128"):
+        flash_bwd(x256, x256, x256, torch.zeros(1, 2, 16, device=cuda), x256)
 
 
 def test_kernels_without_backward_refuse_inputs_that_require_grad(cuda):
@@ -1389,7 +1437,7 @@ def test_capture_survives_garbage_that_holds_a_graph(cuda):
 
 _KERNEL_SYMBOLS = {"decode_attn": ("decode_dh_minor", "decode_direct",
                                    "decode_t_minor"),
-                   "layer_norm": ("layer_norm_kernel",),
+                   "layer_norm": ("layer_norm_kernel", "layer_norm_wide_kernel"),
                    "fused_decoder_layer_step": ("fused_step_kernel",)}
 
 
@@ -2427,11 +2475,22 @@ def test_flash_kernel_at_the_zoo_prefills_matches_plain(cuda, dtype, tol, b,
 
 
 def _zoo_model(family: str):
-    """A small tree of ``family`` on the card (2 layers, head dim 64)."""
-    from whisper_trtllm_tpu_torch.models import gpt, llama, opt
+    """A small tree of ``family`` on the card (2 layers, head dim 64;
+    GPT-J's 2 heads of 256, GPT-NeoX's 4 of 64 with rotary_pct 0.25)."""
+    from whisper_trtllm_tpu_torch.models import gpt, gptj, gptneox, llama, opt
 
-    mod = {"gpt": gpt, "opt": opt, "llama": llama}[family]
-    if family == "gpt":
+    mod = {"gpt": gpt, "opt": opt, "llama": llama, "gptj": gptj,
+           "gptneox": gptneox}[family]
+    if family == "gptj":
+        cfg = gptj.GPTJConfig(vocab_size=512, max_positions=128, d_model=512,
+                              n_layer=2, n_head=2, rotary_dim=64, ffn_dim=512,
+                              eos_token_id=7)
+    elif family == "gptneox":
+        cfg = gptneox.GPTNeoXConfig(vocab_size=512, max_positions=128,
+                                    d_model=256, n_layer=2, n_head=4,
+                                    ffn_dim=512, eos_token_id=7,
+                                    use_parallel_residual=False)
+    elif family == "gpt":
         cfg = gpt.GPTConfig(vocab_size=512, n_positions=128, d_model=256,
                             n_layer=2, n_head=4, ffn_dim=512, eos_token_id=7)
     elif family == "opt":
@@ -2447,7 +2506,8 @@ def _zoo_model(family: str):
 @pytest.mark.parametrize("family,call", [
     ("gpt", "lockstep"), ("gpt", "ragged"), ("gpt", "rules"),
     ("gpt", "sampled"), ("opt", "beams"), ("llama", "lockstep"),
-    ("llama", "beams")])
+    ("llama", "beams"), ("gptj", "lockstep"), ("gptj", "beams"),
+    ("gptneox", "ragged")])
 def test_zoo_captured_step_equals_the_eager_steps(cuda, monkeypatch, family,
                                                   call):
     """The zoo's loops (``runtime/causal_lm.py``, ``runtime/beam_lm.py``)
@@ -2490,3 +2550,55 @@ def test_zoo_captured_step_equals_the_eager_steps(cuda, monkeypatch, family,
     for got in captured:
         for g, e in zip(got, eager):
             assert g.is_cuda and torch.equal(g, e)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,h,dh", [(2, 16, 256), (2, 64, 96)])
+def test_flash_kernel_at_the_wide_zoo_prefills_matches_plain(cuda, dtype, tol,
+                                                             b, h, dh):
+    """K1 causal at 800 positions: GPT-J-6B's 16 heads of 256 and
+    GPT-NeoX-20B's 64 heads of 96."""
+    rng = np.random.default_rng(h + dh)
+    q = _normal(rng, (b, h, 800, dh), dh ** -0.5, cuda, dtype)
+    k = _normal(rng, (b, h, 800, dh), 1.0, cuda, dtype)
+    v = _normal(rng, (b, h, 800, dh), 1.0, cuda, dtype)
+    out = flash_fwd(q, k, v, causal=True)
+    ref = attention_reference(q, k, v, causal=True)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_gptj_at_heads_of_256_on_the_card_equals_the_cpu(cuda):
+    """A 2-layer GPT-J of 2 heads of 256 from a prompt of 800 (K1 at dh
+    256 in the prefill, K2 at dh 256 in the steps, K5 at d 512): the card's
+    tokens equal the CPU's, lane for lane, up to a step whose CPU logits'
+    two largest lie within 1e-4 of max |logit| (a near tie, which fp32
+    sums in another order may break either way), where that lane's
+    comparison ends."""
+    from whisper_trtllm_tpu_torch.models import gptj
+    from whisper_trtllm_tpu_torch.ops.kernels import reset_launch_counts
+
+    cfg = gptj.GPTJConfig(vocab_size=512, max_positions=1024, d_model=512,
+                          n_layer=2, n_head=2, rotary_dim=64, ffn_dim=1024,
+                          eos_token_id=-1)
+    host = gptj.init_params(cfg, seed=0, device="cpu")
+    params = gptj.init_params(cfg, seed=0)
+    prompt = np.random.default_rng(3).integers(8, 512, (2, 800)).astype(
+        np.int32)
+    reset_launch_counts()
+    generation.reset_loop_counts()
+    got = gptj.generate(params, cfg, prompt, 16).cpu()
+    steps = generation.LOOP.steps
+    assert flash_fwd.launches == cfg.n_layer
+    assert decode_attn.launches == cfg.n_layer * steps
+    assert layer_norm.launches == (cfg.n_layer + 1) * (1 + steps)
+    want = gptj.generate(host, cfg, prompt, 16, device="cpu")
+    logits = gptj.forward(host, cfg, want)
+    for lane in range(2):
+        for p in range(800, want.shape[1]):
+            if int(got[lane, p]) == int(want[lane, p]):
+                continue
+            top2 = torch.topk(logits[lane, p - 1], 2).values
+            gap = (top2[0] - top2[1]).item()
+            assert gap < 1e-4 * logits[lane, p - 1].abs().max().item(), (
+                lane, p, gap)
+            break

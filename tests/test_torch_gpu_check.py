@@ -12,6 +12,7 @@ import shutil
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu_torch.cli import gpu_check
 
 KERNEL_CHECKS = {"flash_fwd", "flash_bwd", "flash_causal", "decode_kernel",

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.config import WhisperConfig as JaxConfig
 from whisper_trtllm_tpu.layers import init as jax_init
 from whisper_trtllm_tpu.models.whisper import convert as jax_convert

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 import whisper_trtllm_tpu_torch
 from whisper_trtllm_tpu_torch.audio import LogMelSpectrogram, log_mel_spectrogram
 from whisper_trtllm_tpu_torch.config import WhisperConfig
@@ -93,7 +94,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "parallel.dryrun", "benchmarks.scaling", "models.zoo",
                  "models.gpt", "models.gpt.model", "models.opt",
                  "models.opt.model", "models.llama", "models.llama.model",
-                 "runtime.causal_lm", "runtime.beam_lm",
+                 "models.gptj", "models.gptj.model", "models.gptneox",
+                 "models.gptneox.model", "runtime.causal_lm", "runtime.beam_lm",
                  "benchmarks.allowed_configs", "benchmarks.stft_witness",
                  "cli.run_zoo"):
         assert f"whisper_trtllm_tpu_torch.{name}" in _port_modules()
@@ -228,13 +230,15 @@ def test_zoo_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
 
     from whisper_trtllm_tpu_torch.benchmarks import benchmark
     from whisper_trtllm_tpu_torch.cli import run_zoo
-    from whisper_trtllm_tpu_torch.models import gpt, llama, opt
+    from whisper_trtllm_tpu_torch.models import gpt, gptj, gptneox, llama, opt
     from whisper_trtllm_tpu_torch.parallel import dryrun
 
     prompt = np.asarray([[3, 4, 5]], np.int32)
     for mod, cfg in ((gpt, gpt.GPTConfig.testing()),
                      (opt, opt.OPTConfig.testing()),
-                     (llama, llama.LlamaConfig.testing())):
+                     (llama, llama.LlamaConfig.testing()),
+                     (gptj, gptj.GPTJConfig.testing()),
+                     (gptneox, gptneox.GPTNeoXConfig.testing())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mod.init_params(cfg)
         params = mod.init_params(cfg, device="cpu")

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.audio.features import (
     LogMelSpectrogram as JaxLogMelSpectrogram,
 )
@@ -93,6 +94,21 @@ def test_flash_plain_bf16_matches_pallas():
     np.testing.assert_allclose(out.float().numpy(), ref, atol=3e-2, rtol=3e-2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_head_dim_256_matches_pallas(causal, dtype):
+    """GPT-J's head width, which K1 takes up to 256."""
+    q, k, v = _qkv(14, 1, 2, 2, 256, 256, 256)
+    jdt = getattr(jnp, dtype)
+    ref = np.asarray(flash_mha(*(jnp.asarray(x, jdt) for x in (q, k, v)),
+                               causal=causal, interpret=True).astype(
+                                   jnp.float32))
+    out = flash_fwd(*(x.to(getattr(torch, dtype)) for x in _torch(q, k, v)),
+                    causal=causal)
+    tol = FP32_TOL if dtype == "float32" else dict(atol=3e-2, rtol=3e-2)
+    np.testing.assert_allclose(out.float().numpy(), ref, **tol)
+
+
 @pytest.mark.parametrize("case", ["flash", "mask", "causal", "input_dtype_softmax",
                                   "single_row"])
 def test_mha_matches_jax(case):
@@ -133,6 +149,22 @@ def test_decode_plain_matches_pallas(valid_len):
     out = decode_attn(*_torch(q, ck, cv),
                       torch.tensor(valid_len, dtype=torch.int32))
     np.testing.assert_allclose(out.numpy(), ref, **FP32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("valid_len", [1, 200, 320])
+def test_decode_plain_head_dim_256_matches_pallas(valid_len, dtype):
+    """GPT-J's head width, which K2 takes up to 256."""
+    q, ck, cv = _decode_inputs(15, b=2, h=2, t=320, dh=256)
+    jdt = getattr(jnp, dtype)
+    ref = np.asarray(decode_mha(*(jnp.asarray(x, jdt) for x in (q, ck, cv)),
+                                jnp.int32(valid_len), interpret=True).astype(
+                                    jnp.float32))
+    out = decode_attn(*(x.to(getattr(torch, dtype))
+                        for x in _torch(q, ck, cv)),
+                      torch.tensor(valid_len, dtype=torch.int32))
+    tol = FP32_TOL if dtype == "float32" else dict(atol=3e-2, rtol=3e-2)
+    np.testing.assert_allclose(out.float().numpy(), ref, **tol)
 
 
 @pytest.mark.parametrize("fp32_softmax", [True, False])
@@ -266,6 +298,20 @@ def test_layer_norm_plain_matches_pallas(with_bias):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("d", [4096, 6144, 12288])
+def test_layer_norm_plain_wide_matches_pallas(d):
+    """The zoo's widths (GPT-J, GPT-NeoX, gpt_175b), which K5 takes up to
+    16384."""
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((8, d)).astype(np.float32) * 2 + 0.5
+    scale = rng.standard_normal(d).astype(np.float32)
+    bias = rng.standard_normal(d).astype(np.float32)
+    ref = np.asarray(layer_norm_fused(jnp.asarray(x), jnp.asarray(scale),
+                                      jnp.asarray(bias), interpret=True))
+    out = layer_norm(*_torch(x, scale, bias))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
 # --------------------------------------------------------------------------
 # wrappers: plain version for CPU tensors only, launches counted on the card
 # --------------------------------------------------------------------------
@@ -332,3 +378,27 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_decoder_layer_step(x, x, scalar, lp, cache, cache, cache, cache,
                                  scalar)
+
+
+def test_wrappers_refuse_past_their_limits():
+    """Off the CPU, K1 and K2 take heads up to 256 and K5 rows up to 16384;
+    past those they raise before reaching a device (here the meta device,
+    which they would refuse next)."""
+    q, k, v = (torch.empty(1, 2, 16, 264, device="meta") for _ in range(3))
+    with pytest.raises(ValueError, match="up to 256"):
+        flash_fwd(q, k, v)
+    with pytest.raises(ValueError, match="up to 256"):
+        decode_attn(q[:, :, :1], k, v,
+                    torch.empty((), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="at most 16384"):
+        layer_norm(torch.empty(2, 16392, device="meta"),
+                   torch.empty(16392, device="meta"))
+    q, k, v = (torch.empty(1, 2, 16, 256, device="meta") for _ in range(3))
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_fwd(q, k, v)
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_attn(torch.empty(1, 2, 1, 256, device="meta"), k, v,
+                    torch.empty((), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        layer_norm(torch.empty(2, 16384, device="meta"),
+                   torch.empty(16384, device="meta"))

@@ -12,6 +12,11 @@ group adds its partial sums over an xor tree (offsets 16, 8, 4, 2, 1 below
 lpr); mean = sum * (1 / d); the variance is a second pass over the values
 held, the same tree; rstd = rsqrt(var * (1 / d) + eps).
 
+Rows wider than 2048 take a block a row (``lpr`` = the block's threads,
+``rpw`` 0): thread t holds the vectors t, t + threads, ...; each warp adds
+its threads' partial sums over the same xor tree, then every thread adds
+the warps' sums in warp order.
+
 K8 (``gelu_plan``): a block is ``tx`` column threads by ``ty`` rows;
 thread x takes the vectors x, x + tx, ... (``cpt`` of them) of its column
 chunk (the grid's y) and walks its rows a grid's stride apart.
@@ -29,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.ops.pallas.layer_norm import layer_norm_fused
 from whisper_trtllm_tpu_torch.examples.custom_kernel.custom_gelu_kernel import (
     MAX_CPT,
@@ -40,9 +46,14 @@ from whisper_trtllm_tpu_torch.examples.custom_kernel.custom_gelu_kernel import (
 from whisper_trtllm_tpu_torch.ops.kernels import _build
 from whisper_trtllm_tpu_torch.ops.kernels.layer_norm import (
     HALF_VPTS,
+    MAX_D,
+    MAX_WIDE_THREADS,
     SCALAR_VPTS,
     THREADS,
     VECTOR_VPTS,
+    WIDE_SCALAR_VPTS,
+    WIDE_THREADS,
+    WIDE_VPTS,
     layer_norm_reference,
     norm_plan,
 )
@@ -128,6 +139,41 @@ def test_norm_plan_takes_every_value_once(d, dtype, rows, aligned):
         assert (_norm_rows_covered(plan, rows, grid) == 1).all()
 
 
+# the zoo's widths (GPT-J, ChatGLM 4096; GPT-NeoX 6144; opt_66b 9216;
+# gpt_175b 12288), the limit, and widths off the 16-byte vector
+WIDE_WIDTHS = [2056, 4096, 4100, 6144, 9216, 12288, 12290, MAX_D]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("rows", [1, 2, 1600])
+@pytest.mark.parametrize("dtype", list(ELEMS))
+@pytest.mark.parametrize("d", WIDE_WIDTHS)
+def test_wide_norm_plan_takes_every_value_once(d, dtype, rows, aligned):
+    """A block a row: at least two warps, at most WIDE_THREADS where
+    that holds the row (MAX_WIDE_THREADS at most), the fewest instantiated
+    vectors a thread; every value of a row held once, every row taken once
+    by the blocks of any wave."""
+    elem = ELEMS[dtype]
+    plan = norm_plan(rows, d, elem, aligned)
+    wide = 16 // elem
+    assert plan.lpr == plan.threads and plan.rpw == 0
+    assert plan.threads % 32 == 0 and 64 <= plan.threads <= MAX_WIDE_THREADS
+    assert plan.vec == (wide if aligned and d % wide == 0 else 1)
+    assert plan.vpt in (WIDE_VPTS if plan.vec > 1 else WIDE_SCALAR_VPTS)
+    assert plan.lpr * plan.vpt * plan.vec >= d and plan.blocks == rows
+    nv = d // plan.vec
+    fits = [v for v in (WIDE_VPTS if plan.vec > 1 else WIDE_SCALAR_VPTS)
+            if -(-nv // v) <= WIDE_THREADS]
+    if fits:
+        assert plan.vpt == fits[0] and plan.threads <= WIDE_THREADS
+    assert (_norm_columns_covered(plan, d) == 1).all()
+    for grid in _waves(plan.blocks):
+        hit = np.zeros(rows, np.int64)
+        for b in range(grid):
+            np.add.at(hit, np.arange(b, rows, grid), 1)
+        assert (hit == 1).all()
+
+
 def test_norm_plan_at_the_main_paths_shapes():
     """The encoder's rows take 16-byte vectors (bf16: 16 lanes of 3, two
     rows a warp, as the design sets out); the decode step's 4 rows take 32
@@ -211,7 +257,8 @@ def test_gelu_plan_takes_every_element_once(rows, d, dtype, aligned):
 def emulate_layer_norm(x, scale, bias, plan, eps=1e-5):
     """K5's arithmetic in numpy fp32 for x (rows, d) and its plan: each
     lane's partial sums over its vectors in order, the xor tree over the
-    lane group, the second pass for the variance, then the output."""
+    lane group (a block a row: over each warp, then the warps in order),
+    the second pass for the variance, then the output."""
     rows, d = x.shape
     f32 = np.float32
     nv = d // plan.vec
@@ -227,7 +274,12 @@ def emulate_layer_norm(x, scale, bias, plan, eps=1e-5):
         for off in (16, 8, 4, 2, 1):
             if off < plan.lpr:
                 part = part + part[:, gl ^ off]
-        return part[:, 0]
+        if plan.rpw:
+            return part[:, 0]
+        total = np.zeros(rows, f32)  # a block a row: the warps in order
+        for w in range(plan.lpr // 32):
+            total = total + part[:, 32 * w]
+        return total
 
     inv_d = f32(1) / f32(d)
     total = np.zeros((rows, plan.lpr), f32)
@@ -294,3 +346,36 @@ def test_kernel_sum_order_matches_pallas_and_plain(shape, x_dtype, p_dtype,
         got = torch.from_numpy(out).to(torch.bfloat16).float().numpy()
         for ref in (pallas, plain):
             assert _bf16_steps(got, ref).max() <= 1
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("x_dtype,p_dtype", [("float32", "float32"),
+                                             ("bfloat16", "bfloat16"),
+                                             ("float32", "bfloat16")])
+@pytest.mark.parametrize("shape", [(1, 8, 4096), (1, 8, 6144), (1, 8, 12288),
+                                   (2, 3, 4100)])
+def test_wide_sum_order_matches_pallas_and_plain(shape, x_dtype, p_dtype,
+                                                 aligned):
+    """A block a row, against the Pallas kernel and the plain version:
+    1e-6 of max(|ref|, 1) in fp32; on bf16 outputs one bf16 step of
+    max(|ref|, 1), the limit K5 is held to on the card (the Pallas kernel
+    and the plain version themselves part by 2 steps of an output's own
+    magnitude where (x - mean) * rstd * scale nearly cancels the bias at
+    d 4096)."""
+    x, scale, bias, pallas = _case(shape, x_dtype, p_dtype)
+    d = shape[-1]
+    rows = x.numel() // d
+    plan = norm_plan(rows, d, x.element_size(), aligned)
+    assert plan.rpw == 0
+    out = emulate_layer_norm(x.float().numpy().reshape(rows, d),
+                             scale.float().numpy(), bias.float().numpy(),
+                             plan).reshape(shape)
+    plain = layer_norm_reference(x, scale, bias).float().numpy()
+    if x_dtype == "float32":
+        limit = 1e-6
+    else:
+        out = torch.from_numpy(out).to(torch.bfloat16).float().numpy()
+        limit = 2.0 ** -7
+    for ref in (pallas, plain):
+        err = np.abs(out - ref) / np.maximum(np.abs(ref), 1)
+        assert err.max() <= limit

@@ -20,6 +20,7 @@ import torch
 import zoo_parity
 from zoo_parity import BEAM_SCORE_TOL, FORWARD_TOL, RULES, Family
 
+from torch_threads import capped_threads  # noqa: F401
 import whisper_trtllm_tpu.models.opt.model as jopt
 import whisper_trtllm_tpu_torch.models.opt.model as topt
 

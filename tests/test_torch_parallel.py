@@ -24,6 +24,8 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+import torch_threads
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu import config as jax_config
 from whisper_trtllm_tpu import quantization as jax_quant
 from whisper_trtllm_tpu.models.whisper import model as jax_model
@@ -56,7 +58,8 @@ def world(tmp_path_factory):
     pool = ThreadPoolExecutor(1)
     yield pool.submit(dryrun.spawn, WORLD, "serve",
                       workdir=str(tmp_path_factory.mktemp("serve_world")),
-                      cpu=True, timeout=WORLD_TIMEOUT_S)
+                      cpu=True, timeout=WORLD_TIMEOUT_S,
+                      env=torch_threads.rank_env())
     pool.shutdown(wait=True)
 
 

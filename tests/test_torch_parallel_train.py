@@ -33,6 +33,8 @@ import optax
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+import torch_threads
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu import config as jax_config
 from whisper_trtllm_tpu import training as jax_training
 from whisper_trtllm_tpu.models.whisper import model as jax_model
@@ -66,7 +68,8 @@ class World:
         self._pool = ThreadPoolExecutor(1)
         self._run = self._pool.submit(dryrun.spawn, WORLD, "train",
                                       workdir=self.workdir,
-                                      cpu=True, timeout=WORLD_TIMEOUT_S)
+                                      cpu=True, timeout=WORLD_TIMEOUT_S,
+                                      env=torch_threads.rank_env())
 
     def ranks(self):
         return self._run.result()

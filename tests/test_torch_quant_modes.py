@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.config import GenerationConfig as JaxGen
 from whisper_trtllm_tpu.config import RuntimeConfig as JaxRuntime
 from whisper_trtllm_tpu.config import WhisperConfig as JaxWhisperConfig

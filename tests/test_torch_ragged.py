@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu import config as jax_config
 from whisper_trtllm_tpu.models.whisper import init_params
 from whisper_trtllm_tpu.models.whisper import model as jax_model

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.runtime import sampling as jax_sampling
 from whisper_trtllm_tpu_torch.runtime import sampling
 

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.native import lib as jax_native
 from whisper_trtllm_tpu_torch import native
 from whisper_trtllm_tpu_torch.audio.features import (

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.ops.pallas.stft import stft_log_mel as jax_stft_log_mel
 from whisper_trtllm_tpu_torch.audio.features import (
     HOP_LENGTH,

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu import config as jax_config
 from whisper_trtllm_tpu.runtime import logits_process as jax_lp
 from whisper_trtllm_tpu_torch import config as torch_config

@@ -29,6 +29,7 @@ import optax
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu import config as jax_config
 from whisper_trtllm_tpu import training as jax_training
 from whisper_trtllm_tpu.models.whisper import init_params

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import test_normalizer as jax_norm_tests
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu import config as jax_config
 from whisper_trtllm_tpu.models.whisper import init_params
 from whisper_trtllm_tpu.runtime import WhisperSession as JaxSession

@@ -1,8 +1,8 @@
 """PyTorch port: the zoo's entry points on the CPU.
 
 - ``cli/run_zoo.py --cpu`` prints the JAX CLI's (``cli/run_zoo.py``)
-  tokens: on a tiny HF GPT-2 saved to a local directory, and on each
-  family's testing-width random weights.
+  tokens: on a tiny HF GPT-2 and a tiny HF GPT-J saved to local
+  directories, and on each family's testing-width random weights.
 - ``benchmarks/benchmark.py::bench_zoo``, with the registry holding one
   tiny gpt entry, returns finite rows (fp32 and bf16, float and
   weight-only int8 weights).
@@ -18,6 +18,7 @@ import sys
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu_torch.benchmarks import allowed_configs, benchmark
 from whisper_trtllm_tpu_torch.cli import run_zoo
 
@@ -52,7 +53,24 @@ def test_run_zoo_on_a_local_hf_gpt2_prints_the_jax_clis_tokens(tmp_path,
     assert len(row["output_ids"]) == 11
 
 
-@pytest.mark.parametrize("family", ["gpt", "opt", "llama"])
+def test_run_zoo_on_a_local_hf_gptj_prints_the_jax_clis_tokens(tmp_path,
+                                                              capsys):
+    from transformers import GPTJConfig, GPTJForCausalLM
+
+    torch.manual_seed(0)
+    GPTJForCausalLM(GPTJConfig(
+        vocab_size=89, n_positions=32, n_embd=32, n_layer=2, n_head=4,
+        rotary_dim=4, eos_token_id=2, bos_token_id=1)).save_pretrained(
+            tmp_path / "hf")
+    argv = ["--family", "gptj", "--hf-model", str(tmp_path / "hf"),
+            "--prompt-ids", "3", "4", "5", "--max-new-tokens", "8"]
+    row = _port_cli(argv, capsys)
+    assert row == _jax_cli(argv, capsys)
+    assert row["family"] == "gptj" and len(row["output_ids"]) == 11
+
+
+@pytest.mark.parametrize("family", ["gpt", "opt", "llama", "gptj",
+                                    "gptneox"])
 def test_run_zoo_testing_weights_print_the_jax_clis_tokens(family, capsys):
     argv = ["--family", family, "--prompt-ids", "5", "9", "12",
             "--max-new-tokens", "6", "--repetition-penalty", "1.2"]
@@ -60,9 +78,9 @@ def test_run_zoo_testing_weights_print_the_jax_clis_tokens(family, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--family", "gptj"], ["--family", "gptneox"], ["--family", "bloom"],
-    ["--family", "chatglm6b"], ["--config", "gptj_6b"],
-    ["--config", "bert_base"]])
+    ["--config", "chatglm_6b"], ["--config", "bert_tiny"],
+    ["--family", "bloom"], ["--family", "chatglm6b"],
+    ["--config", "bert_large"], ["--config", "bert_base"]])
 def test_run_zoo_refuses_the_families_not_ported(argv):
     with pytest.raises(NotImplementedError, match="item 11"):
         run_zoo.main(argv + ["--prompt-ids", "3", "--cpu"])
@@ -98,7 +116,7 @@ def test_bench_zoo_on_the_cpu_returns_a_finite_row(tiny_registry, dtype,
     assert row["launches"] == {}  # the plain versions launch nothing
 
 
-@pytest.mark.parametrize("name,quant", [("gptj_6b", None),
+@pytest.mark.parametrize("name,quant", [("bert_tiny", None),
                                         ("chatglm_6b", None),
                                         ("bert_base", None),
                                         ("gpt_350m", "sq")])

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401
 from whisper_trtllm_tpu.ops import functional as jf
 from whisper_trtllm_tpu_torch.ops import functional as tf
 

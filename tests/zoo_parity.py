@@ -1,5 +1,5 @@
-"""Shared by ``tests/test_torch_{gpt,opt,llama}.py``: one zoo family's JAX
-module and its port on the same weights (an HF model built from a tiny
+"""Shared by ``tests/test_torch_{gpt,opt,llama,gptj_gptneox}.py``: one zoo
+family's JAX module and its port on the same weights (an HF model built from a tiny
 config with a seed, converted by the JAX package and carried over by
 ``params_from_numpy``), and the JAX side's generate calls with any
 sampling configuration (its ``causal_lm`` loop over the model's own

@@ -27,7 +27,8 @@ A zoo name (``allowed_configs.py``) runs ``bench_zoo``: the family's
 disabled, tokens/s over ``batch * gen_tokens``, with ``--quant int8``
 the weight-only int8 tree. Not ported yet, and refused with
 ``NotImplementedError`` naming ROADMAP Queue 1 item 11: the families
-other than gpt, opt and llama, and ``--quant sq`` (SmoothQuant for GPT).
+other than gpt, opt, llama, gptj and gptneox, and ``--quant sq``
+(SmoothQuant for GPT).
 Without a card it exits non-zero and prints no row.
 """
 

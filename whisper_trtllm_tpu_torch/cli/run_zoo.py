@@ -2,8 +2,8 @@
 (counterpart of the repository's ``cli/run_zoo.py``), on the CUDA card
 (``--cpu``: the plain PyTorch path on the CPU).
 
-The families gpt, opt and llama; any other raises ``NotImplementedError``
-naming ROADMAP Queue 1 item 11. ``--prompt-ids`` takes raw token ids (no
+The families gpt, opt, llama, gptj and gptneox; any other raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 11. ``--prompt-ids`` takes raw token ids (no
 tokenizer needed); ``--hf-model`` converts a local HF checkpoint directory
 (nothing is fetched) and, when it holds tokenizer files, tokenizes
 ``--prompt`` and detokenizes the output.
@@ -33,6 +33,8 @@ _CONVERTERS = {
     "gpt": ("convert_hf_gpt2", "GPT2LMHeadModel"),
     "llama": ("convert_hf_llama", "LlamaForCausalLM"),
     "opt": ("convert_hf_opt", "OPTForCausalLM"),
+    "gptj": ("convert_hf_gptj", "GPTJForCausalLM"),
+    "gptneox": ("convert_hf_gptneox", "GPTNeoXForCausalLM"),
 }
 
 

@@ -66,29 +66,38 @@ __device__ __forceinline__ Head<QT, CT> head(const Params& p, int bh, bool t_min
   return h;
 }
 
-template <typename QT, typename CT, int LPR>
+// VPL vectors a lane (2: fp32 heads wider than 128), heads up to DHM
+template <typename QT, typename CT, int LPR, int VPL, int DHM>
 __global__ void __launch_bounds__(THREADS) decode_dh_minor(const Params p) {
-  __shared__ Partial part;
+  __shared__ PartialT<DHM> part;
   const int splits = static_cast<int>(cg::this_cluster().num_blocks());
   if (splits > 1) cluster_arrive();
   const int bh = blockIdx.x / splits, rank = blockIdx.x % splits;
   const Head<QT, CT> h = head<QT, CT>(p, bh, false);
-  if (!attend_rows<QT, CT, LPR>(h, p.dh, p.chunk, p.tile, p.stages, rank, part))
-    combine(part, p.dh, h.out);
+  bool alone;
+  if constexpr (DHM > MAX_DH)
+    alone = attend_rows_wide<QT, CT, LPR, THREADS, VPL>(h, p.dh, p.chunk, p.tile, p.stages,
+                                                        rank, part);
+  else
+    alone = attend_rows<QT, CT, LPR>(h, p.dh, p.chunk, p.tile, p.stages, rank, part);
+  if (!alone) combine(part, p.dh, h.out);
 }
 
 // One block a head of at most DIRECT_ROWS rows, read in place (the self
 // cache): more threads, so more rows at once.
-template <typename QT, typename CT, int LPR>
+template <typename QT, typename CT, int LPR, int VPL, int DHM>
 __global__ void __launch_bounds__(DIRECT_THREADS) decode_direct(const Params p) {
-  __shared__ Partial part;
+  __shared__ PartialT<DHM> part;
   const Head<QT, CT> h = head<QT, CT>(p, blockIdx.x, false);
-  attend_rows<QT, CT, LPR, DIRECT_THREADS>(h, p.dh, p.chunk, p.tile, 1, 0, part);
+  if constexpr (DHM > MAX_DH)
+    attend_rows_wide<QT, CT, LPR, DIRECT_THREADS, VPL>(h, p.dh, p.chunk, p.tile, 1, 0, part);
+  else
+    attend_rows<QT, CT, LPR, DIRECT_THREADS>(h, p.dh, p.chunk, p.tile, 1, 0, part);
 }
 
-template <typename QT, typename CT>
+template <typename QT, typename CT, int DHM>
 __global__ void __launch_bounds__(THREADS) decode_t_minor(const Params p) {
-  __shared__ Partial part;
+  __shared__ PartialT<DHM> part;
   const int splits = static_cast<int>(cg::this_cluster().num_blocks());
   if (splits > 1) cluster_arrive();
   const int bh = blockIdx.x / splits, rank = blockIdx.x % splits;
@@ -108,14 +117,14 @@ bool aligned16(const void* a, const void* b) {
 // V (BULK), their scales one more each where T % 4 == 0 and the scales
 // align, else by cp.async (ASYNC); rows that 16 bytes do not align are
 // copied element by element (ELEMENT).
-template <typename QT, typename CT, int LPR>
+template <typename QT, typename CT, int LPR, int VPL = 1, int DHM = MAX_DH>
 cudaError_t launch_dh_minor(Params p, int splits, int bh, cudaStream_t st) {
   constexpr int VEC = Vec<CT>::N;
   const int dhp = (p.dh + VEC - 1) / VEC * VEC;
   if (!aligned16(p.k, p.v) || (p.dh * (int)sizeof(CT)) % 16 != 0)
     p.copy = ELEMENT;
   else if (splits == 1 && p.tile >= p.chunk &&
-           p.chunk <= min(DIRECT_ROWS, DIRECT_RPS * (DIRECT_THREADS / 32) * (32 / LPR)))
+           p.chunk <= min(DIRECT_ROWS, direct_rps(DHM) * (DIRECT_THREADS / 32) * (32 / LPR)))
     p.copy = DIRECT;
   else if (p.ks != nullptr && (p.T % 4 != 0 || !aligned16(p.ks, p.vs)))
     p.copy = ASYNC;
@@ -125,21 +134,31 @@ cudaError_t launch_dh_minor(Params p, int splits, int bh, cudaStream_t st) {
   if (!plan_ok(p.T, splits, p.chunk, p.tile, p.stages, smem)) return cudaErrorInvalidValue;
   static unsigned ready = 0, direct_ready = 0;
   if (p.copy == DIRECT)
-    return launch<DIRECT_THREADS>(decode_direct<QT, CT, LPR>, &direct_ready, 1, bh, 0, st, p);
-  return launch(decode_dh_minor<QT, CT, LPR>, &ready, splits, bh, smem, st, p);
+    return launch<DIRECT_THREADS>(decode_direct<QT, CT, LPR, VPL, DHM>, &direct_ready, 1, bh, 0,
+                                  st, p);
+  return launch(decode_dh_minor<QT, CT, LPR, VPL, DHM>, &ready, splits, bh, smem, st, p);
+}
+
+template <typename QT, typename CT, int DHM>
+cudaError_t launch_t_minor(Params p, int splits, int bh, cudaStream_t st) {
+  static unsigned ready = 0;
+  // a tile's d rows are dh runs of t, T apart: 16-byte cp.async pieces
+  // where the runs align
+  p.copy = aligned16(p.k, p.v) && (p.T * (int)sizeof(CT)) % 16 == 0 ? ASYNC : ELEMENT;
+  const int smem = tile_smem<CT>(p.tile, p.dh, p.stages, true);
+  if (!plan_ok(p.T, splits, p.chunk, p.tile, p.stages, smem)) return cudaErrorInvalidValue;
+  return launch(decode_t_minor<QT, CT, DHM>, &ready, splits, bh, smem, st, p);
 }
 
 template <typename QT, typename CT>
 cudaError_t launch_cache(Params p, int splits, int bh, bool t_minor, cudaStream_t st) {
-  if (t_minor) {
-    static unsigned ready = 0;
-    // a tile's d rows are dh runs of t, T apart: 16-byte cp.async pieces
-    // where the runs align
-    p.copy = aligned16(p.k, p.v) && (p.T * (int)sizeof(CT)) % 16 == 0 ? ASYNC : ELEMENT;
-    const int smem = tile_smem<CT>(p.tile, p.dh, p.stages, true);
-    if (!plan_ok(p.T, splits, p.chunk, p.tile, p.stages, smem)) return cudaErrorInvalidValue;
-    return launch(decode_t_minor<QT, CT>, &ready, splits, bh, smem, st, p);
-  }
+  if (t_minor)
+    return p.dh > MAX_DH ? launch_t_minor<QT, CT, MAX_DH_WIDE>(p, splits, bh, st)
+                         : launch_t_minor<QT, CT, MAX_DH>(p, splits, bh, st);
+  // heads of 136..256: 32 lanes a row, each 2 vectors of 4 fp32 values or
+  // one of 8 values of the other types
+  if (p.dh > MAX_DH)
+    return launch_dh_minor<QT, CT, 32, Vec<CT>::N == 4 ? 2 : 1, MAX_DH_WIDE>(p, splits, bh, st);
   // dh % 8 == 0 and dh <= 128: 2..32 pieces of 4 fp32 values, 1..16 of 8
   // values of the other types; only the reachable widths are built
   const int pieces = p.dh / Vec<CT>::N;
@@ -175,7 +194,8 @@ extern "C" {
 // q (B, H, 1, dh) and o (B, H, 1, dh) in q_dtype (0 float32, 1 bfloat16);
 // k/v (B, H, T, dh), or (B, H, dh, T) when t_major, in cache_dtype (0
 // float32, 1 bfloat16: equal to q_dtype; 2 int8, 3 fp8 e4m3: then k_scale
-// and v_scale point to fp32 (B, H, T, 1)); all contiguous. valid_len points
+// and v_scale point to fp32 (B, H, T, 1)); dh a multiple of 8 up to 256;
+// all contiguous. valid_len points
 // to int32 on the device: lane b reads valid_len[b * vl_stride]. splits
 // (1..16) chunks of `chunk` rows cover T, none empty; the blocks walk them
 // in tiles of `tile` rows (chunk and tile multiples of 16), `stages`
@@ -185,7 +205,7 @@ int decode_attn(const void* q, const void* k, const void* v, const void* k_scale
                 int B, int H, int T_len, int dh, int q_dtype, int cache_dtype,
                 int t_major, int splits, int chunk, int tile, int stages, void* stream) {
   const bool quant = cache_dtype == 2 || cache_dtype == 3;
-  if (B <= 0 || H <= 0 || T_len <= 0 || dh <= 0 || dh > MAX_DH || dh % 8 != 0 ||
+  if (B <= 0 || H <= 0 || T_len <= 0 || dh <= 0 || dh > MAX_DH_WIDE || dh % 8 != 0 ||
       (vl_stride != 0 && vl_stride != 1) ||
       (quant && (k_scale == nullptr || v_scale == nullptr)) ||
       (long long)B * H * splits > 0x7fffffffLL)

@@ -45,6 +45,11 @@
 //   sums them in rank order and writes the output once, cast to the
 //   storage dtype. No workspace, no atomics, no counters: the result
 //   repeats bit for bit.
+// - Heads of 136..256 (GPT-J's 256): attend_rows_wide, a warp a row, each
+//   lane two 4-value vectors (fp32) or one of 8 (the other types); in
+//   T-minor one P.V segment, each thread dh / 128 d rows. The partials and
+//   rank 0's gather are sized by the kernel's widest head (DHM), 128 or
+//   256, so the narrow instantiations keep their shared memory.
 // Rows >= valid_len are masked with -1e9, and only rows below it are read
 // (their weights are exactly 0 in fp32); valid_len <= 0 masks every row,
 // which gives the uniform softmax over all T rows, as the plain formula.
@@ -78,13 +83,15 @@ using namespace async_copy;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_DH = 128;
+constexpr int MAX_DH = 128;      // the head widths most instantiations take
+constexpr int MAX_DH_WIDE = 256; // ... and the wide ones (GPT-J's 256)
 constexpr int MAX_SPLITS = 16;   // a cluster of 16 needs the non-portable size
 constexpr int ROW_ALIGN = 16;    // chunk and tile rows are multiples of it
 constexpr int T_GROUPS = 8;      // T-minor: groups of d rows in the scores
 constexpr int MAX_STAGES = 4;    // tiles in flight a block
 constexpr int DIRECT_ROWS = 64;  // the most rows a block reads in place
 constexpr int DIRECT_RPS = 8;    // ... and a slot of lanes keeps in registers
+                                 // (half as many rows of a wide head)
 constexpr int DIRECT_THREADS = 256;  // a block that reads in place: more slots
 constexpr int MAX_SMEM = 200 * 1024;
 constexpr float MASKED = -1e9f;  // the JAX package's mask value
@@ -201,13 +208,20 @@ struct Head {
   Copy copy;
 };
 
-// What each block leaves for the cluster's combine.
-struct Partial {
+// What each block leaves for the cluster's combine, for heads up to DHM.
+template <int DHM = MAX_DH>
+struct PartialT {
   float m, l;
-  float acc[MAX_DH];
+  float acc[DHM];
 };
+using Partial = PartialT<>;
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+// rows a slot of lanes of a block that reads in place keeps in registers
+__host__ __device__ constexpr int direct_rps(int dhm) {
+  return dhm > MAX_DH ? DIRECT_RPS / 2 : DIRECT_RPS;
+}
 
 // Shared memory: `stages` stages of a tile (K, V: dh-minor, tile rows of
 // dhp values; T-minor, dh rows of tile t; the rows' two scales), then the
@@ -221,7 +235,8 @@ __host__ __device__ inline int stage_bytes(int tile, int dhp) {
 template <typename CT>
 __host__ __device__ inline int tile_smem(int tile, int dhp, int stages, bool t_minor) {
   if (!t_minor) return stages * stage_bytes<CT>(tile, dhp);
-  const int part = T_GROUPS * tile > THREADS ? T_GROUPS * tile : THREADS;
+  const int pv = dhp > THREADS ? dhp : THREADS;  // P.V's partial sums
+  const int part = T_GROUPS * tile > pv ? T_GROUPS * tile : pv;
   return stages * stage_bytes<CT>(tile, dhp) + (tile + part) * (int)sizeof(float);
 }
 
@@ -553,16 +568,186 @@ __device__ bool attend_rows(const Head<QT, CT>& h, int dh, int chunk, int tile, 
   return alone;
 }
 
+// attend_rows for heads of 136..256 (DHM = MAX_DH_WIDE): a slot is a
+// whole warp (LPR 32), each lane holding VPL vectors of its rows, vectors
+// sub, sub + LPR, ... of the row so that neighbouring lanes read
+// neighbouring bytes (VPL 2: fp32, 64 vectors of 4; VPL 1: 32 vectors of
+// 8 values of the other types). A function of its own: folding the
+// vectors a lane into attend_rows cost its quantized cross cases 2-4% on
+// an H100 (chip_smoke.py --parent), and the narrow heads keep its code.
+template <typename QT, typename CT, int LPR, int NT = THREADS, int VPL = 1, int DHM>
+__device__ bool attend_rows_wide(const Head<QT, CT>& h, int dh, int chunk, int tile,
+                                 int stages, int rank, PartialT<DHM>& out) {
+  constexpr int VEC = Vec<CT>::N;
+  constexpr bool QUANT = sizeof(CT) == 1;
+  constexpr int RPW = 32 / LPR;       // rows a warp takes at once
+  constexpr int SLOTS = NT / 32 * RPW;  // rows the block takes at once
+  constexpr bool STAGED = NT == THREADS;
+  extern __shared__ __align__(128) unsigned char dyn[];
+  __shared__ uint64_t bar[2 * MAX_STAGES];
+  __shared__ float part[SLOTS][LPR * VEC * VPL];
+  __shared__ float slot_m[SLOTS], slot_l[SLOTS];
+
+  const int dhp = (dh + VEC - 1) / VEC * VEC;  // the row in shared memory
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sub = lane % LPR, slot = warp * RPW + lane / LPR;
+  int d0[VPL];
+  bool active[VPL];
+#pragma unroll
+  for (int u = 0; u < VPL; ++u) {
+    d0[u] = (u * LPR + sub) * VEC;
+    active[u] = d0[u] < dhp;
+  }
+  const int c0 = rank * chunk, c1 = min(c0 + chunk, h.n);
+  const int tiles = STAGED ? prologue<false>(h, dyn, bar, dh, dhp, tile, stages, c0, c1) : 0;
+
+  float qv[VPL][VEC];
+#pragma unroll
+  for (int u = 0; u < VPL; ++u)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      qv[u][i] = d0[u] + i < dh ? to_float(h.q[d0[u] + i]) * LOG2E : 0.f;
+  float m = -INFINITY, l = 0.f, acc[VPL][VEC];
+#pragma unroll
+  for (int u = 0; u < VPL; ++u)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[u][i] = 0.f;
+
+  // one row into the slot's online softmax: k and v its values, r its
+  // index for the scales
+  auto take = [&](const float (&kv)[VPL][VEC], const float (&vv)[VPL][VEC], const float* ks,
+                  const float* vs, int r, bool valid) {
+    float dot = 0.f;
+    if (valid) {
+#pragma unroll
+      for (int u = 0; u < VPL; ++u)
+        if (active[u]) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) dot = fmaf(qv[u][i], kv[u][i], dot);
+        }
+    }
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (!valid) return;
+    const float s = h.all_masked ? MASKED : (QUANT ? dot * ks[r] : dot);
+    const float m_new = fmaxf(m, s);
+    const float alpha = exp2f(m - m_new);  // 0 on the slot's first row
+    const float p = exp2f(s - m_new);
+    const float w = QUANT ? p * vs[r] : p;
+    l = fmaf(l, alpha, p);
+    m = m_new;
+#pragma unroll
+    for (int u = 0; u < VPL; ++u)
+      if (active[u]) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[u][i] = fmaf(w, vv[u][i], acc[u][i] * alpha);
+      }
+  };
+
+  if (h.copy == DIRECT) {
+    // one tile of at most DIRECT_ROWS contiguous rows (dhp == dh): every
+    // row the slot takes is loaded before the first is reduced
+    constexpr int MAXR = (DIRECT_ROWS + SLOTS - 1) / SLOTS < direct_rps(DHM)
+                             ? (DIRECT_ROWS + SLOTS - 1) / SLOTS
+                             : direct_rps(DHM);
+    const int rows = c1 - c0;
+    const CT* kp = h.k + (long long)c0 * dh;
+    const CT* vp = h.v + (long long)c0 * dh;
+    float kv[MAXR][VPL][VEC], vv[MAXR][VPL][VEC];
+#pragma unroll
+    for (int j = 0; j < MAXR; ++j) {
+      const int r = j * SLOTS + slot;
+#pragma unroll
+      for (int u = 0; u < VPL; ++u)
+        if (active[u] && r < rows) {
+          Vec<CT>::load(kp + r * dh + d0[u], kv[j][u]);
+          Vec<CT>::load(vp + r * dh + d0[u], vv[j][u]);
+        }
+    }
+    const float* ks = QUANT ? h.ks + c0 : nullptr;
+    const float* vs = QUANT ? h.vs + c0 : nullptr;
+#pragma unroll
+    for (int j = 0; j < MAXR; ++j) {
+      if (j * SLOTS >= rows) break;  // the same in every thread
+      const int r = j * SLOTS + slot;
+      take(kv[j], vv[j], ks, vs, r, r < rows);
+    }
+  }
+  for (int it = 0; STAGED && it < tiles && h.copy != DIRECT; ++it) {
+    const int rows = min(tile, c1 - c0 - it * tile);
+    const int si = it % stages;
+    const uint32_t phase = (it / stages) & 1;
+    const Stage<CT> st = stage<CT>(dyn, tile, dhp, si);
+    mbar_wait(bar + 2 * si, phase);
+    mbar_wait(bar + 2 * si + 1, phase);
+    // every lane of a warp runs the same trip count for the shuffles
+    for (int base = 0; base < rows; base += SLOTS) {
+      const int r = base + slot;
+      float kv[VPL][VEC], vv[VPL][VEC];
+#pragma unroll
+      for (int u = 0; u < VPL; ++u)
+        if (active[u] && r < rows) {
+          Vec<CT>::load(st.k + r * dhp + d0[u], kv[u]);
+          Vec<CT>::load(st.v + r * dhp + d0[u], vv[u]);
+        }
+      take(kv, vv, st.ks, st.vs, r, r < rows);
+    }
+    __syncthreads();  // the stage is free
+    refill<false>(h, dyn, bar, dh, dhp, tile, stages, c0, c1, it, tiles);
+  }
+
+  // merge the slots in slot order: M = max m_s, each slot weighed by
+  // w_s = 2^(m_s - M) (0 for a slot that took no row). A lone block (one
+  // split) writes the output itself; a cluster's blocks leave their
+  // partial for combine().
+#pragma unroll
+  for (int u = 0; u < VPL; ++u)
+    if (active[u]) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) part[slot][d0[u] + i] = acc[u][i];
+    }
+  if (sub == 0) {
+    slot_m[slot] = m;
+    slot_l[slot] = l;
+  }
+  __syncthreads();
+  float big = -INFINITY;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) big = fmaxf(big, slot_m[s]);
+  const bool alone = cg::this_cluster().num_blocks() == 1;
+  for (int d = threadIdx.x; d < dh; d += NT) {
+    float x = 0.f, sum = 0.f;
+    if (big != -INFINITY) {
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s) {
+        const float w = exp2f(slot_m[s] - big);
+        x = fmaf(part[s][d], w, x);
+        sum = fmaf(slot_l[s], w, sum);
+      }
+    }
+    if (alone) {
+      store1(h.out + d, x / sum);
+    } else {
+      out.acc[d] = x;
+      if (d == 0) {
+        out.m = big;
+        out.l = sum;
+      }
+    }
+  }
+  return alone;
+}
+
 // ---- T-minor: dh rows of T values, `stride` (= T) apart ---------------------
 
-template <typename QT, typename CT>
+template <typename QT, typename CT, int DHM>
 __device__ void attend_t_minor(const Head<QT, CT>& h, int dh, int chunk, int tile, int stages,
-                               int rank, Partial& out) {
+                               int rank, PartialT<DHM>& out) {
   constexpr bool QUANT = sizeof(CT) == 1;
   extern __shared__ __align__(128) unsigned char dyn[];
   __shared__ uint64_t bar[2 * MAX_STAGES];
   __shared__ float red[WARPS];
-  __shared__ float qs[MAX_DH];
+  __shared__ float qs[DHM];
 
   float* s = reinterpret_cast<float*>(dyn + stages * stage_bytes<CT>(tile, dh));
   float* part = s + tile;  // [T_GROUPS][tile] dots, then [segments][dh] P.V
@@ -609,11 +794,10 @@ __device__ void attend_t_minor(const Head<QT, CT>& h, int dh, int chunk, int til
 
     mbar_wait(bar + 2 * si + 1, phase);
     // P.V: thread (segment g, d row) sums its segment of the rows, 4 t at
-    // a time; the segments add up in order
+    // a time; the segments add up in order. A head wider than the block
+    // (DHM > THREADS) takes one segment, each thread dh / THREADS d rows.
     {
-      const int segs = THREADS / dh, g = threadIdx.x / dh, d = threadIdx.x - g * dh;
-      const int seg = (runs + segs - 1) / segs * 4;  // t a segment, whole runs
-      if (g < segs) {
+      auto segment = [&](int g, int d, int seg) {
         float a = 0.f;
         const int t1 = min(rows, (g + 1) * seg);
         for (int t0 = g * seg; t0 < t1; t0 += 4) {
@@ -626,6 +810,15 @@ __device__ void attend_t_minor(const Head<QT, CT>& h, int dh, int chunk, int til
             if (t0 + j < rows) a = fmaf(pw[j], vv[j], a);
         }
         part[g * dh + d] = a;
+      };
+      int segs = 1;
+      if constexpr (DHM <= THREADS) {
+        segs = THREADS / dh;
+        const int g = threadIdx.x / dh;
+        if (g < segs)  // t a segment: whole runs
+          segment(g, threadIdx.x - g * dh, (runs + segs - 1) / segs * 4);
+      } else {
+        for (int d = threadIdx.x; d < dh; d += THREADS) segment(0, d, runs * 4);
       }
       __syncthreads();
       for (int dd = threadIdx.x; dd < dh; dd += THREADS) {
@@ -661,9 +854,9 @@ __device__ __forceinline__ void cluster_wait() {
 // out[d] = sum_r acc_r[d] e^(m_r - M) / sum_r l_r e^(m_r - M), M = max m_r,
 // every sum in rank order. The other ranks leave at once: no block reads
 // their shared memory.
-template <typename QT>
-__device__ void combine(Partial& mine, int dh, QT* out) {
-  __shared__ float gather[MAX_SPLITS][MAX_DH + 2];  // rank 0's: (m, l, acc)
+template <typename QT, int DHM>
+__device__ void combine(PartialT<DHM>& mine, int dh, QT* out) {
+  __shared__ float gather[MAX_SPLITS][DHM + 2];  // rank 0's: (m, l, acc)
   __shared__ float w[MAX_SPLITS];
   __shared__ float l_sum;
   cg::cluster_group cluster = cg::this_cluster();

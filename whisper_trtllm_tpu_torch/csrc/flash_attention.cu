@@ -23,10 +23,11 @@
 // fp32) inputs with fp32 accumulation, as _kernel's dot_generals with
 // preferred_element_type=f32. _kernel takes one exact softmax over the
 // whole row and rounds the normalised P to v's dtype before P.V; this
-// kernel keeps an online softmax over 64-column tiles and rounds the
-// unnormalised P = exp(s - running max) to bf16 before P.V, dividing by
-// the fp32 row sum (taken from P before it is rounded) at the end. exp is
-// MUFU.EX2 of s*log2(e) - m*log2(e) (~2^-22 relative). In fp32, every
+// kernel keeps an online softmax over 64-column tiles (32 at dh > 128)
+// and rounds the unnormalised P = exp(s - running max) to bf16 before
+// P.V, dividing by the fp32 row sum (taken from P before it is rounded)
+// at the end. exp is MUFU.EX2 of s*log2(e) - m*log2(e) (~2^-22 relative).
+// In fp32, every
 // operand, P included, enters as 3xTF32 (~22 bits) with fresh partials
 // (flash_tiles.cuh).
 //
@@ -37,8 +38,8 @@
 // tiles, double-buffered by cp.async, and keeps an online softmax on the
 // accumulator fragments (a row lives in 4 lanes: two shuffles; the mask
 // only on a tile that crosses T or the causal diagonal). P goes from the
-// accumulators straight into the A operand of P.V. dh is padded to 64 or
-// 128 with zeros in shared memory. Two instructions carry the products:
+// accumulators straight into the A operand of P.V. dh is padded to 64,
+// 128 or 256 with zeros in shared memory. Two instructions carry the products:
 // - bf16 at dh <= 64 (Whisper's): wgmma m64n64k16, the block's four warps
 //   one warpgroup, A (Q, P) from registers and B (K, V) from tiles of
 //   128-byte rows in the 128-byte swizzle, loaded by cp.async. It ran the
@@ -46,12 +47,18 @@
 //   this case no longer takes. The loads are cp.async, not TMA
 //   into an mbarrier ring, and every product is waited for at once: what
 //   a warp-specialised pipeline would overlap is left for later.
-// - fp32, and bf16 at dh 72..128: mma.sync (m16n8k8 tf32 as 3xTF32, or
+// - fp32, and bf16 at dh 72..256: mma.sync (m16n8k8 tf32 as 3xTF32, or
 //   m16n8k16 bf16), with the warp's Q fragments held in registers in bf16
 //   (in fp32 the hi/lo pair would take 64-128 registers, so they are
 //   re-read from shared memory), V through ldmatrix.trans.
 // Two 16-row strips a warp (half the shared-memory reads a product) ran
 // slower: the registers they need leave fewer blocks an SM.
+// - dh 136..256 (GPT-J's 256): the mma.sync kernel at DHP 256 with K/V
+//   streamed in 32-row tiles (BKT). A strip's output is then 32 n-tiles,
+//   128 fp32 accumulators a thread, beside 16 scores; and in fp32 the Q
+//   tile and two stages of 64-row K and V would take 333 KB of shared
+//   memory against a block's 227. At 32 rows they take 200 KB in fp32
+//   (one block an SM) and 101 KB in bf16 (two).
 
 #include "flash_tiles.cuh"
 
@@ -59,7 +66,7 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int DHP>
+template <typename T, int DHP, int BKT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -68,14 +75,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using M = Mma<T>;
   constexpr int LD = DHP + M::PAD;
   constexpr int KC = DHP / M::K;  // contraction chunks over dh
-  constexpr int NS = BK / 8;      // score tiles of 8 columns
+  constexpr int NS = BKT / 8;     // score tiles of 8 columns
   constexpr int NO = DHP / 8;     // output tiles of 8 columns
   // hold Q's fragments when they take at most 32 registers
   constexpr bool HOLD = KC * sizeof(typename M::A) <= 128;
   extern __shared__ uint4 smem[];
   T* qs = reinterpret_cast<T*>(smem);  // [BQ][LD]
-  T* ks = qs + BQ * LD;                // [2][BK][LD]
-  T* vs = ks + 2 * BK * LD;            // [2][BK][LD]
+  T* ks = qs + BQ * LD;                // [2][BKT][LD]
+  T* vs = ks + 2 * BKT * LD;           // [2][BKT][LD]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -88,11 +95,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // causal: tiles wholly right of this block's last row add nothing
   const int kv_end = causal ? min(T_len, q0 + BQ) : T_len;
-  const int tiles = (kv_end + BK - 1) / BK;
+  const int tiles = (kv_end + BKT - 1) / BKT;
   load_tile<T, BQ, DHP, LD>(qs, qh, q, S - q0, dh);
   cp_async_commit();
-  load_tile<T, BK, DHP, LD>(ks, kh, k, T_len, dh);
-  load_tile<T, BK, DHP, LD>(vs, vh, v, T_len, dh);
+  load_tile<T, BKT, DHP, LD>(ks, kh, k, T_len, dh);
+  load_tile<T, BKT, DHP, LD>(vs, vh, v, T_len, dh);
   cp_async_commit();
 
   const int r0 = 16 * warp;            // the warp's rows in the tile
@@ -114,13 +121,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   for (int n = 0; n < tiles; ++n) {
-    const int k0 = n * BK, buf = n & 1;
+    const int k0 = n * BKT, buf = n & 1;
     if (n + 1 < tiles) {
-      const size_t off = (size_t)(k0 + BK) * dh;
-      load_tile<T, BK, DHP, LD>(ks + (buf ^ 1) * BK * LD, kh + off, k,
-                                T_len - k0 - BK, dh);
-      load_tile<T, BK, DHP, LD>(vs + (buf ^ 1) * BK * LD, vh + off, v,
-                                T_len - k0 - BK, dh);
+      const size_t off = (size_t)(k0 + BKT) * dh;
+      load_tile<T, BKT, DHP, LD>(ks + (buf ^ 1) * BKT * LD, kh + off, k,
+                                 T_len - k0 - BKT, dh);
+      load_tile<T, BKT, DHP, LD>(vs + (buf ^ 1) * BKT * LD, vh + off, v,
+                                 T_len - k0 - BKT, dh);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -130,12 +137,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float s[NS][4];
     zero(s);
-    gemm<M, DHP, NS, true>(s, q_of, ks + buf * BK * LD, LD);  // S = Q K^T
+    gemm<M, DHP, NS, true>(s, q_of, ks + buf * BKT * LD, LD);  // S = Q K^T
 
     // mask (only a tile that crosses T or, under causal, the warp's
     // diagonal), then the online-softmax update of the lane's two rows; a
-    // row's 64 scores are spread over the 4 lanes sharing g
-    if (k0 + BK > T_len || (causal && k0 + BK - 1 > q0 + r0)) {
+    // row's BKT scores are spread over the 4 lanes sharing g
+    if (k0 + BKT > T_len || (causal && k0 + BKT - 1 > q0 + r0)) {
 #pragma unroll
       for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -174,9 +181,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e / 2];
 
     // acc += P V, P straight from the score accumulators
-    gemm<M, BK, NO, false>(
+    gemm<M, BKT, NO, false>(
         acc, [&](typename M::A& a, int kc) { M::acc_to_a(a, s, kc); },
-        vs + buf * BK * LD, LD);
+        vs + buf * BKT * LD, LD);
     __syncthreads();  // this buffer is refilled two tiles on
   }
 
@@ -442,17 +449,18 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int DHP>
+// K/V tiles of BK rows up to DHP 128, of 32 above (shared memory)
+template <typename T, int DHP, int BKT = DHP <= 128 ? BK : 32>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int H, int Hkv, int S, int T_len, int dh,
                    int causal, cudaStream_t stream) {
   constexpr int LD = DHP + Mma<T>::PAD;
-  const size_t smem = (size_t)(BQ + 4 * BK) * LD * sizeof(T);
+  const size_t smem = (size_t)(BQ + 4 * BKT) * LD * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<T, DHP, BKT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, DHP><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, DHP, BKT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), H, Hkv, S, T_len, dh, causal);
   return cudaGetLastError();
@@ -462,7 +470,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// q (B, H, S, dh), k/v (B, Hkv, T, dh), o (B, H, S, dh), all contiguous,
+// q (B, H, S, dh), k/v (B, Hkv, T, dh), o (B, H, S, dh), dh a multiple of
+// 8 up to 256, all contiguous,
 // 16-byte aligned and of one dtype (is_bf16: 0 float32, 1 bfloat16); lse,
 // when not null, an fp32 (B, H, S) that receives each row's log-sum-exp of
 // its masked scores (the inference path passes null). Returns a
@@ -471,15 +480,18 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               int B, int H, int Hkv, int S, int T_len, int dh, int causal,
               int is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      dh <= 0 || dh > 128 || dh % 8 != 0 || (causal && S != T_len))
+      dh <= 0 || dh > 256 || dh % 8 != 0 || (causal && S != T_len))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (dh <= 64) return launch_wgmma(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
+    if (dh <= 128)
+      return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
+    return launch<__nv_bfloat16, 256>(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
   }
   if (dh <= 64) return launch<float, 64>(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
-  return launch<float, 128>(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
+  if (dh <= 128) return launch<float, 128>(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
+  return launch<float, 256>(q, k, v, o, lse, B, H, Hkv, S, T_len, dh, causal, st);
 }
 
 const char* error_string(int err) {

@@ -42,6 +42,16 @@
 //   kernel ahead ends would race a kernel that writes them, and in the
 //   decode loop, whose host leaves the card idle between launches, it
 //   gained nothing.
+// - Rows wider than 2048 (the zoo's 4096 to 12288) do not fit a warp's
+//   registers: at d 12288 in fp32 one warp a row would hold 384 values a
+//   lane. There a block takes a row (lpr = the block's threads, up to
+//   1024), thread l holding vectors l, l + threads, ... (vpt of them: at
+//   d 12288, 512 threads of 6 fp32 vectors, 24 values) in registers. Both
+//   sums go over the warps through shared memory, every thread adding the
+//   warps' partial sums in warp order; the variance stays the second pass
+//   over the registers. Scale and bias are read as each value is written
+//   (from L2 after the first row). The blocks walk the rows a grid apart,
+//   one wave of them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +62,9 @@ namespace {
 
 using namespace vector_access;
 
-constexpr int MAX_D = 2048;
+constexpr int MAX_D = 16384;     // the wide path's, at one value a vector
+constexpr int WARP_D = 2048;     // the widest row a warp's lanes hold
+constexpr int WIDE_THREADS = 1024;
 
 template <int VEC>
 __device__ __forceinline__ Pack<float, VEC> pack_out(const float (&o)[VEC], float) {
@@ -226,31 +238,166 @@ cudaError_t dispatch_vec(int vec, int vpt, bool full, const void* x, const void*
       vpt, x, scale, bias, y, rows, d, lpr, eps, blocks, threads, st);
 }
 
+
+// ---- rows wider than WARP_D: a block a row ---------------------------------
+
+// the block's sum of x, the same in every thread: the warps' xor trees,
+// then every thread adds the warps' partial sums in warp order. `red`
+// holds one partial a warp; the caller's barriers keep one sum's reads
+// ahead of the next sum's writes into the same slots.
+__device__ __forceinline__ float block_sum(float x, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
+  __syncthreads();
+  const int warps = blockDim.x / 32;
+  float s = 0.f;
+  for (int w = 0; w < warps; ++w) s += red[w];
+  return s;
+}
+
+template <typename XT, typename PT, int VEC, int VPT>
+__global__ void __launch_bounds__(WIDE_THREADS)
+layer_norm_wide_kernel(const XT* __restrict__ x, const PT* __restrict__ scale,
+                       const PT* __restrict__ bias, XT* __restrict__ y, int rows,
+                       int d, float eps) {
+  using XP = Pack<XT, VEC>;
+  using PP = Pack<PT, VEC>;
+  __shared__ float red[2][WIDE_THREADS / 32];  // the mean's, the variance's
+  const int nv = d / VEC;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const float inv_d = 1.f / d;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {  // uniform
+    XP cur[VPT];
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int j = t + nt * v;
+      cur[v] = j < nv ? load_stream(reinterpret_cast<const XP*>(
+                            x + (size_t)row * d + (size_t)j * VEC))
+                      : XP{};
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int v = 0; v < VPT; ++v)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sum += to_float(cur[v].v[e]);
+    const float mean = block_sum(sum, red[0]) * inv_d;
+    float sq = 0.f;
+#pragma unroll
+    for (int v = 0; v < VPT; ++v)
+      if (t + nt * v < nv) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float dv = to_float(cur[v].v[e]) - mean;
+          sq += dv * dv;
+        }
+      }
+    // the variance's barrier orders this row's reads of red[0] before the
+    // next row's writes, and the next row's mean's barrier this row's
+    // reads of red[1]
+    const float rstd = rsqrtf(block_sum(sq, red[1]) * inv_d + eps);
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int j = t + nt * v;
+      if (j < nv) {
+        const PP sp = *reinterpret_cast<const PP*>(scale + (size_t)j * VEC);
+        const PP bp = bias != nullptr ? *reinterpret_cast<const PP*>(bias + (size_t)j * VEC)
+                                      : PP{};
+        float o[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          o[e] = (to_float(cur[v].v[e]) - mean) * rstd * to_float(sp.v[e]);
+          if (bias != nullptr) o[e] += to_float(bp.v[e]);
+        }
+        store_stream(reinterpret_cast<XP*>(y + (size_t)row * d + (size_t)j * VEC),
+                     pack_out<VEC>(o, XT{}));
+      }
+    }
+  }
+}
+
+template <typename XT, typename PT, int VEC, int VPT>
+cudaError_t launch_wide(const void* x, const void* scale, const void* bias, void* y,
+                        int rows, int d, float eps, int blocks, int threads,
+                        cudaStream_t st) {
+  static int resident[WIDE_THREADS + 1];
+  const auto kernel = layer_norm_wide_kernel<XT, PT, VEC, VPT>;
+  kernel<<<one_wave(kernel, resident, threads, blocks), threads, 0, st>>>(
+      static_cast<const XT*>(x), static_cast<const PT*>(scale),
+      static_cast<const PT*>(bias), static_cast<XT*>(y), rows, d, eps);
+  return cudaGetLastError();
+}
+
+// the instantiated vectors a thread: norm_plan's WIDE_VPTS and
+// WIDE_SCALAR_VPTS
+template <typename XT, typename PT, int VEC, int... VPTS>
+cudaError_t dispatch_wide(int vpt, const void* x, const void* scale, const void* bias,
+                          void* y, int rows, int d, float eps, int blocks, int threads,
+                          cudaStream_t st) {
+  cudaError_t err = cudaErrorInvalidValue;
+  ((vpt == VPTS && (err = launch_wide<XT, PT, VEC, VPTS>(x, scale, bias, y, rows, d, eps,
+                                                          blocks, threads, st),
+                    true)) ||
+   ...);
+  return err;
+}
+
+template <typename XT, typename PT>
+cudaError_t dispatch_wide_vec(int vec, int vpt, const void* x, const void* scale,
+                              const void* bias, void* y, int rows, int d, float eps,
+                              int blocks, int threads, cudaStream_t st) {
+  constexpr int WIDE = 16 / sizeof(XT);
+  if (vec == 1)
+    return dispatch_wide<XT, PT, 1, 4, 8, 16>(vpt, x, scale, bias, y, rows, d, eps, blocks,
+                                              threads, st);
+  if (vec == WIDE)
+    return dispatch_wide<XT, PT, WIDE, 2, 4, 6, 8>(vpt, x, scale, bias, y, rows, d, eps,
+                                                   blocks, threads, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // x, y (rows, d) contiguous in x_dtype (0 float32, 1 bfloat16); scale and
-// bias (d,) in p_dtype (same codes); bias may be null. d <= 2048. The plan
-// (ops/kernels/layer_norm.py::norm_plan): vec values a vector (1, or 16
-// bytes of x's dtype, or 8 where that fills 32 lanes a row exactly; both
-// need d % vec == 0 and every pointer on 16 bytes), lpr lanes a row (a
-// power of two up to 32), vpt vectors a lane (lpr * vpt * vec >= d),
-// blocks of threads (a multiple of 32 up to 256), of which at most one
-// wave is launched. Returns a cudaError_t.
+// bias (d,) in p_dtype (same codes); bias may be null. d <= 16384. The
+// plan (ops/kernels/layer_norm.py::norm_plan): vec values a vector (1, or
+// 16 bytes of x's dtype, or 8 where that fills 32 lanes a row exactly;
+// both need d % vec == 0 and every pointer on 16 bytes), lpr lanes a row
+// (a power of two up to 32 for d <= 2048; above it lpr == threads, a
+// block a row), vpt vectors a lane (lpr * vpt * vec >= d), blocks of
+// threads (a multiple of 32 up to 256, or from 64 up to 1024 a block a
+// row), of which at most one wave is launched. Returns a cudaError_t.
 int layer_norm(const void* x, const void* scale, const void* bias, void* y,
                int rows, int d, float eps, int x_dtype, int p_dtype, int vec,
                int lpr, int vpt, int blocks, int threads, void* stream) {
+  const bool by_block = d > WARP_D;  // a block a row
   if (rows <= 0 || d <= 0 || d > MAX_D || x_dtype < 0 || x_dtype > 1 ||
-      p_dtype < 0 || p_dtype > 1 || blocks <= 0 || threads < 32 ||
-      threads > MAX_THREADS || threads % 32 != 0 || lpr < 1 || lpr > 32 ||
-      (lpr & (lpr - 1)) != 0 || (long long)lpr * vpt * vec < d)
+      p_dtype < 0 || p_dtype > 1 || blocks <= 0 || threads < 32 || threads % 32 != 0 ||
+      threads > (by_block ? WIDE_THREADS : MAX_THREADS) ||
+      (by_block ? lpr != threads || threads < 64
+                : lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) != 0) ||
+      (long long)lpr * vpt * vec < d)
     return cudaErrorInvalidValue;
   const int wide = x_dtype == 0 ? 4 : 8;
-  if (vec != 1 && ((vec != wide && vec != wide / 2) || d % vec != 0 || !aligned16(x) ||
-                   !aligned16(scale) || !aligned16(bias) || !aligned16(y)))
+  if (vec != 1 && ((vec != wide && (by_block || vec != wide / 2)) || d % vec != 0 ||
+                   !aligned16(x) || !aligned16(scale) || !aligned16(bias) || !aligned16(y)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (by_block) {
+    if (x_dtype == 0 && p_dtype == 0)
+      return dispatch_wide_vec<float, float>(vec, vpt, x, scale, bias, y, rows, d, eps,
+                                             blocks, threads, st);
+    if (x_dtype == 0)
+      return dispatch_wide_vec<float, __nv_bfloat16>(vec, vpt, x, scale, bias, y, rows, d,
+                                                     eps, blocks, threads, st);
+    if (p_dtype == 0)
+      return dispatch_wide_vec<__nv_bfloat16, float>(vec, vpt, x, scale, bias, y, rows, d,
+                                                     eps, blocks, threads, st);
+    return dispatch_wide_vec<__nv_bfloat16, __nv_bfloat16>(vec, vpt, x, scale, bias, y, rows,
+                                                           d, eps, blocks, threads, st);
+  }
   const bool full = lpr * vpt * vec == d;  // no lane holds a vector past the row
   if (x_dtype == 0 && p_dtype == 0)
     return dispatch_vec<float, float>(vec, vpt, full, x, scale, bias, y, rows, d, lpr, eps,

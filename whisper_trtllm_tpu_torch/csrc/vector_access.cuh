@@ -58,10 +58,10 @@ __device__ __forceinline__ void store_stream(P* p, const P& v) {
 }
 
 // `resident` is the kernel's own cache (a static of its launch function),
-// by block size; a wave is shared out over `chunks` blocks of the grid's y
-template <typename Kernel>
-int one_wave(Kernel kernel, int (&resident)[MAX_THREADS + 1], int threads, int blocks,
-             int chunks = 1) {
+// by block size (N - 1 threads at most); a wave is shared out over
+// `chunks` blocks of the grid's y
+template <typename Kernel, int N>
+int one_wave(Kernel kernel, int (&resident)[N], int threads, int blocks, int chunks = 1) {
   static int sms[MAX_DEVICES];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES) return blocks;

@@ -10,7 +10,7 @@ masked case, causal attention below S = 768 (the decoder's self attention
 in training: Whisper has at most 448 positions) and ``use_flash=False``
 (``decode_full``'s default cross attention). Those are torch matmuls
 standing for XLA's products, not cases the kernels have yet to take. A case
-inside the flash conditions that K1 does not take (dh > 128) raises on the
+inside the flash conditions that K1 does not take (dh > 256) raises on the
 card. The decode step's attention always runs K2 on the card, the paged
 cache's decode too (each lane's blocks gathered into a window first). A
 rank that holds no heads of a tree cut over the model axis

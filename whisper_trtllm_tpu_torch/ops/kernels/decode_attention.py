@@ -33,6 +33,7 @@ _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                  torch.float8_e4m3fn: 3}
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 MAX_T = 53248  # the longest cache the kernel is held to
+MAX_DH = 256   # the widest head (csrc/decode_split.cuh's MAX_DH_WIDE)
 MASK_VALUE = -1e9
 
 # The split of one (batch, head)'s rows across a cluster of blocks
@@ -172,9 +173,9 @@ def _check(q, k, v, valid_len, k_scale, v_scale, t_major):
         raise TypeError(
             f"decode_attn: a float cache has q's dtype and no scales; got q "
             f"{q.dtype}, cache {k.dtype}, scales {k_scale is not None}")
-    if dh % 8 or dh > 128:
+    if dh % 8 or dh > MAX_DH:
         raise ValueError(f"decode_attn: head_dim must be a multiple of 8 up "
-                         f"to 128, got {dh}")
+                         f"to {MAX_DH}, got {dh}")
     if t > MAX_T:
         raise ValueError(f"decode_attn: cache length {t} exceeds "
                          f"MAX_T ({MAX_T})")

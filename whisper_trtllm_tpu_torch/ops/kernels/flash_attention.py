@@ -33,6 +33,8 @@ _BWD_SIGNATURES = {
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MASK_VALUE = -1e9
+MAX_DH = 256       # K1's widest head (csrc/flash_attention.cu)
+MAX_DH_BWD = 128   # K4's
 
 
 def _masked_scores(q, k, causal):
@@ -129,9 +131,10 @@ def _check(q, k, v, causal, what="flash_fwd"):
         raise TypeError(
             f"{what}: float32 or bfloat16 q/k/v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if dh % 8 or dh > 128:
+    limit = MAX_DH if what == "flash_fwd" else MAX_DH_BWD
+    if dh % 8 or dh > limit:
         raise ValueError(f"{what}: head_dim must be a multiple of 8 up "
-                         f"to 128, got {dh}")
+                         f"to {limit}, got {dh}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what}: q, k, v must be contiguous")
     if any(x.data_ptr() % 16 for x in (q, k, v)):

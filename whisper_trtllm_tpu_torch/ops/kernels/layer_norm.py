@@ -27,7 +27,8 @@ _SIGNATURES = {
                    _I, _I, _I, _I, _I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_D = 2048
+MAX_D = 16384        # the widest row K5 takes (one value a vector)
+WARP_D = 2048        # the widest row a warp's lanes hold; above, a block
 THREADS = 128        # a block's threads when the rows fill more than one
 LANE_VECTORS = 4     # vectors a lane holds before another lane joins its row
 # the vectors a lane that csrc/layer_norm.cu instantiates, by path: 16-byte
@@ -35,15 +36,24 @@ LANE_VECTORS = 4     # vectors a lane holds before another lane joins its row
 VECTOR_VPTS = (1, 2, 3, 4, 6, 8, 12, 16)
 HALF_VPTS = (1, 2, 3, 4)
 SCALAR_VPTS = (1, 2, 3, 4, 8, 16, 32, 64)
+# rows wider than WARP_D: a block a row, of at most WIDE_THREADS threads
+# where that holds the row, else up to MAX_WIDE_THREADS (the kernel's
+# __launch_bounds__), each thread WIDE_VPTS 16-byte vectors or
+# WIDE_SCALAR_VPTS values
+WIDE_THREADS = 512
+MAX_WIDE_THREADS = 1024
+WIDE_VPTS = (2, 4, 6, 8)
+WIDE_SCALAR_VPTS = (4, 8, 16)
 
 
 class NormPlan(NamedTuple):
     vec: int       # values a vector: 16 or 8 bytes of x's dtype, or 1
-    lpr: int       # lanes a row, a power of two
+    lpr: int       # lanes a row, a power of two; above WARP_D the block's
     vpt: int       # vectors a lane; lpr * vpt * vec >= d
-    rpw: int       # rows a warp, 32 // lpr
+    rpw: int       # rows a warp, 32 // lpr (0: a block a row)
     threads: int   # a block's
-    blocks: int    # one warp a row group; the kernel launches one wave
+    blocks: int    # one warp a row group (a block a row above WARP_D);
+                   # the kernel launches one wave
 
 
 def _ceil(a: int, b: int) -> int:
@@ -65,8 +75,23 @@ def norm_plan(rows: int, d: int, elem: int, aligned: bool) -> NormPlan:
     that fit in one block get just the warps they need, more get
     ``THREADS``-thread blocks, one warp a row group, of which the kernel
     launches one wave (as many as its occupancy lets the card hold) that
-    loops over the rest."""
+    loops over the rest.
+
+    Rows wider than ``WARP_D`` take a block each (``lpr`` = ``threads``,
+    ``rpw`` 0): 16-byte vectors where ``d`` and the pointers allow, else
+    one value at a time; the fewest vectors a thread (``WIDE_VPTS``,
+    ``WIDE_SCALAR_VPTS``) that hold the row in at most ``WIDE_THREADS``
+    threads, else in up to ``MAX_WIDE_THREADS``; at least two warps."""
     wide = 16 // elem
+    if d > WARP_D:
+        vec = wide if aligned and d % wide == 0 else 1
+        nv = d // vec
+        for cap in (WIDE_THREADS, MAX_WIDE_THREADS):
+            for vpt in WIDE_VPTS if vec > 1 else WIDE_SCALAR_VPTS:
+                threads = max(64, _ceil(_ceil(nv, vpt), 32) * 32)
+                if threads <= cap:
+                    return NormPlan(vec, threads, vpt, 0, threads, rows)
+        raise ValueError(f"layer_norm: no plan holds a row of {d}")
     if aligned and rows * 32 <= THREADS:
         for vec, vpts in ((wide, VECTOR_VPTS), (wide // 2, HALF_VPTS)):
             if d % (32 * vec) == 0 and d // (32 * vec) in vpts:

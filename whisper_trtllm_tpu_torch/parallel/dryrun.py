@@ -416,13 +416,14 @@ def _rank_main(args) -> None:
 
 
 def spawn(n: int, run: str = "dryrun", workdir: str = None,
-          cpu: bool = False, timeout: float = 600.0) -> list:
+          cpu: bool = False, timeout: float = 600.0, env: dict = None) -> list:
     """Run ``run`` on a world of ``n`` rank processes (``python -m`` this
     module), their store, logs and outputs in ``workdir`` (default: a new
     temporary directory); returns each rank's pickled ``out`` dict. A rank
     that exits non-zero, or a world still running after ``timeout``
     seconds, raises with the ranks' logs; every child is killed first.
-    The ranks run NCCL over the cards unless ``cpu`` (gloo on the CPU)."""
+    The ranks run NCCL over the cards unless ``cpu`` (gloo on the CPU),
+    in ``env`` (default: this process's environment)."""
     with (contextlib.nullcontext(workdir) if workdir
           else tempfile.TemporaryDirectory()) as tmp:
         out = tmp
@@ -435,7 +436,8 @@ def spawn(n: int, run: str = "dryrun", workdir: str = None,
         if cpu:
             cmd.append("--cpu")
         procs = [subprocess.Popen([c.format(r=r) for c in cmd], stdout=log,
-                                  stderr=subprocess.STDOUT, cwd=_ROOT)
+                                  stderr=subprocess.STDOUT, cwd=_ROOT,
+                                  env=env)
                  for r, log in enumerate(logs)]
         deadline = time.monotonic() + timeout
         try:
