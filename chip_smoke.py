@@ -40,7 +40,10 @@ Seven phases (and phases 2b and 5b), each timed; any failure raises and the scri
    heads over 32 and over 8 key/value heads, GPT-J's 16 heads of 256 and
    GPT-NeoX's 64 of 96, K2 at the zoo's steps (GPT-J's heads of 256 and
    GPT-NeoX's of 96 among them), K5 at the zoo's widths 4096, 6144, 9216
-   and 12288 over a prefill's rows (2 x 800) and a decode step's (2)), every
+   and 12288 over a prefill's rows (2 x 800) and a decode step's (2); K2
+   with ALiBi's bias at bloom_560m's step, float fp32 and bf16, one count
+   and one a lane, int8 T-minor and fp8, an all-zero bias bit-equal to
+   none, SDPA with the same float mask its library time), every
    input drawn on the card by a CUDA generator seeded from the check's
    own tag (``CardRng``), K3 held to its plain version's formula in
    float64 (the witness), and times the kernel, the plain
@@ -57,18 +60,26 @@ Seven phases (and phases 2b and 5b), each timed; any failure raises and the scri
    run at batch 1), a repetition penalty with a bad and a stop word, a
    sampled call (its seed twice equal, another seed otherwise),
    p-tuning with a prompt table of 2 tasks, beams K 4 at batch 2, and a
-   bf16 lockstep call (printed, not gated); opt_350m lockstep and ragged;
+   bf16 lockstep call (printed, not gated); opt_350m's widths cut to 2
+   layers (the time limit's cut), lockstep and ragged;
    llama_7b's widths cut to 2 layers, lockstep at batch 2 from 800 and
    beams, and the same widths with 8 key/value heads (GQA in K1 and in
    the step); gptj_6b's and gptneox_20b's widths cut to 2 layers (heads
    of 256 and of 96, K5 at 4096 and 6144), lockstep at batch 2 from 800,
-   ragged at 800/790 and beams K 2 from 32. Every call's launches are
-   exact over the steps it ran (K1 a layer for a prompt past 768, K2 a
-   layer a step, K5 2L + 1 a prefill and a step for GPT, OPT and
-   GPT-NeoX, L + 1 for GPT-J, none for LLaMA), with one capture and
+   ragged at 800/790 and beams K 2 from 32; bloom_560m at full width and
+   depth (24 layers, ALiBi's bias in every step's K2) lockstep at batch 4
+   from 800, bf16 (printed), ragged at 800..770, a sampled seed twice and
+   beams K 4 at batch 2; chatglm_6b's widths cut to 2 layers (vocabulary
+   130528) lockstep at batch 2 from 800 (the [gMASK] at 798), ragged at
+   800/790, a sampled seed twice and beams K 2. Every call's launches are
+   exact over the steps it ran (K1 a layer for a prompt past 768 but none
+   in Bloom's or ChatGLM's prefill, K2 a layer a step, K5 2L + 1 a
+   prefill and a step for GPT, OPT, GPT-NeoX and ChatGLM, 2L + 2 for
+   Bloom, L + 1 for GPT-J, none for LLaMA), with one capture and
    then replays, and a repeat call that only replays and gives the same
    outputs; a gpt_350m call from the long prompt (8 new tokens), and
-   GPT-J's and GPT-NeoX's, count what the profiler counts over them.
+   GPT-J's, GPT-NeoX's, Bloom's and ChatGLM's, count what the profiler
+   counts over them.
    Lane 0 of
    each greedy call equals the argmax of the port's teacher-forced
    ``forward`` on the CPU over the card's sequence (the rules applied for
@@ -76,8 +87,9 @@ Seven phases (and phases 2b and 5b), each timed; any failure raises and the scri
    ``ZOO_GAP`` of max |logit| ending the comparison; beam scores within
    ``ZOO_BEAM_SCORE_TOLERANCE`` of the CPU's beams. Then ``bench_zoo``
    (``benchmarks/benchmark.py --model gpt_350m``, one row) and
-   ``cli/run_zoo.py --family gpt`` as subprocesses (the latter's tokens
-   against the CPU's argmax). Each call's ms, its capture's and the
+   ``cli/run_zoo.py --family gpt``, ``bloom`` and ``chatglm6b`` as
+   subprocesses (their tokens against the CPU's argmax). Each call's ms,
+   its capture's and the
    prefill's, and a repeat's ms a step are printed;
 3. hardware check and example — runs ``python -m
    whisper_trtllm_tpu_torch.cli.gpu_check`` (every check of the port's
@@ -142,7 +154,9 @@ Seven phases (and phases 2b and 5b), each timed; any failure raises and the scri
    C2 engines at batch 4 in B and E loaded and run in fresh interpreters
    that cannot import the model code, tokens the session's (and a seed-1
    tree's a session's on it), launches equal to the session's and the
-   profiler's, one capture, and a process that exports before decoding
+   profiler's, one capture; the same for beam engines (K 4 in B, K 2 in
+   E), the best hypothesis the session's and the 4 texts; and a process
+   that exports before decoding
    transcribes C1's tokens; C3 ``cli.warm_cache`` builds every library
    into an empty directory, and a session with ``persistent_cache_dir``
    there runs no ``nvcc``; C4 B with each inert option; C5
@@ -164,7 +178,9 @@ Seven phases (and phases 2b and 5b), each timed; any failure raises and the scri
    machine has one card, and NCCL takes one rank a card): ``check_devices``
    over a 1×1 mesh, the NCCL version; ``WhisperSession(mesh=...)`` in A
    and B, the 4 texts, tokens and launches equal to the one-device
-   session's, no collective issued; one ``make_train_step(mesh=...)`` step
+   session's, no collective issued; a sampled session in A over the mesh
+   (each row's draw keyed by its global lane) token-equal to the
+   one-device one; one ``make_train_step(mesh=...)`` step
    on the float tree, its loss and parameters equal to the one-device
    step's; ``save_sharded``/``load_sharded`` round-tripping that tree
    bit-equal onto the card; ``benchmarks/scaling.py --devices 1`` under
@@ -219,8 +235,9 @@ one speculative utterance (S1 at gamma 4; S2 for K6) as "spec_launches";
 K2's batcher shape under "batcher"; K1's, K2's and K4's rows at the local
 head counts under "local_heads"; K1's, K2's and K5's at the zoo's shapes
 under "zoo", and gpt_350m's lockstep call at prompt 800 as "zoo_launches",
-GPT-J's and GPT-NeoX's at theirs under "zoo_launches_gptj" and
-"zoo_launches_gptneox");
+GPT-J's, GPT-NeoX's, Bloom's and ChatGLM's at theirs under
+"zoo_launches_gptj", "zoo_launches_gptneox", "zoo_launches_bloom" and
+"zoo_launches_chatglm6b"; K2's rows with a bias under "bias");
 the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -264,6 +281,7 @@ TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
 # the floor)
 STFT_TOLERANCE = 2e-4
 SOURCES = ["flash_attention", "flash_attention_bwd", "decode_attention",
+           "decode_attention_bias",
            "stft", "layer_norm", "fused_decoder_step", "cross_attention",
            "fused_bias_gelu"]
 # the fused decoder-layer step: fp32 sums over up to 1536 terms in another
@@ -668,6 +686,112 @@ def check_decode_zoo(torch, rng, card, cases=ZOO_DECODE_CASES):
                   f": max_abs_err={err:.3e} (tol {TOLERANCE[dn]}) "
                   f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
                   f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+            rows_out.setdefault(name, {})[dn] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+            del sets
+    return rows_out
+
+
+# K2 with ALiBi's additive bias at bloom_560m's last step of the zoo phase
+# (batch 4, 16 heads of 64, 800 + 64 rows): (name, lens a lane, cache kind,
+# T-minor); fp32 and bf16 q for the float rows, fp32 q for the quantized
+# ones. ChatGLM-6B's step (B 2, 32 heads of 128, 832 rows) takes K2 without
+# a bias: ZOO_DECODE_CASES' "llama step" row is that shape.
+BIAS_CASES = [("bloom step", [864] * 4, None, False),
+              ("bloom ragged", [864, 854, 844, 834], None, False),
+              ("bloom ragged int8", [864, 854, 844, 834], "int8", True),
+              ("bloom ragged fp8", [864, 854, 844, 834], "fp8", False)]
+BIAS_SHAPE = (4, 16, 864, 64)  # B, H, T, dh
+
+
+def check_decode_bias(torch, rng, card, cases=BIAS_CASES):
+    """K2 with an additive score bias (``BIAS_CASES``): each case held to
+    its plain version at ``TOLERANCE``; the same inputs with an all-zero
+    bias bit-equal to no bias; ms, the plain version's and, for the float
+    rows, SDPA with the same float ``attn_mask`` (the bias, -inf past each
+    lane's length), and the bound. Returns the rows by case and dtype."""
+    import torch.nn.functional as F
+
+    from whisper_trtllm_tpu_torch.ops.attention import quantize_kv
+    from whisper_trtllm_tpu_torch.ops.functional import alibi_bias
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        decode_attention_reference,
+        decode_attn,
+    )
+
+    b, h, t, dh = BIAS_SHAPE
+    bias = alibi_bias(h, t, DEVICE)
+    zero = torch.zeros_like(bias)
+    kinds = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+    rows_out = {}
+    for name, lens, kind, t_major in cases:
+        vlt = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        if len(set(lens)) == 1:
+            vlt = vlt[0]  # one count for the batch
+        past = torch.arange(t, device=DEVICE)[None, :] >= torch.tensor(
+            lens, device=DEVICE)[:, None]
+        mask = bias + torch.where(past, -math.inf, 0.0)[:, None, None, :]
+        for dtype in ((torch.float32,) if kind else (torch.float32,
+                                                     torch.bfloat16)):
+            dn = str(dtype).split(".")[1]
+            item = torch.tensor([], dtype=dtype).element_size()
+            sets = []
+            for _ in range(n_sets(2 * b * h * t * dh * item)):
+                q = card_tensor(torch, rng.standard_normal(
+                    (b, h, 1, dh)) / math.sqrt(dh), dtype)
+                k = rng.standard_normal((b, h, t, dh))
+                v = rng.standard_normal((b, h, t, dh))
+                if kind is None:
+                    sets.append((q, card_tensor(torch, k, dtype),
+                                 card_tensor(torch, v, dtype), None, None))
+                    continue
+                kq, ks = quantize_kv(card_tensor(torch, k), kinds[kind])
+                vq, vs = quantize_kv(card_tensor(torch, v), kinds[kind])
+                if t_major:
+                    kq = kq.transpose(-1, -2).contiguous()
+                    vq = vq.transpose(-1, -2).contiguous()
+                sets.append((q, kq, vq, ks, vs))
+            q, k, v, ks, vs = sets[0]
+            out = decode_attn(q, k, v, vlt, ks, vs, t_major, bias)
+            ref = decode_attention_reference(q, k, v, vlt, k_scale=ks,
+                                             v_scale=vs, t_major=t_major,
+                                             bias=bias)
+            none = decode_attn(q, k, v, vlt, ks, vs, t_major)
+            zeroed = decode_attn(q, k, v, vlt, ks, vs, t_major, zero)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if not math.isfinite(err) or err > TOLERANCE[dn]:
+                fail(f"decode_attn bias {name} {dn}: max |kernel - plain| = "
+                     f"{err} > {TOLERANCE[dn]}")
+            if not torch.equal(none, zeroed):
+                fail(f"decode_attn bias {name} {dn}: an all-zero bias is not "
+                     f"bit-equal to no bias")
+            ms = time_ms(torch, lambda q, k, v, ks, vs: decode_attn(
+                q, k, v, vlt, ks, vs, t_major, bias), sets, 200)
+            plain = time_ms(torch, lambda q, k, v, ks, vs:
+                            decode_attention_reference(
+                                q, k, v, vlt, k_scale=ks, v_scale=vs,
+                                t_major=t_major, bias=bias), sets, 200)
+            lib = None if kind else time_ms(
+                torch, lambda q, k, v, ks, vs: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask.to(q.dtype), scale=1.0), sets, 200)
+            rows = h * sum(lens)
+            # q and out in q's dtype; the rows read (1-byte values and two
+            # fp32 scales when quantized); the bias once; the lengths
+            row_bytes = dh + 4 if kind else dh * item
+            nbytes = (2 * b * h * dh * item + 2 * rows * row_bytes
+                      + 4 * h * t + 4 * b)
+            b_ms, b_by = bound(nbytes, 4.0 * rows * dh, "float32"
+                               if kind else dn)
+            lib_note = "none" if lib is None else f"{lib:.4f}"
+            print(f"kernel decode_attn bias {name} {kind or 'float'} "
+                  f"{'bhdt' if t_major else 'bhtd'} q={dn} B={b} H={h} T={t} "
+                  f"dh={dh} valid_len={lens} "
+                  f"{_split_note(q, k, t_major)}: max_abs_err={err:.3e} (tol "
+                  f"{TOLERANCE[dn]}), zero bias bit-equal to none: ms={ms:.4f}"
+                  f" plain_ms={plain:.4f} library_ms={lib_note} (SDPA, float "
+                  f"mask) bound_ms={b_ms:.4f} ({b_by}) [{card}]")
             rows_out.setdefault(name, {})[dn] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib)
@@ -2713,6 +2837,8 @@ def clis_and_engine(torch, np, card):
     through the same chain) the tokens of a session on it, the launches of
     a call equal to the session's and to the profiler's (K1, K2, K5 in B;
     K1, K5, K6 in E), one capture and a second call that only replays;
+    the same for beam-search engines, K 4 in B and K 2 in E (their best
+    hypothesis the session's; B's the 4 expected texts);
     and a fresh process that exports before any decode transcribes C1's
     fp32 tokens. C3: ``cli.warm_cache`` over a directory that holds phase
     1's libraries finds every kernel built and warms batch 1 and 4; a
@@ -2727,6 +2853,7 @@ def clis_and_engine(torch, np, card):
     ``accept`` exits 0 with ``differential_frac`` 1.0. Ungated: C1's
     audio-s/s, the exports' seconds, an engine's first call against the
     session's first transcribe."""
+    import dataclasses
     import pickle
     import shutil
     import threading
@@ -2771,7 +2898,7 @@ def clis_and_engine(torch, np, card):
 
     # C3 (a) and C6 start first: the warm-ups and the toy loop take
     # longest. The cache directory starts with phase 1's libraries (the
-    # same digests), so warm_cache finds them built: rebuilding all seven
+    # same digests), so warm_cache finds them built: rebuilding them all
     # here took ~100 s of nvcc beside the toy loop and checked nothing
     # phase 1 does not
     os.makedirs(cache)
@@ -2864,15 +2991,25 @@ def clis_and_engine(torch, np, card):
     tree2_raw = init_params(cfg, seed=1, device="cpu")
     tree2 = {"B": quantize_vocab_embedding(weight_only_quantize(tree2_raw)),
              "E": tree2_raw}
-    gens = {"B": (gen_b, rt_b), "E": (gen, None)}
+    # (tree, generation, runtime): greedy in B and E; beam search, K 4 in
+    # B (K2 at 16 lanes) and K 2 in E (K6 at 8 lanes)
+    gens = {"B": ("B", gen_b, rt_b), "E": ("E", gen, None),
+            "beamB": ("B", dataclasses.replace(gen_b, num_beams=4), rt_b),
+            "beamE": ("E", dataclasses.replace(gen, num_beams=2), None)}
     engines = {}
-    for name in ("B", "E"):
-        g, rt = gens[name]
+    for name, (tree, g, rt) in gens.items():
         sess = sessions[name] if name == "B" else WhisperSession(
-            tree1[name], cfg, g, rt, device=DEVICE)
+            tree1[tree], cfg, g, rt, device=DEVICE)
         first = ref[name] if name == "B" else counted(sess)
         second = counted(sess)
-        sess2 = WhisperSession(tree2[name], cfg, g, rt, device=DEVICE)
+        if name.startswith("beam"):
+            texts = [ids_to_text(ids) for ids in _ids(
+                first[0], first[1], cfg.eos_token_id)]
+            if name == "beamB" and texts != expected:
+                fail(f"clis C2 engine {name}: the session's texts {texts}")
+            print(f"clis C2 engine {name}: the session's best hypotheses "
+                  f"{texts}")
+        sess2 = WhisperSession(tree2[tree], cfg, g, rt, device=DEVICE)
         toks2, lens2 = sess2.transcribe_features(mels)
         t0 = time.perf_counter()
         nbytes = sess.export_engine(os.path.join(d, f"{name}.engine"),
@@ -2961,7 +3098,7 @@ def clis_and_engine(torch, np, card):
         traced = res["traced"]
         used = {"B": ("flash_fwd", "decode_attn", "layer_norm"),
                 "E": ("flash_fwd", "layer_norm",
-                      "fused_decoder_layer_step")}[name]
+                      "fused_decoder_layer_step")}[gens[name][0]]
         if not (f1["launches"] == launches
                 and f2["launches"] == e["second"][2]
                 and all(traced[k] == f2["launches"][k] for k in traced)
@@ -3513,6 +3650,23 @@ def parallel(torch, np, card):
             print(f"parallel session {name} over the 1x1 mesh: the 4 texts, "
                   f"tokens equal to the one-device session's, launches "
                   f"{n1} equal to its, collectives {c1}")
+
+        # a sampled decode with the batch cut over the mesh's data axis:
+        # each row's draw keyed by its global lane (the rank's first row
+        # plus its own), so the mesh draws the one-device tokens
+        _, compute, kv, layout, _, _ = CONFIGS["A"]
+        gen = GenerationConfig(max_new_tokens=32, kv_cache_dtype=kv,
+                               cross_kv_layout=layout, **SAMPLED)
+        rt = RuntimeConfig(compute_dtype=compute)
+        sampled = [WhisperSession(params, cfg, gen, rt, mesh=m,
+                                  device=DEVICE).transcribe(audio)
+                   for m in (None, mesh)]
+        if not all(np.array_equal(a, b) for a, b in zip(*sampled)):
+            fail("parallel sampled session over the 1x1 mesh: tokens differ "
+                 "from the one-device session's")
+        print(f"parallel sampled session A ({SAMPLED}) over the 1x1 mesh: "
+              f"tokens and lengths equal to the one-device session's "
+              f"(lengths {sampled[1][1].tolist()})")
 
         # one train step over the 1x1 mesh against the one-device step
         mel = log_mel_spectrogram(audio, device="cpu").numpy()
@@ -4450,14 +4604,24 @@ ZOO_WIDE = ("gptj_6b", "gptneox_20b")
 ZOO_WIDE_BATCH, ZOO_WIDE_NEW = 2, 32
 ZOO_WIDE_RAGGED = (800, 790)
 ZOO_WIDE_BEAM_K, ZOO_WIDE_BEAM_NEW = 2, 16
+# bloom_560m at full width and depth (24 layers): the gpt_350m runs'
+# shapes (lockstep at batch 4 from 800, 64 new; ragged 800..770; beams K 4
+# at batch 2 from 32); chatglm_6b's widths at 2 layers: the wide runs'
+# (batch 2 from 800, 32 new, the [gMASK] at 798; ragged 800/790; beams K 2
+# at batch 2 from 32, 16 new). Neither prefill runs K1 (masked attention
+# in Bloom's, the prefix-LM's plain einsums in GLM's)
+ZOO_ALIBI = ("bloom_560m", "chatglm_6b")
 
 
 def zoo_weights() -> dict:
     """The zoo phase's trees on the host, ``init_params(seed=0)``:
-    gpt_350m and opt_350m at full width and depth, llama_7b's widths cut
+    gpt_350m at full width and depth, opt_350m's widths cut to 2 layers
+    (depth only: the time limit's cut when Bloom and ChatGLM came),
+    llama_7b's widths cut
     to 2 layers (depth only), with 32 and with 8 key/value heads, and
     gptj_6b's and gptneox_20b's widths cut to 2 layers (0.82 G and 1.53 G
-    parameters). Each model draws from its own generator in a thread of
+    parameters), bloom_560m whole (0.56 G) and chatglm_6b's widths at 2
+    layers (1.47 G, 1.07 G of them its two vocab tables). Each model draws from its own generator in a thread of
     its own (numpy releases the GIL while it fills an array): drawn one
     after another, the 4.3 G values outlasted the kernels phase by ~40 s
     (NVIDIA H100 80GB HBM3 host, 700 W)."""
@@ -4468,8 +4632,10 @@ def zoo_weights() -> dict:
     )
 
     def draw(name):
+        if name == "bloom_560m":  # no registry entry, as in the JAX package
+            return draw_bloom(name)
         _, cfg, init, _, _ = build_model(name)
-        if name not in ("gpt_350m", "opt_350m"):
+        if name != "gpt_350m":
             cfg = dataclasses.replace(cfg, n_layer=2)
         trees = {name: (cfg, init(cfg, seed=0, device="cpu"))}
         if name == "llama_7b":
@@ -4477,7 +4643,13 @@ def zoo_weights() -> dict:
             trees["llama_7b gqa"] = (gqa, init(gqa, seed=0, device="cpu"))
         return trees
 
-    names = ("gpt_350m", "opt_350m", "llama_7b") + ZOO_WIDE
+    def draw_bloom(name):
+        from whisper_trtllm_tpu_torch.models import bloom
+
+        cfg = bloom.BloomConfig()
+        return {name: (cfg, bloom.init_params(cfg, seed=0, device="cpu"))}
+
+    names = ("gpt_350m", "opt_350m", "llama_7b") + ZOO_WIDE + ZOO_ALIBI
     out = {}
     with ThreadPoolExecutor(len(names)) as pool:
         for trees in pool.map(draw, names):
@@ -4486,13 +4658,16 @@ def zoo_weights() -> dict:
 
 
 def zoo_launches(fam: str, cfg, long: bool, steps: int) -> dict:
-    """A generate call's launches: a prefill (K1 a layer when long; K5 for
-    GPT's, OPT's and GPT-NeoX's 2L + 1 LayerNorms, GPT-J's L + 1) and
-    ``steps`` steps (K2 a layer, K5 as many again; LLaMA's RMSNorm has no
-    kernel)."""
+    """A generate call's launches: a prefill (K1 a layer when long, but
+    never in Bloom's masked or ChatGLM's prefix-LM prefill; K5 for GPT's,
+    OPT's, GPT-NeoX's and ChatGLM's 2L + 1 LayerNorms, GPT-J's L + 1,
+    Bloom's 2L + 2 with its embedding LayerNorm) and ``steps`` steps (K2 a
+    layer, K5 as many again; LLaMA's RMSNorm has no kernel)."""
     n = cfg.n_layer
-    norms = {"llama": 0, "gptj": n + 1}.get(fam, 2 * n + 1)
-    return {"flash_fwd": n if long else 0, "decode_attn": n * steps,
+    norms = {"llama": 0, "gptj": n + 1, "bloom": 2 * n + 2}.get(fam,
+                                                               2 * n + 1)
+    flash = n if long and fam not in ("bloom", "chatglm6b") else 0
+    return {"flash_fwd": flash, "decode_attn": n * steps,
             "layer_norm": norms * (1 + steps)}
 
 
@@ -4530,8 +4705,11 @@ def zoo_run(torch, tag: str, fam: str, cfg, long: bool, fn, repeat=False):
     return out, steps, ms
 
 
-def zoo_prefill_ms(torch, mod, params, cfg, prompt, kv_heads: int) -> float:
-    """The median ms of the model's prefill alone (5 calls, fresh caches)."""
+def zoo_prefill_ms(torch, mod, params, cfg, prompt, kv_heads: int,
+                   *positions) -> float:
+    """The median ms of the model's prefill alone (5 calls, fresh caches);
+    ``positions``: ChatGLM's position ids and prefix length, which its
+    prefill takes before the caches."""
     b, p = prompt.shape
     shape = (cfg.n_layer, b, kv_heads, p, cfg.head_dim)
     dtype = next(t for t in params.values()
@@ -4539,8 +4717,8 @@ def zoo_prefill_ms(torch, mod, params, cfg, prompt, kv_heads: int) -> float:
     ck = torch.zeros(shape, dtype=dtype, device=DEVICE)
     cv = torch.zeros_like(ck)
     with torch.inference_mode():
-        _, ms, _, _ = timed(torch, lambda: mod._prefill(params, cfg, prompt,
-                                                        ck, cv))
+        _, ms, _, _ = timed(torch, lambda: mod._prefill(
+            params, cfg, prompt, *positions, ck, cv))
     return ms
 
 
@@ -4625,7 +4803,7 @@ def zoo_ragged_lanes(torch, np, tag, mod, params, cfg, prompt, out_r,
         if np.array_equal(got, lane):
             continue
         at = int(np.nonzero(got != lane)[0][0])
-        logits = cpu_forward(lane[None, :at])[0]
+        logits = cpu_forward(lane[None, :at], n)[0]
         top2 = torch.topk(logits[at - 1].float(), 2).values
         gap = (top2[0] - top2[1]).item()
         if gap >= ZOO_GAP * logits[at - 1].abs().max().item():
@@ -4639,7 +4817,17 @@ def zoo(torch, np, card, trees) -> dict:
     """The phase of the module docstring; returns the launches of
     gpt_350m's long lockstep call (the kernel table's "zoo" column) under
     "", and GPT-J's and GPT-NeoX's under "_gptj" and "_gptneox"."""
-    from whisper_trtllm_tpu_torch.models import gpt, gptj, gptneox, llama, opt
+    from whisper_trtllm_tpu_torch.models import (
+        bloom,
+        chatglm6b,
+        gpt,
+        gptj,
+        gptneox,
+        llama,
+        opt,
+    )
+    from whisper_trtllm_tpu_torch.models.bloom import model as bloom_model
+    from whisper_trtllm_tpu_torch.models.chatglm6b import model as glm_model
     from whisper_trtllm_tpu_torch.models.gpt import model as gpt_model
     from whisper_trtllm_tpu_torch.models.gptj import model as gptj_model
     from whisper_trtllm_tpu_torch.models.gptneox import model as gptneox_model
@@ -4695,8 +4883,15 @@ def zoo(torch, np, card, trees) -> dict:
               f"{cap:.2f}), repeat {ms2:.2f} ms{per} [{card}]")
 
     def cpu_forward(mod, host_tree, cfg_, **kw):
-        def fwd(seq):
+        """The CPU's teacher-forced logits of a sequence (its prompt's
+        length only read by ChatGLM's, whose positions depend on it)."""
+        def fwd(seq, prompt_len=None):
             with torch.inference_mode():
+                if mod is chatglm6b:
+                    ids = chatglm6b.build_position_ids(
+                        seq.shape[1], prompt_len - 2, prompt_len)
+                    return mod.forward(host_tree, cfg_, seq, np.repeat(
+                        ids[None], seq.shape[0], 0), prompt_len)
                 return mod.forward(host_tree, cfg_, seq, **kw)
         return fwd
 
@@ -4705,7 +4900,8 @@ def zoo(torch, np, card, trees) -> dict:
         seq = out[0].cpu().numpy()
 
         def job():
-            logits = cpu_forward(mod, host_tree, cfg_, **kw)(seq[None])[0]
+            logits = cpu_forward(mod, host_tree, cfg_, **kw)(
+                seq[None], prompt_len)[0]
             n = zoo_tokens_match(torch, tag, logits, seq, prompt_len,
                                  cfg_.eos_token_id)
             print(f"zoo {tag}: lane 0 equals the CPU's argmax over {n} "
@@ -4790,6 +4986,88 @@ def zoo(torch, np, card, trees) -> dict:
                 device="cpu"))
         after.append(wbeams_job)
         del wparams
+
+    # ---- bloom_560m whole and chatglm_6b's widths at 2 layers, fp32 --------
+    # also before any CPU check runs (their traced calls too)
+    alibi_counts = {}
+    for name, fam, mod, mod_model, batch, new, ragged, beam_k, beam_new in (
+            ("bloom_560m", "bloom", bloom, bloom_model, ZOO_BATCH, ZOO_NEW,
+             ZOO_RAGGED, ZOO_BEAM_K, ZOO_BEAM_NEW),
+            ("chatglm_6b", "chatglm6b", chatglm6b, glm_model, ZOO_WIDE_BATCH,
+             ZOO_WIDE_NEW, ZOO_WIDE_RAGGED, ZOO_WIDE_BEAM_K,
+             ZOO_WIDE_BEAM_NEW)):
+        acfg, ahost = trees[name]
+        aparams = params_from_numpy(ahost, DEVICE)
+        ap = long_p[:batch] % acfg.vocab_size
+        tag = (f"{name} ({acfg.n_layer} layers, {acfg.n_head} heads of "
+               f"{acfg.head_dim})")
+        out_a, steps, ms = zoo_run(
+            torch, f"{name} long", fam, acfg, True,
+            lambda: mod.generate(aparams, acfg, ap, new))
+        alibi_counts["_" + fam] = zoo_launches(fam, acfg, True, steps)
+        apt = torch.from_numpy(ap).to(DEVICE)
+        positions = () if fam == "bloom" else (torch.from_numpy(
+            mod.build_position_ids(ZOO_LONG, ZOO_LONG - 2, ZOO_LONG)).to(
+            DEVICE)[None].expand(batch, 2, ZOO_LONG), ZOO_LONG)
+        pre = zoo_prefill_ms(torch, mod_model, aparams, acfg, apt,
+                             acfg.n_head, *positions)
+        report(f"{tag} lockstep B {batch} prompt {ZOO_LONG}", fam, acfg, True,
+               lambda: mod.generate(aparams, acfg, ap, new), out_a, steps, ms,
+               pre)
+        traced_call(name, fam, acfg,
+                    lambda: mod.generate(aparams, acfg, ap, ZOO_TRACED_NEW))
+        greedy_vs_cpu(f"{name} long", mod, ahost, acfg, out_a, ZOO_LONG,
+                      early.append)
+        if fam == "bloom":
+            # bf16: printed, not gated
+            p16 = params_from_numpy(ahost, DEVICE, torch.bfloat16)
+            out16, steps, ms = zoo_run(
+                torch, f"{name} bf16", fam, acfg, True,
+                lambda: mod.generate(p16, acfg, ap, new))
+            same = (out16.cpu()[:, ZOO_LONG:] == out_a.cpu()[:, ZOO_LONG:]
+                    ).float().mean().item()
+            report(f"{tag} bf16 lockstep B {batch} prompt {ZOO_LONG}", fam,
+                   acfg, True, lambda: mod.generate(p16, acfg, ap, new), out16,
+                   steps, ms)
+            print(f"zoo {name} bf16: {same:.4f} of its new tokens equal the "
+                  f"fp32 run's (not gated)")
+            del p16
+        out_r, steps, ms = zoo_run(
+            torch, f"{name} ragged", fam, acfg, True,
+            lambda: mod.generate_ragged(aparams, acfg, ap, list(ragged), new))
+        report(f"{tag} ragged {list(ragged)}", fam, acfg, True,
+               lambda: mod.generate_ragged(aparams, acfg, ap, list(ragged),
+                                           new), out_r, steps, ms)
+        zoo_ragged_lanes(torch, np, f"{name} ragged", mod_model, aparams, acfg,
+                         ap, out_r.cpu().numpy(), new,
+                         cpu_forward(mod, ahost, acfg), ragged)
+        draws = []
+        for seed in (1, 1):
+            out_s, steps, ms = zoo_run(
+                torch, f"{name} sampled seed {seed}", fam, acfg, True,
+                lambda: mod.generate(aparams, acfg, ap, new, seed=seed,
+                                     **ZOO_SAMPLED), repeat=bool(draws))
+            draws.append(out_s.cpu())
+        if not torch.equal(draws[0], draws[1]):
+            fail(f"zoo {name} sampled: seed 1 did not repeat its draw")
+        print(f"zoo {name} sampled (temperature 0.8, top-k 40): seed 1 twice "
+              f"equal, the second call replays only; {steps} steps "
+              f"{ms:.2f} ms")
+        bpa = short_p[:ZOO_BEAM_BATCH] % acfg.vocab_size
+        out_ab, steps, ms = zoo_run(
+            torch, f"{name} beams", fam, acfg, False,
+            lambda: mod.generate_beam(aparams, acfg, bpa, beam_new, beam_k))
+        report(f"{tag} beams K {beam_k} B {ZOO_BEAM_BATCH}", fam, acfg, False,
+               lambda: mod.generate_beam(aparams, acfg, bpa, beam_new, beam_k),
+               out_ab, steps, ms)
+        out_ab = tuple(x.cpu() for x in out_ab)
+
+        def abeams_job(name=name, mod=mod, ahost=ahost, acfg=acfg, bpa=bpa,
+                       out_ab=out_ab, beam_new=beam_new, beam_k=beam_k):
+            zoo_beams_match(torch, f"{name} beams", out_ab, mod.generate_beam(
+                ahost, acfg, bpa, beam_new, beam_k, device="cpu"))
+        after.append(abeams_job)
+        del aparams
 
     out_long, steps, ms = zoo_run(
         torch, "gpt long", "gpt", cfg, True,
@@ -4927,7 +5205,8 @@ def zoo(torch, np, card, trees) -> dict:
         lambda: opt.generate(params, cfg, op, ZOO_NEW))
     pre = zoo_prefill_ms(torch, opt_model, params, cfg,
                          torch.from_numpy(op).to(DEVICE), cfg.n_head)
-    report(f"opt_350m lockstep B {ZOO_BATCH} prompt {ZOO_LONG}", "opt", cfg,
+    report(f"opt_350m (2 layers) lockstep B {ZOO_BATCH} prompt {ZOO_LONG}",
+           "opt", cfg,
            True, lambda: opt.generate(params, cfg, op, ZOO_NEW), out_o, steps,
            ms, pre)
     greedy_vs_cpu("opt long", opt, host, cfg, out_o, ZOO_LONG)
@@ -4935,7 +5214,7 @@ def zoo(torch, np, card, trees) -> dict:
         torch, "opt ragged", "opt", cfg, True,
         lambda: opt.generate_ragged(params, cfg, op, list(ZOO_RAGGED),
                                     ZOO_NEW))
-    report(f"opt_350m ragged {list(ZOO_RAGGED)}", "opt", cfg, True,
+    report(f"opt_350m (2 layers) ragged {list(ZOO_RAGGED)}", "opt", cfg, True,
            lambda: opt.generate_ragged(params, cfg, op, list(ZOO_RAGGED),
                                        ZOO_NEW), out_r, steps, ms, pre)
     zoo_ragged_lanes(torch, np, "opt ragged", opt_model, params, cfg, op,
@@ -4988,16 +5267,21 @@ def zoo(torch, np, card, trees) -> dict:
                   "--in-len", str(ZOO_SHORT), "--gen-tokens", str(ZOO_NEW),
                   "--iters", "3"]
     run_ids = ["5", "11", "17", "23"]
+
+    def run_zoo(family):
+        return subprocess.Popen(
+            [sys.executable, "-m", "whisper_trtllm_tpu_torch.cli.run_zoo",
+             "--family", family, "--prompt-ids", *run_ids,
+             "--max-new-tokens", "16"], cwd=ROOT, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
     children = {
         "bench_zoo": subprocess.Popen(
             [sys.executable, "-m", "whisper_trtllm_tpu_torch.benchmarks."
              "benchmark", *bench_argv], cwd=ROOT, env=env, text=True,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE),
-        "run_zoo": subprocess.Popen(
-            [sys.executable, "-m", "whisper_trtllm_tpu_torch.cli.run_zoo",
-             "--family", "gpt", "--prompt-ids", *run_ids,
-             "--max-new-tokens", "16"], cwd=ROOT, env=env, text=True,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE)}
+        "run_zoo": run_zoo("gpt"), "run_zoo bloom": run_zoo("bloom"),
+        "run_zoo chatglm6b": run_zoo("chatglm6b")}
     t_wait = time.perf_counter()
     for job in jobs:
         job.result()
@@ -5028,7 +5312,18 @@ def zoo(torch, np, card, trees) -> dict:
                          seq, len(run_ids), tiny.eos_token_id)
     print(f"zoo run_zoo --family gpt: {outs['run_zoo']['output_ids']}, equal "
           f"to the CPU's argmax over {n} steps")
-    return {"": counts, **wide_counts}
+    for fam, mod, tiny in (("bloom", bloom, bloom.BloomConfig.testing()),
+                           ("chatglm6b", chatglm6b,
+                            chatglm6b.ChatGLM6BConfig.testing())):
+        row = outs[f"run_zoo {fam}"]
+        seq = np.asarray(row["output_ids"], np.int32)
+        tp = mod.init_params(tiny, seed=0, device="cpu")
+        logits = cpu_forward(mod, tp, tiny)(seq[None], len(run_ids))[0]
+        n = zoo_tokens_match(torch, f"run_zoo {fam}", logits, seq,
+                             len(run_ids), tiny.eos_token_id)
+        print(f"zoo run_zoo --family {fam}: {row['output_ids']}, equal to "
+              f"the CPU's argmax over {n} steps")
+    return {"": counts, **wide_counts, **alibi_counts}
 
 
 def main() -> None:
@@ -5132,6 +5427,8 @@ def main() -> None:
                                     ZOO_WIDE_FLASH_CASES))
     decode["zoo"].update(check_decode_zoo(torch, rng("zoo wide decode"),
                                           card, ZOO_WIDE_DECODE_CASES))
+    # and Bloom's: K2 with ALiBi's bias (ChatGLM's step is "llama step")
+    decode["bias"] = check_decode_bias(torch, rng("zoo decode bias"), card)
     norm["zoo"] = check_layer_norm(torch, rng("zoo layer norm"), card,
                                    floor_ms, cases=ZOO_NORM_CASES)
     phase_s["kernels"] = time.perf_counter() - t0
@@ -5249,9 +5546,10 @@ def main() -> None:
         # K1, K2 and K4 at the local head counts of tensor parallelism
         if r["name"] in local_heads:
             r["local_heads"] = local_heads[r["name"]]
-        # gpt_350m's lockstep call at prompt 800 (K1, K2, K5), and GPT-J's
-        # and GPT-NeoX's at batch 2
-        for tag in ("", "_gptj", "_gptneox"):
+        # gpt_350m's lockstep call at prompt 800 (K1, K2, K5), GPT-J's and
+        # GPT-NeoX's at batch 2, bloom_560m's (K2 with its bias, K5) and
+        # ChatGLM-6B's (K2, K5)
+        for tag in ("", "_gptj", "_gptneox", "_bloom", "_chatglm6b"):
             if counts["zoo"][tag].get(r["name"]):
                 r["zoo_launches" + tag] = counts["zoo"][tag][r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -5268,10 +5566,12 @@ def main() -> None:
                                               "zoo_launches",
                                               "zoo_launches_gptj",
                                               "zoo_launches_gptneox",
+                                              "zoo_launches_bloom",
+                                              "zoo_launches_chatglm6b",
                                               "bfloat16",
                                               "serving", "batcher", "decode",
                                               "encoder_mlp", "floor_ms",
-                                              "local_heads", "zoo")
+                                              "local_heads", "zoo", "bias")
                                   if x in r]}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -209,11 +209,39 @@ def test_session_beam_search_transcribes_all_four_utterances_exactly(
             for i in range(len(expected))] == expected
 
 
-def test_session_refuses_engine_export(artifact, tmp_path):
-    """Beam search is not exported (the greedy pipeline is:
-    ``tests/test_torch_engine.py``)."""
+def test_session_refuses_engine_export(audio, expected, artifact, tmp_path):
+    """Beam search is exported (K 2 on the artifact: the engine returns the
+    session's best hypotheses, the 4 texts; against JAX in
+    ``tests/test_torch_engine.py``); what ``export_engine`` refuses is a
+    session over a mesh (a 1×1 gloo mesh in this process)."""
+    import torch.distributed as dist
+
+    from whisper_trtllm_tpu_torch.config import MeshConfig
+    from whisper_trtllm_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+    )
+    from whisper_trtllm_tpu_torch.utils.engine import load_engine
+
     params, cfg = artifact
-    session = WhisperSession(params, cfg, dataclasses.replace(
-        GEN, num_beams=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="beam"):
-        session.export_engine(str(tmp_path / "engine.bin"))
+    gen = dataclasses.replace(GEN, num_beams=2)
+    session = WhisperSession(params, cfg, gen, device="cpu")
+    mel = session.frontend(audio)
+    path = str(tmp_path / "engine.bin")
+    assert session.export_engine(path, batch=len(expected)) > 0
+    toks, lens = load_engine(path)(session.params, mel)
+    want_toks, want_lens = session.transcribe_features(mel)
+    np.testing.assert_array_equal(toks.numpy(), want_toks)
+    np.testing.assert_array_equal(lens.numpy(), want_lens)
+    assert [ids_to_text(want_toks[i, :want_lens[i]])
+            for i in range(len(expected))] == expected
+
+    initialize_distributed(device="cpu", world_size=1, rank=0,
+                           init_method=f"file://{tmp_path / 'store'}")
+    try:
+        mesh = make_mesh(MeshConfig(1, 1), device="cpu")
+        over_mesh = WhisperSession(params, cfg, gen, mesh=mesh, device="cpu")
+        with pytest.raises(NotImplementedError, match="mesh"):
+            over_mesh.export_engine(str(tmp_path / "mesh.engine"))
+    finally:
+        dist.destroy_process_group()

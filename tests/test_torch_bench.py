@@ -300,7 +300,8 @@ def test_gate_missing_record_fails_main_before_measuring(state_path,
 
 @pytest.mark.parametrize("name,family,width", [
     ("gptj_6b", "gptj", 4096), ("gptneox_20b", "gptneox", 6144),
-    ("gpt_175b", "gpt", 12288), ("opt_66b", "opt", 9216)])
+    ("gpt_175b", "gpt", 12288), ("opt_66b", "opt", 9216),
+    ("chatglm_6b", "chatglm6b", 4096)])
 def test_the_wide_zoo_configs_build(name, family, width):
     """The names whose widths reach K5 past 2048 (and GPT-J's head dim of
     256, K1 and K2 past 128) build: family, config class and widths."""
@@ -330,7 +331,7 @@ def test_entry_points_exit_nonzero_without_a_card(main, monkeypatch, capsys,
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(name="bert_base"), "item 11"),
-    (dict(name="chatglm_6b"), "item 11"),
+    (dict(name="bert_large"), "item 11"),
     (dict(name="gpt_350m", quant="sq"), "item 11"),
 ])
 def test_unported_inputs_raise_naming_their_roadmap_item(kwargs, item):

@@ -15,7 +15,12 @@ the CPU, at ``WhisperConfig.testing()`` (the cases of
 - The kernels' operators (``torch.ops.wtpu.*``) give their outputs' shapes
   and dtypes to a tracer (fake tensors on the meta device); their CUDA
   implementations run on the card (``tests/test_torch_gpu.py``).
-- ``export_engine`` refuses beam search.
+- Beam search (``num_beams`` 2 and 4): the engine's tokens and lengths
+  equal the port session's and the JAX session's best hypothesis, also in
+  a fresh interpreter without the model code; a beam engine without its
+  finalize program is refused.
+- A greedy engine file of format 1 (written before beam search was
+  exported) loads and runs.
 """
 
 import dataclasses
@@ -227,12 +232,101 @@ def test_kernel_operators_give_shapes_to_a_tracer(op):
     assert out.device.type == "meta"
 
 
-def test_export_engine_refuses_beam_search(engines):
+BEAM_NEW = 6
+
+
+@pytest.fixture(scope="module")
+def beam_engines(engines):
+    """The fp32 case's trees: for K 2 and 4, the port's beam session, its
+    engine file and the JAX beam session's best hypothesis."""
     exported = engines["fp32"]
-    sess = exported["torch0"]
-    beam = WhisperSession(sess.params, exported["cfg"],
-                          torch_config.GenerationConfig(max_new_tokens=4,
-                                                        num_beams=2),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="beam"):
-        beam.export_engine(str(exported["dir"] / "beam.engine"))
+    jcfg = jax_config.WhisperConfig.testing()
+    jparams, _ = _trees(jcfg, 0)
+    out = {}
+    for k in (2, 4):
+        sess = WhisperSession(
+            exported["torch0"].params, exported["cfg"],
+            torch_config.GenerationConfig(max_new_tokens=BEAM_NEW,
+                                          num_beams=k), device="cpu")
+        path = str(exported["dir"] / f"beam{k}.engine")
+        assert sess.export_engine(path, batch=exported["mel"].shape[0]) > 0
+        jsess = JaxSession(jparams, jcfg, jax_config.GenerationConfig(
+            max_new_tokens=BEAM_NEW, num_beams=k))
+        out[k] = dict(sess=sess, path=path, dir=exported["dir"],
+                      cfg=exported["cfg"], mel=exported["mel"],
+                      jax=[np.asarray(x) for x in jsess.transcribe_features(
+                          exported["mel"])])
+    return out
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_beam_engine_equals_the_sessions_and_jax_best_hypothesis(
+        beam_engines, k):
+    b = beam_engines[k]
+    want_toks, want_lens = b["sess"].transcribe_features(b["mel"])
+    eng = load_engine(b["path"])
+    assert eng.meta["num_beams"] == k and eng.meta["format"] == 2
+    toks, lens = eng(b["sess"].params, b["mel"])
+    np.testing.assert_array_equal(toks.numpy(), want_toks)
+    np.testing.assert_array_equal(lens.numpy(), want_lens)
+    np.testing.assert_array_equal(toks.numpy(), b["jax"][0])
+    np.testing.assert_array_equal(lens.numpy(), b["jax"][1])
+    assert eng.captures == 0 and 0 < eng.eager_steps <= BEAM_NEW
+
+
+def test_beam_engine_runs_without_the_model_code(beam_engines):
+    b = beam_engines[4]
+    save_checkpoint(str(b["dir"] / "beam_tree"), b["sess"].params, b["cfg"])
+    np.save(b["dir"] / "beam_mel.npy", b["mel"])
+    out = subprocess.run(
+        [sys.executable, "-c", _LOADER.format(root=ROOT), b["path"],
+         str(b["dir"] / "beam_tree"), str(b["dir"] / "beam_mel.npy")],
+        capture_output=True, text=True, timeout=120, env=_env(), cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    toks, lens, imported = json.loads(out.stdout.strip().splitlines()[-1])
+    assert imported == []
+    want_toks, want_lens = b["sess"].transcribe_features(b["mel"])
+    assert toks[0] == want_toks.tolist() and lens[0] == want_lens.tolist()
+
+
+def _rewrite(src: str, dst: str, meta=None, drop=()) -> None:
+    """Copy an engine file, its meta replaced by ``meta(old)`` and the
+    members in ``drop`` left out."""
+    import zipfile
+
+    with zipfile.ZipFile(src) as zin, zipfile.ZipFile(dst, "w") as zout:
+        for name in zin.namelist():
+            if name in drop:
+                continue
+            data = zin.read(name)
+            if name == "meta.json" and meta is not None:
+                data = json.dumps(meta(json.loads(data)))
+            zout.writestr(name, data)
+
+
+def test_a_format_1_greedy_engine_still_loads_and_runs(engines):
+    exported = engines["fp32"]
+    path = str(exported["dir"] / "format1.engine")
+
+    def old(meta):
+        meta = {k: v for k, v in meta.items() if k != "num_beams"}
+        return dict(meta, format=1)
+
+    _rewrite(exported["path"], path, old)
+    eng = load_engine(path)
+    assert eng.meta["num_beams"] == 1
+    sess, mel = exported["torch0"], exported["mel"]
+    toks, lens = eng(sess.params, mel)
+    ref_toks, ref_lens = sess.transcribe_features(mel)
+    np.testing.assert_array_equal(toks.numpy(), ref_toks)
+    np.testing.assert_array_equal(lens.numpy(), ref_lens)
+
+
+def test_export_engine_refuses_beam_search(beam_engines):
+    """What is still refused of a beam engine: one whose file lacks the
+    finalize program that ends the search."""
+    b = beam_engines[2]
+    path = str(b["dir"] / "beam_no_finalize.engine")
+    _rewrite(b["path"], path, drop=("finalize.pt2",))
+    with pytest.raises(ValueError, match="finalize"):
+        load_engine(path)

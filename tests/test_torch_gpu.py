@@ -272,6 +272,87 @@ _K2_KINDS = [("float", False), ("int8", False), ("int8", True),
              ("fp8", True)]
 
 
+def _k2_inputs(rng, cuda, dtype, kind, t_major, b, h, t, dh):
+    """q, the cache in ``kind`` and layout, and its scales."""
+    q = _normal(rng, (b, h, 1, dh), dh ** -0.5, cuda, dtype)
+    ck = _normal(rng, (b, h, t, dh), 1.0, cuda, torch.float32)
+    cv = _normal(rng, (b, h, t, dh), 1.0, cuda, torch.float32)
+    scales = {}
+    if kind == "float":
+        ck, cv = ck.to(dtype), cv.to(dtype)
+    else:
+        ck, ks = quantize_kv(ck, _QUANT[kind])
+        cv, vs = quantize_kv(cv, _QUANT[kind])
+        scales = dict(k_scale=ks, v_scale=vs)
+    if t_major:
+        ck = ck.transpose(-1, -2).contiguous()
+        cv = cv.transpose(-1, -2).contiguous()
+    return q, ck, cv, scales
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("kind,t_major", _K2_KINDS + [("float", True)],
+                         ids=["float", "int8-bhtd", "int8-bhdt", "fp8-bhdt",
+                              "float-bhdt"])
+@pytest.mark.parametrize("t,valid_len,dh", [(864, [864], 64),
+                                            (864, [864, 854, 844, 834], 64),
+                                            (33, [0, 5, 33, 17], 64),
+                                            (832, [832, 700], 256)])
+def test_decode_kernel_with_a_bias_matches_plain(cuda, dtype, tol, kind,
+                                                 t_major, t, valid_len, dh):
+    """ALiBi's (1, H, 1, T) bias and a full (B, H, 1, T) one, added after
+    the K scale and before the mask, in every cache kind and layout,
+    through the direct, the staged and the wide paths."""
+    from whisper_trtllm_tpu_torch.ops.functional import alibi_bias
+
+    rng = np.random.default_rng(t + dh + len(valid_len))
+    b, h = max(len(valid_len), 2), 8
+    q, ck, cv, scales = _k2_inputs(rng, cuda, dtype, kind, t_major, b, h, t,
+                                   dh)
+    vl = torch.tensor(valid_len if len(valid_len) > 1 else valid_len[0],
+                      dtype=torch.int32, device=cuda)
+    for bias in (alibi_bias(h, t, cuda), _normal(rng, (b, h, 1, t), 3.0,
+                                                  cuda, torch.float32)):
+        before = decode_attn.launches
+        out = decode_attn(q, ck, cv, vl, t_major=t_major, bias=bias,
+                          **scales)
+        assert decode_attn.launches == before + 1
+        ref = decode_attention_reference(q, ck, cv, vl, t_major=t_major,
+                                         bias=bias, **scales)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kind,t_major", _K2_KINDS + [("float", True)],
+                         ids=["float", "int8-bhtd", "int8-bhdt", "fp8-bhdt",
+                              "float-bhdt"])
+@pytest.mark.parametrize("t,dh", [(33, 64), (864, 64), (1504, 64),
+                                  (832, 256)])
+def test_decode_kernel_zero_bias_is_bit_equal_to_no_bias(cuda, kind, t_major,
+                                                         t, dh):
+    """x + 0.0 == x in fp32: an all-zero bias leaves every score, and so
+    the output, as without one, bit for bit (the bias costs the shapes
+    without one no change of result)."""
+    rng = np.random.default_rng(t + dh)
+    q, ck, cv, scales = _k2_inputs(rng, cuda, torch.float32, kind, t_major,
+                                   4, 6, t, dh)
+    vl = torch.tensor([t, t - 1, 1, t // 2], dtype=torch.int32, device=cuda)
+    zero = torch.zeros(1, 6, 1, t, device=cuda)
+    assert torch.equal(
+        decode_attn(q, ck, cv, vl, t_major=t_major, bias=zero, **scales),
+        decode_attn(q, ck, cv, vl, t_major=t_major, **scales))
+
+
+def test_decode_kernel_refuses_a_bias_it_does_not_take(cuda):
+    q = torch.zeros(2, 4, 1, 64, device=cuda)
+    cache = torch.zeros(2, 4, 32, 64, device=cuda)
+    vl = torch.tensor(32, dtype=torch.int32, device=cuda)
+    for bias in (torch.zeros(1, 4, 1, 32, device=cuda, dtype=torch.bfloat16),
+                 torch.zeros(1, 4, 1, 31, device=cuda),
+                 torch.zeros(3, 4, 1, 32, device=cuda)):
+        with pytest.raises(NotImplementedError):
+            decode_attn(q, cache, cache, vl, bias=bias)
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("kind,t_major", _K2_KINDS,
                          ids=["float", "int8-bhtd", "int8-bhdt", "fp8-bhdt"])
@@ -2477,11 +2558,26 @@ def test_flash_kernel_at_the_zoo_prefills_matches_plain(cuda, dtype, tol, b,
 def _zoo_model(family: str):
     """A small tree of ``family`` on the card (2 layers, head dim 64;
     GPT-J's 2 heads of 256, GPT-NeoX's 4 of 64 with rotary_pct 0.25)."""
-    from whisper_trtllm_tpu_torch.models import gpt, gptj, gptneox, llama, opt
+    from whisper_trtllm_tpu_torch.models import (
+        bloom,
+        chatglm6b,
+        gpt,
+        gptj,
+        gptneox,
+        llama,
+        opt,
+    )
 
     mod = {"gpt": gpt, "opt": opt, "llama": llama, "gptj": gptj,
-           "gptneox": gptneox}[family]
-    if family == "gptj":
+           "gptneox": gptneox, "bloom": bloom, "chatglm6b": chatglm6b}[family]
+    if family == "bloom":
+        cfg = bloom.BloomConfig(vocab_size=512, d_model=256, n_layer=2,
+                                n_head=4, eos_token_id=7)
+    elif family == "chatglm6b":
+        cfg = chatglm6b.ChatGLM6BConfig(vocab_size=512, max_positions=128,
+                                        d_model=256, n_layer=2, n_head=4,
+                                        ffn_dim=512, eos_token_id=7)
+    elif family == "gptj":
         cfg = gptj.GPTJConfig(vocab_size=512, max_positions=128, d_model=512,
                               n_layer=2, n_head=2, rotary_dim=64, ffn_dim=512,
                               eos_token_id=7)
@@ -2507,7 +2603,9 @@ def _zoo_model(family: str):
     ("gpt", "lockstep"), ("gpt", "ragged"), ("gpt", "rules"),
     ("gpt", "sampled"), ("opt", "beams"), ("llama", "lockstep"),
     ("llama", "beams"), ("gptj", "lockstep"), ("gptj", "beams"),
-    ("gptneox", "ragged")])
+    ("gptneox", "ragged"), ("bloom", "lockstep"), ("bloom", "ragged"),
+    ("bloom", "beams"), ("chatglm6b", "lockstep"), ("chatglm6b", "ragged"),
+    ("chatglm6b", "beams")])
 def test_zoo_captured_step_equals_the_eager_steps(cuda, monkeypatch, family,
                                                   call):
     """The zoo's loops (``runtime/causal_lm.py``, ``runtime/beam_lm.py``)

@@ -253,12 +253,20 @@ def test_mha_decode_step_bf16_quantized_matches_jax(kind):
 
 
 @pytest.mark.parametrize("kw", [
-    {"bias": torch.zeros(2, 4, 1, 16)},
+    {"bias": torch.zeros(2, 4, 1, 16, dtype=torch.bfloat16)},
+    {"bias": torch.zeros(2, 4, 1, 15)},
 ])
 def test_mha_decode_step_refuses_later_slices(kw):
+    """A bias K2 does not take (not fp32, or not broadcastable to
+    (B, H, 1, T) with T whole): the card's check raises, as a CUDA call of
+    ``mha_decode_step`` would; the CPU's plain version takes any bias that
+    broadcasts."""
+    from whisper_trtllm_tpu_torch.ops.kernels import decode_attention
+
     q, ck, cv = _torch(*_decode_inputs(8))
+    vl = torch.tensor(5, dtype=torch.int32)
     with pytest.raises(NotImplementedError):
-        att.mha_decode_step(q, ck, cv, 5, **kw)
+        decode_attention._check(q, ck, cv, vl, None, None, False, **kw)
 
 
 # --------------------------------------------------------------------------

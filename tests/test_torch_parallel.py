@@ -309,6 +309,20 @@ def test_collectives_two_an_encoder_layer_three_a_decoder_layer(ranks):
     assert ranks[0]["decoder step all-reduces"] == 3 * CFG4.decoder_layers
 
 
+@pytest.mark.parametrize("shape", ["(2, 1)", "(4, 1)", "(2, 2)"])
+def test_sampled_session_over_a_data_axis_equals_one_device(ranks, shape):
+    """Batch 4, temperature 1.5, top-k 20: every rank of the mesh returns
+    the one-device session's tokens and lengths ((2, 1): ranks 0 and 1)."""
+    members = range(2) if shape == "(2, 1)" else range(WORLD)
+    for r in members:
+        got, want = ranks[r][f"sampled {shape}"], ranks[r][
+            "sampled one device"]
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    # the draw is not the greedy decode
+    assert len({tuple(t) for t in ranks[0]["sampled one device"][0]}) > 1
+
+
 @pytest.mark.parametrize("case", [
     "refuse batch 3 over data 2", "refuse outside the mesh", "refuse fp8",
     "refuse smoothquant", "refuse odd int4 cut"])

@@ -268,3 +268,48 @@ def test_gumbel_noise_is_a_pure_function_of_its_counters():
     assert not torch.equal(g, sampling.gumbel_noise(4, 5, 4, 100, "cpu"))
     # standard Gumbel: mean ~ 0.5772, over 400 values within 0.2
     assert abs(float(g.mean()) - 0.5772) < 0.2
+
+
+# the draws from before rows took a lane offset: a sampled session at
+# WhisperConfig.testing() and one draw of sample_token
+PINNED_SESSION = [[1, 11, 49, 54, 69, 10, 13, 3, 92],
+                  [1, 11, 41, 41, 84, 46, 95, 21, 6],
+                  [1, 11, 17, 54, 3, 92, 6, 41, 41],
+                  [1, 11, 17, 63, 23, 63, 75, 75, 22]]
+PINNED_DRAW = [9, 10, 20, 19]
+
+
+def test_sampled_tokens_without_a_mesh_are_unchanged():
+    """Lane offset 0 (no mesh) keys the noise as before: the pinned draws
+    from before the offset came in."""
+    from whisper_trtllm_tpu_torch.config import GenerationConfig, WhisperConfig
+    from whisper_trtllm_tpu_torch.models.whisper import init_params
+    from whisper_trtllm_tpu_torch.runtime.session import WhisperSession
+
+    cfg = WhisperConfig.testing()
+    mel = np.random.default_rng(0).standard_normal(
+        (4, 2 * cfg.max_source_positions, cfg.num_mel_bins)).astype(
+        np.float32)
+    sess = WhisperSession(init_params(cfg, seed=0, device="cpu"), cfg,
+                          GenerationConfig(max_new_tokens=8, temperature=1.5,
+                                           top_k=20, seed=3), device="cpu")
+    toks, lens = sess.transcribe_features(mel)
+    assert toks.tolist() == PINNED_SESSION and lens.tolist() == [9] * 4
+    x = np.random.default_rng(5).standard_normal((4, 50)).astype(np.float32)
+    assert sampling.sample_token(torch.from_numpy(x), temperature=1.3,
+                                 top_k=10, pos=7,
+                                 seed=11).tolist() == PINNED_DRAW
+
+
+def test_gumbel_noise_rows_are_global_lanes():
+    """Rows 2..3 of a batch of 4 draw what lanes 2 and 3 of the whole
+    batch draw when given their offset: a data rank's rows."""
+    whole = sampling.gumbel_noise(3, 5, 4, 100, "cpu")
+    assert torch.equal(sampling.gumbel_noise(3, 5, 2, 100, "cpu",
+                                             lane_offset=2), whole[2:])
+    assert torch.equal(sampling.gumbel_noise(3, 5, 2, 100, "cpu"), whole[:2])
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (4, 50)).astype(np.float32))
+    full = sampling.sample_token(x, temperature=1.3, pos=2, seed=4)
+    assert torch.equal(sampling.sample_token(x[2:], temperature=1.3, pos=2,
+                                             seed=4, lane_offset=2), full[2:])

@@ -1,13 +1,14 @@
 """PyTorch port: the zoo's entry points on the CPU.
 
 - ``cli/run_zoo.py --cpu`` prints the JAX CLI's (``cli/run_zoo.py``)
-  tokens: on a tiny HF GPT-2 and a tiny HF GPT-J saved to local
-  directories, and on each family's testing-width random weights.
+  tokens: on a tiny HF GPT-2, GPT-J and Bloom saved to local
+  directories, and on each family's testing-width random weights;
+  ``--hf-model`` refuses ChatGLM-6B with the JAX CLI's message.
 - ``benchmarks/benchmark.py::bench_zoo``, with the registry holding one
-  tiny gpt entry, returns finite rows (fp32 and bf16, float and
-  weight-only int8 weights).
-- The families not ported yet, and ``--quant sq``, raise naming ROADMAP
-  Queue 1 item 11.
+  tiny gpt entry (and one tiny chatglm6b entry), returns finite rows (fp32
+  and bf16, float and weight-only int8 weights).
+- The family not ported yet (bert), and ``--quant sq``, raise naming
+  ROADMAP Queue 1 item 11.
 """
 
 import json
@@ -69,8 +70,38 @@ def test_run_zoo_on_a_local_hf_gptj_prints_the_jax_clis_tokens(tmp_path,
     assert row["family"] == "gptj" and len(row["output_ids"]) == 11
 
 
+def test_run_zoo_on_a_local_hf_bloom_prints_the_jax_clis_tokens(tmp_path,
+                                                               capsys):
+    from transformers import BloomConfig, BloomForCausalLM
+
+    torch.manual_seed(0)
+    BloomForCausalLM(BloomConfig(
+        vocab_size=89, hidden_size=32, n_layer=2, n_head=4, eos_token_id=2,
+        bos_token_id=1)).save_pretrained(tmp_path / "hf")
+    argv = ["--family", "bloom", "--hf-model", str(tmp_path / "hf"),
+            "--prompt-ids", "3", "4", "5", "--max-new-tokens", "8"]
+    row = _port_cli(argv, capsys)
+    assert row == _jax_cli(argv, capsys)
+    assert row["family"] == "bloom" and len(row["output_ids"]) == 11
+
+
+def test_run_zoo_refuses_an_hf_chatglm6b_as_the_jax_cli_does(tmp_path):
+    argv = ["--family", "chatglm6b", "--hf-model", str(tmp_path),
+            "--prompt-ids", "3", "4"]
+    with pytest.raises(SystemExit, match="trust_remote_code") as port:
+        run_zoo.main(argv + ["--cpu"])
+    old = sys.argv
+    sys.argv = ["run_zoo"] + argv
+    try:
+        with pytest.raises(SystemExit) as jax_cli:
+            runpy.run_module("cli.run_zoo", run_name="__main__")
+    finally:
+        sys.argv = old
+    assert str(port.value) == str(jax_cli.value)
+
+
 @pytest.mark.parametrize("family", ["gpt", "opt", "llama", "gptj",
-                                    "gptneox"])
+                                    "gptneox", "bloom", "chatglm6b"])
 def test_run_zoo_testing_weights_print_the_jax_clis_tokens(family, capsys):
     argv = ["--family", family, "--prompt-ids", "5", "9", "12",
             "--max-new-tokens", "6", "--repetition-penalty", "1.2"]
@@ -78,9 +109,8 @@ def test_run_zoo_testing_weights_print_the_jax_clis_tokens(family, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--config", "chatglm_6b"], ["--config", "bert_tiny"],
-    ["--family", "bloom"], ["--family", "chatglm6b"],
-    ["--config", "bert_large"], ["--config", "bert_base"]])
+    ["--config", "bert_tiny"], ["--config", "bert_large"],
+    ["--config", "bert_base"]])
 def test_run_zoo_refuses_the_families_not_ported(argv):
     with pytest.raises(NotImplementedError, match="item 11"):
         run_zoo.main(argv + ["--prompt-ids", "3", "--cpu"])
@@ -116,8 +146,40 @@ def test_bench_zoo_on_the_cpu_returns_a_finite_row(tiny_registry, dtype,
     assert row["launches"] == {}  # the plain versions launch nothing
 
 
+def test_bench_zoo_runs_chatglm_through_its_own_generate(monkeypatch):
+    """A tiny chatglm6b entry: GLM's ``generate`` (its [gMASK] position
+    defaulted) takes bench_zoo's call as the other families' do."""
+    entry = allowed_configs.BenchConfig(
+        family="chatglm6b",
+        model_kwargs=dict(n_layer=2, n_head=4, d_model=32, ffn_dim=64,
+                          vocab_size=97, max_positions=64),
+        max_batch_size=4, max_input_len=8, max_output_len=6)
+    monkeypatch.setattr(allowed_configs, "ALLOWED_CONFIGS",
+                        {"glm_test": entry})
+    monkeypatch.setattr(benchmark, "ALLOWED_CONFIGS", {"glm_test": entry})
+    row = benchmark.bench_zoo("glm_test", batch=2, in_len=5, out_len=4,
+                              dtype="float32", iters=2, device="cpu")
+    assert row["family"] == "chatglm6b" and row["output_len"] == 4
+    assert math.isfinite(row["tokens_per_s"]) and row["tokens_per_s"] > 0
+
+
+def test_chatglm_6b_builds_without_drawing_weights(monkeypatch):
+    from whisper_trtllm_tpu_torch.models.chatglm6b import model as glm
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("build_model drew weights")
+
+    monkeypatch.setattr(glm.np.random, "default_rng", refuse)
+    fam, cfg, init_params, generate, forward = allowed_configs.build_model(
+        "chatglm_6b")
+    assert fam == "chatglm6b" and init_params is glm.init_params
+    assert (cfg.d_model, cfg.n_head, cfg.head_dim, cfg.vocab_size) == (
+        4096, 32, 128, 130528)
+    assert generate is glm.generate and forward is glm.forward
+
+
 @pytest.mark.parametrize("name,quant", [("bert_tiny", None),
-                                        ("chatglm_6b", None),
+                                        ("bert_large", None),
                                         ("bert_base", None),
                                         ("gpt_350m", "sq")])
 def test_bench_zoo_refuses_what_is_not_ported(name, quant):

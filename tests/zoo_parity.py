@@ -1,4 +1,4 @@
-"""Shared by ``tests/test_torch_{gpt,opt,llama,gptj_gptneox}.py``: one zoo
+"""Shared by ``tests/test_torch_{gpt,opt,llama,gptj_gptneox,bloom}.py``: one zoo
 family's JAX module and its port on the same weights (an HF model built from a tiny
 config with a seed, converted by the JAX package and carried over by
 ``params_from_numpy``), and the JAX side's generate calls with any
@@ -49,8 +49,9 @@ class Family:
         return self.cfg_cls(**dataclasses.asdict(jcfg))
 
     def limit(self) -> int:
+        """The position limit (none for ALiBi's Bloom)."""
         return getattr(self.jcfg, "n_positions", None) or \
-            self.jcfg.max_positions
+            getattr(self.jcfg, "max_positions", None) or 1 << 30
 
     def prompt(self, seed: int, b: int, p: int) -> np.ndarray:
         rng = np.random.default_rng(seed)

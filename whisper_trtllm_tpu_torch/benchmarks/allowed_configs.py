@@ -3,12 +3,12 @@
 JAX registry with its architecture and its per-run limits (max batch,
 input and output lengths).
 
-``build_model`` builds the families the port has: gpt, opt, llama, gptj
-and gptneox (every name of theirs, ``gpt_175b``'s width of 12288 and
-``opt_66b``'s 9216 within K5's limit of 16384, GPT-J's head dim of 256
-within K1's and K2's). Every other family (chatglm6b, bert; bloom has no
-entry) raises ``NotImplementedError`` naming ROADMAP Queue 1 item 11: their
-models are not ported yet.
+``build_model`` builds the families the port has: gpt, opt, llama, gptj,
+gptneox and chatglm6b (every name of theirs, ``gpt_175b``'s width of 12288
+and ``opt_66b``'s 9216 within K5's limit of 16384, GPT-J's head dim of 256
+within K1's and K2's), and bloom, which has no entry here, as in the JAX
+registry. The one family left (bert) raises ``NotImplementedError`` naming
+ROADMAP Queue 1 item 11: its model is not ported yet.
 
 ``fits_one_v5e`` is the JAX registry's field (whether bf16 weights fit a
 16 GB TPU v5e), kept so the two registries read alike; the H100 here has
@@ -19,7 +19,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-PORTED_FAMILIES = ("gpt", "opt", "llama", "gptj", "gptneox")
+PORTED_FAMILIES = ("gpt", "opt", "llama", "gptj", "gptneox", "bloom",
+                   "chatglm6b")
 
 
 @dataclass(frozen=True)
@@ -120,7 +121,8 @@ ALLOWED_CONFIGS: dict[str, BenchConfig] = {
 }
 
 _CFG_CLS = {"gpt": "GPTConfig", "opt": "OPTConfig", "llama": "LlamaConfig",
-            "gptj": "GPTJConfig", "gptneox": "GPTNeoXConfig"}
+            "gptj": "GPTJConfig", "gptneox": "GPTNeoXConfig",
+            "bloom": "BloomConfig", "chatglm6b": "ChatGLM6BConfig"}
 
 
 def family_module(fam: str):

@@ -25,10 +25,10 @@ hypothesis' ``batch * gen_tokens``.
 A zoo name (``allowed_configs.py``) runs ``bench_zoo``: the family's
 ``generate`` over random prompts of ``--in-len`` tokens with EOS
 disabled, tokens/s over ``batch * gen_tokens``, with ``--quant int8``
-the weight-only int8 tree. Not ported yet, and refused with
-``NotImplementedError`` naming ROADMAP Queue 1 item 11: the families
-other than gpt, opt, llama, gptj and gptneox, and ``--quant sq``
-(SmoothQuant for GPT).
+the weight-only int8 tree (``chatglm_6b`` through GLM's own ``generate``,
+its [gMASK] at the prompt's second-to-last position). Not ported yet, and
+refused with ``NotImplementedError`` naming ROADMAP Queue 1 item 11: the
+bert family and ``--quant sq`` (SmoothQuant for GPT).
 Without a card it exits non-zero and prints no row.
 """
 
@@ -234,7 +234,7 @@ def main(argv=None) -> int:
                     help="Whisper presets (tiny.en, base.en, small.en, "
                          "medium.en, large-v3) or zoo names from "
                          "allowed_configs.py (gpt_350m, opt_350m, llama_7b, "
-                         "...)")
+                         "chatglm_6b, ...)")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--dtype", nargs="+", default=["float32"],
                     choices=["float32", "bfloat16"])

@@ -402,7 +402,8 @@ CHECKS = {
 
 # the kernel sources the checks run, built together before the first check
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
-           "fused_decoder_step", "layer_norm", "cross_attention", "stft")
+           "decode_attention_bias", "fused_decoder_step", "layer_norm",
+           "cross_attention", "stft")
 STATE_PATH_ENV = "WHISPER_TORCH_CHECK_STATE"
 DEFAULT_STATE_PATH = os.path.join(ROOT, "build", "gpu_check_last.json")
 # the port's compute path that a passing record vouches for: an edit here

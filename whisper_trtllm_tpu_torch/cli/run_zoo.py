@@ -2,11 +2,13 @@
 (counterpart of the repository's ``cli/run_zoo.py``), on the CUDA card
 (``--cpu``: the plain PyTorch path on the CPU).
 
-The families gpt, opt, llama, gptj and gptneox; any other raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 11. ``--prompt-ids`` takes raw token ids (no
-tokenizer needed); ``--hf-model`` converts a local HF checkpoint directory
-(nothing is fetched) and, when it holds tokenizer files, tokenizes
-``--prompt`` and detokenizes the output.
+The families gpt, opt, llama, gptj, gptneox, bloom and chatglm6b.
+``--prompt-ids`` takes raw token ids (no tokenizer needed); ``--hf-model``
+converts a local HF checkpoint directory (nothing is fetched) and, when it
+holds tokenizer files, tokenizes ``--prompt`` and detokenizes the output.
+ChatGLM-6B has no transformers class (it is a trust_remote_code model):
+``--hf-model`` refuses it, as the JAX CLI does, and
+``models.chatglm6b.convert_hf_chatglm6b`` takes its state dict.
 
 Examples:
   python -m whisper_trtllm_tpu_torch.cli.run_zoo --family gpt \\
@@ -35,6 +37,7 @@ _CONVERTERS = {
     "opt": ("convert_hf_opt", "OPTForCausalLM"),
     "gptj": ("convert_hf_gptj", "GPTJForCausalLM"),
     "gptneox": ("convert_hf_gptneox", "GPTNeoXForCausalLM"),
+    "bloom": ("convert_hf_bloom", "BloomForCausalLM"),
 }
 
 
@@ -80,6 +83,11 @@ def main(argv=None):
     if args.hf_model:
         import transformers
 
+        if fam not in _CONVERTERS:
+            raise SystemExit(
+                f"{fam}: no transformers-class converter (chatglm-6b is a "
+                "trust_remote_code model; use models.chatglm6b."
+                "convert_hf_chatglm6b on its state_dict directly)")
         conv_name, hf_cls = _CONVERTERS[fam]
         hf = getattr(transformers, hf_cls).from_pretrained(
             args.hf_model, local_files_only=True)

@@ -67,8 +67,9 @@ def main(argv=None):
         RuntimeConfig(compute_dtype=args.dtype), device=dev)
 
     if args.stage in ("fx", "all"):
-        encode, step, _, _ = export_programs(
-            sess.params, cfg, sess.generation, sess._dtype, dev, args.batch)
+        encode, step = export_programs(
+            sess.params, cfg, sess.generation, sess._dtype, dev,
+            args.batch)[:2]
         for name, ep in (("encode", encode), ("step", step)):
             _write(f"{args.out}.{name}.fx.txt",
                    ep.graph_module.print_readable(print_output=False))

@@ -53,7 +53,8 @@ __global__ void __launch_bounds__(THREADS) cross_kernel(const Params p) {
   h.k = static_cast<const T*>(p.k) + (long long)b * p.t * hd + (long long)hh * p.dh;
   h.v = static_cast<const T*>(p.v) + (long long)b * p.t * hd + (long long)hh * p.dh;
   h.stride = hd;
-  h.ks = h.vs = nullptr;
+  h.ks = h.vs = h.bias = nullptr;
+  h.bias_ref = 0.f;
   h.n = p.rows;
   h.all_masked = p.all_masked;
   h.copy = p.copy;

@@ -12,6 +12,17 @@
 // never waits for it and a captured CUDA graph can replay the launch with
 // new values. It serves the decode step's self attention (T = max_len,
 // valid_len = pos + 1) and cross attention (T = 1504, valid_len = 1500).
+// An optional fp32 additive bias (B, H, 1, T), broadcast dimensions at
+// stride 0 and T contiguous, is added to each score after the K scale and
+// before the mask and the softmax, where the JAX package adds ALiBi's bias
+// (whisper_trtllm_tpu/ops/attention.py::mha_decode_step), taken relative
+// to its value at the head's last valid row (decode_split.cuh); the Bloom
+// step's. The dh-minor kernels with a bias are instantiations of their
+// own (BIAS), built apart as decode_attention_bias.cu, which includes this
+// file with DECODE_ATTENTION_BIAS defined: built here as well, they doubled
+// this file's nvcc time (75 to 152 s on the H100 host), and the kernels
+// without a bias must stay the code they were (a uniform branch in them
+// cost the quantized cross shapes 4-8%, chip_smoke.py --parent).
 //
 // What bounds it: each (batch, head) reads valid_len * dh * 2 cache values
 // (+ 2 fp32 scales a row when quantized), 4 flops a value pair: device
@@ -38,11 +49,19 @@ namespace {
 
 using namespace decode_split;
 
+#ifdef DECODE_ATTENTION_BIAS
+constexpr bool BIAS = true;  // decode_attention_bias.cu: every call has a bias
+#else
+constexpr bool BIAS = false;
+#endif
+
 struct Params {
   const void *q, *k, *v;
   const float *ks, *vs;
   const int* valid_len;
   int vl_stride;
+  const float* bias;  // or null
+  int bias_b, bias_h;  // its strides between batch lanes and heads
   void* o;
   int H, T, dh, chunk, tile, stages;
   Copy copy;
@@ -62,6 +81,9 @@ __device__ __forceinline__ Head<QT, CT> head(const Params& p, int bh, bool t_min
   h.stride = t_minor ? p.T : p.dh;
   h.ks = p.ks ? p.ks + (long long)bh * p.T : nullptr;
   h.vs = p.vs ? p.vs + (long long)bh * p.T : nullptr;
+  h.bias = p.bias ? p.bias + (long long)(bh / p.H) * p.bias_b + (long long)(bh % p.H) * p.bias_h
+                  : nullptr;
+  h.bias_ref = h.bias != nullptr && !h.all_masked ? h.bias[h.n - 1] : 0.f;
   h.copy = p.copy;
   return h;
 }
@@ -76,10 +98,11 @@ __global__ void __launch_bounds__(THREADS) decode_dh_minor(const Params p) {
   const Head<QT, CT> h = head<QT, CT>(p, bh, false);
   bool alone;
   if constexpr (DHM > MAX_DH)
-    alone = attend_rows_wide<QT, CT, LPR, THREADS, VPL>(h, p.dh, p.chunk, p.tile, p.stages,
-                                                        rank, part);
+    alone = attend_rows_wide<QT, CT, LPR, THREADS, VPL, DHM, BIAS>(h, p.dh, p.chunk, p.tile,
+                                                                  p.stages, rank, part);
   else
-    alone = attend_rows<QT, CT, LPR>(h, p.dh, p.chunk, p.tile, p.stages, rank, part);
+    alone = attend_rows<QT, CT, LPR, THREADS, BIAS>(h, p.dh, p.chunk, p.tile, p.stages, rank,
+                                                    part);
   if (!alone) combine(part, p.dh, h.out);
 }
 
@@ -90,9 +113,10 @@ __global__ void __launch_bounds__(DIRECT_THREADS) decode_direct(const Params p) 
   __shared__ PartialT<DHM> part;
   const Head<QT, CT> h = head<QT, CT>(p, blockIdx.x, false);
   if constexpr (DHM > MAX_DH)
-    attend_rows_wide<QT, CT, LPR, DIRECT_THREADS, VPL>(h, p.dh, p.chunk, p.tile, 1, 0, part);
+    attend_rows_wide<QT, CT, LPR, DIRECT_THREADS, VPL, DHM, BIAS>(h, p.dh, p.chunk, p.tile, 1,
+                                                                 0, part);
   else
-    attend_rows<QT, CT, LPR, DIRECT_THREADS>(h, p.dh, p.chunk, p.tile, 1, 0, part);
+    attend_rows<QT, CT, LPR, DIRECT_THREADS, BIAS>(h, p.dh, p.chunk, p.tile, 1, 0, part);
 }
 
 template <typename QT, typename CT, int DHM>
@@ -196,24 +220,30 @@ extern "C" {
 // float32, 1 bfloat16: equal to q_dtype; 2 int8, 3 fp8 e4m3: then k_scale
 // and v_scale point to fp32 (B, H, T, 1)); dh a multiple of 8 up to 256;
 // all contiguous. valid_len points
-// to int32 on the device: lane b reads valid_len[b * vl_stride]. splits
+// to int32 on the device: lane b reads valid_len[b * vl_stride]. bias, when
+// not null, points to fp32: head h of lane b adds bias[b * bias_b + h *
+// bias_h + t] to row t's score (strides 0 where it broadcasts); this
+// library refuses a call with one, decode_attention_bias.cu's one without. splits
 // (1..16) chunks of `chunk` rows cover T, none empty; the blocks walk them
 // in tiles of `tile` rows (chunk and tile multiples of 16), `stages`
 // (1..4) tiles in flight. Returns a cudaError_t.
 int decode_attn(const void* q, const void* k, const void* v, const void* k_scale,
-                const void* v_scale, const void* valid_len, int vl_stride, void* o,
+                const void* v_scale, const void* valid_len, int vl_stride, const void* bias,
+                int bias_b, int bias_h, void* o,
                 int B, int H, int T_len, int dh, int q_dtype, int cache_dtype,
                 int t_major, int splits, int chunk, int tile, int stages, void* stream) {
   const bool quant = cache_dtype == 2 || cache_dtype == 3;
   if (B <= 0 || H <= 0 || T_len <= 0 || dh <= 0 || dh > MAX_DH_WIDE || dh % 8 != 0 ||
-      (vl_stride != 0 && vl_stride != 1) ||
+      (vl_stride != 0 && vl_stride != 1) || (bias != nullptr) != BIAS || bias_b < 0 ||
+      bias_h < 0 ||
       (quant && (k_scale == nullptr || v_scale == nullptr)) ||
       (long long)B * H * splits > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   // the launchers set how tiles reach shared memory
   const Params p{q, k, v, static_cast<const float*>(quant ? k_scale : nullptr),
                  static_cast<const float*>(quant ? v_scale : nullptr),
-                 static_cast<const int*>(valid_len), vl_stride, o, H, T_len, dh, chunk,
+                 static_cast<const int*>(valid_len), vl_stride,
+                 static_cast<const float*>(bias), bias_b, bias_h, o, H, T_len, dh, chunk,
                  tile, stages, ELEMENT};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0) return by_cache<float>(cache_dtype, 0, p, splits, B * H, t_major != 0, st);

@@ -40,6 +40,17 @@
 //   rows, the groups' partial dots summed in order, a block softmax a
 //   tile, and P.V by (segment of t, d row) threads summed in order.
 //   Scores are kept in base 2, so each exponential is one exp2f.
+// - Bias: an optional fp32 additive bias a row (ALiBi), added to the score
+//   after the K scale and before the mask and the softmax, as
+//   (bias - bias at the head's last valid row) * log2(e): the softmax does
+//   not see a constant a head, and the difference keeps the sum from being
+//   rounded at ALiBi's magnitudes (~600, where one fp32 step is 6e-5), as
+//   the plain version (ops/kernels/decode_attention.py) takes it. The
+//   dh-minor paths take it through a template flag (BIAS; K2 builds its
+//   kernels with one in a library of their own, decode_attention_bias.cu),
+//   so the kernels without one are the code they were; T-minor's through a
+//   branch uniform across the launch. An all-zero bias adds 0 to every score, so the
+//   output is the one without, bit for bit.
 // - Combine in the same launch: each block of a cluster writes its
 //   (m, l, acc[dh]) into rank 0's shared memory over DSMEM, and rank 0
 //   sums them in rank order and writes the output once, cast to the
@@ -202,6 +213,8 @@ struct Head {
   long long stride;     // elements between rows (dh-minor), d rows (T-minor)
   const float* ks;      // per-row scales from row 0, or null
   const float* vs;
+  const float* bias;    // the additive bias of row 0 (rows contiguous), or null
+  float bias_ref;       // the bias at the last valid row (0 when all masked)
   QT* out;              // dh values
   int n;                // rows attended: [0, n)
   bool all_masked;      // valid_len <= 0: every score is MASKED, n = T
@@ -267,11 +280,14 @@ __device__ __forceinline__ Stage<CT> stage(unsigned char* dyn, int tile, int dhp
 // is rescaled by.
 template <bool QUANT, typename CT>
 __device__ __forceinline__ float tile_softmax(float* s, const Stage<CT>& st, int rows,
-                                              bool all_masked, float& m, float& l,
+                                              bool all_masked, const float* bias,
+                                              float bias_ref, float& m, float& l,
                                               float* red) {
   float mt = -INFINITY;
   for (int r = threadIdx.x; r < rows; r += THREADS) {
-    const float x = all_masked ? MASKED : (QUANT ? s[r] * st.ks[r] : s[r]);
+    float x = QUANT ? s[r] * st.ks[r] : s[r];
+    if (bias != nullptr) x += (bias[r] - bias_ref) * LOG2E;
+    x = all_masked ? MASKED : x;
     s[r] = x;
     mt = fmaxf(mt, x);
   }
@@ -427,7 +443,7 @@ __device__ __forceinline__ void refill(const Head<QT, CT>& h, unsigned char* dyn
 // in slot order at the end. Returns true when it wrote the output (one
 // split), else leaves the block's (m, l, acc) in `out` for combine(). NT:
 // the block's threads; a block of other than THREADS reads in place only.
-template <typename QT, typename CT, int LPR, int NT = THREADS>
+template <typename QT, typename CT, int LPR, int NT = THREADS, bool BIAS = false>
 __device__ bool attend_rows(const Head<QT, CT>& h, int dh, int chunk, int tile, int stages,
                             int rank, Partial& out) {
   constexpr int VEC = Vec<CT>::N;
@@ -456,9 +472,9 @@ __device__ bool attend_rows(const Head<QT, CT>& h, int dh, int chunk, int tile, 
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
 
   // one row into the slot's online softmax: k and v its values, r its
-  // index for the scales
+  // index for the scales, bv its bias (read before the row's dot)
   auto take = [&](const float* kv, const float* vv, const float* ks, const float* vs,
-                  int r, bool valid) {
+                  float bv, int r, bool valid) {
     float dot = 0.f;
     if (active && valid) {
 #pragma unroll
@@ -467,7 +483,9 @@ __device__ bool attend_rows(const Head<QT, CT>& h, int dh, int chunk, int tile, 
 #pragma unroll
     for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
     if (!valid) return;
-    const float s = h.all_masked ? MASKED : (QUANT ? dot * ks[r] : dot);
+    float s = QUANT ? dot * ks[r] : dot;
+    if constexpr (BIAS) s += (bv - h.bias_ref) * LOG2E;
+    s = h.all_masked ? MASKED : s;
     const float m_new = fmaxf(m, s);
     const float alpha = exp2f(m - m_new);  // 0 on the slot's first row
     const float p = exp2f(s - m_new);
@@ -489,7 +507,8 @@ __device__ bool attend_rows(const Head<QT, CT>& h, int dh, int chunk, int tile, 
     const int rows = c1 - c0;
     const CT* kp = h.k + (long long)c0 * dh + d0;
     const CT* vp = h.v + (long long)c0 * dh + d0;
-    float kv[MAXR][VEC], vv[MAXR][VEC];
+    const float* bs = BIAS ? h.bias + c0 : nullptr;
+    float kv[MAXR][VEC], vv[MAXR][VEC], bv[MAXR];
 #pragma unroll
     for (int j = 0; j < MAXR; ++j) {
       const int r = j * SLOTS + slot;
@@ -497,6 +516,7 @@ __device__ bool attend_rows(const Head<QT, CT>& h, int dh, int chunk, int tile, 
         Vec<CT>::load(kp + r * dh, kv[j]);
         Vec<CT>::load(vp + r * dh, vv[j]);
       }
+      bv[j] = BIAS && r < rows ? bs[r] : 0.f;
     }
     const float* ks = QUANT ? h.ks + c0 : nullptr;
     const float* vs = QUANT ? h.vs + c0 : nullptr;
@@ -504,7 +524,7 @@ __device__ bool attend_rows(const Head<QT, CT>& h, int dh, int chunk, int tile, 
     for (int j = 0; j < MAXR; ++j) {
       if (j * SLOTS >= rows) break;  // the same in every thread
       const int r = j * SLOTS + slot;
-      take(kv[j], vv[j], ks, vs, r, r < rows);
+      take(kv[j], vv[j], ks, vs, bv[j], r, r < rows);
     }
   }
   for (int it = 0; STAGED && it < tiles && h.copy != DIRECT; ++it) {
@@ -512,17 +532,19 @@ __device__ bool attend_rows(const Head<QT, CT>& h, int dh, int chunk, int tile, 
     const int si = it % stages;
     const uint32_t phase = (it / stages) & 1;
     const Stage<CT> st = stage<CT>(dyn, tile, dhp, si);
+    const float* bs = BIAS ? h.bias + c0 + it * tile : nullptr;
     mbar_wait(bar + 2 * si, phase);
     mbar_wait(bar + 2 * si + 1, phase);
     // every lane of a warp runs the same trip count for the shuffles
     for (int base = 0; base < rows; base += SLOTS) {
       const int r = base + slot;
+      const float bv = BIAS && r < rows ? bs[r] : 0.f;
       float kv[VEC], vv[VEC];
       if (active && r < rows) {
         Vec<CT>::load(st.k + r * dhp + d0, kv);
         Vec<CT>::load(st.v + r * dhp + d0, vv);
       }
-      take(kv, vv, st.ks, st.vs, r, r < rows);
+      take(kv, vv, st.ks, st.vs, bv, r, r < rows);
     }
     __syncthreads();  // the stage is free
     refill<false>(h, dyn, bar, dh, dhp, tile, stages, c0, c1, it, tiles);
@@ -575,7 +597,8 @@ __device__ bool attend_rows(const Head<QT, CT>& h, int dh, int chunk, int tile, 
 // 8 values of the other types). A function of its own: folding the
 // vectors a lane into attend_rows cost its quantized cross cases 2-4% on
 // an H100 (chip_smoke.py --parent), and the narrow heads keep its code.
-template <typename QT, typename CT, int LPR, int NT = THREADS, int VPL = 1, int DHM>
+template <typename QT, typename CT, int LPR, int NT = THREADS, int VPL = 1, int DHM,
+          bool BIAS = false>
 __device__ bool attend_rows_wide(const Head<QT, CT>& h, int dh, int chunk, int tile,
                                  int stages, int rank, PartialT<DHM>& out) {
   constexpr int VEC = Vec<CT>::N;
@@ -614,9 +637,9 @@ __device__ bool attend_rows_wide(const Head<QT, CT>& h, int dh, int chunk, int t
     for (int i = 0; i < VEC; ++i) acc[u][i] = 0.f;
 
   // one row into the slot's online softmax: k and v its values, r its
-  // index for the scales
+  // index for the scales, bv its bias (read before the row's dot)
   auto take = [&](const float (&kv)[VPL][VEC], const float (&vv)[VPL][VEC], const float* ks,
-                  const float* vs, int r, bool valid) {
+                  const float* vs, float bv, int r, bool valid) {
     float dot = 0.f;
     if (valid) {
 #pragma unroll
@@ -629,7 +652,9 @@ __device__ bool attend_rows_wide(const Head<QT, CT>& h, int dh, int chunk, int t
 #pragma unroll
     for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
     if (!valid) return;
-    const float s = h.all_masked ? MASKED : (QUANT ? dot * ks[r] : dot);
+    float s = QUANT ? dot * ks[r] : dot;
+    if constexpr (BIAS) s += (bv - h.bias_ref) * LOG2E;
+    s = h.all_masked ? MASKED : s;
     const float m_new = fmaxf(m, s);
     const float alpha = exp2f(m - m_new);  // 0 on the slot's first row
     const float p = exp2f(s - m_new);
@@ -653,7 +678,8 @@ __device__ bool attend_rows_wide(const Head<QT, CT>& h, int dh, int chunk, int t
     const int rows = c1 - c0;
     const CT* kp = h.k + (long long)c0 * dh;
     const CT* vp = h.v + (long long)c0 * dh;
-    float kv[MAXR][VPL][VEC], vv[MAXR][VPL][VEC];
+    const float* bs = BIAS ? h.bias + c0 : nullptr;
+    float kv[MAXR][VPL][VEC], vv[MAXR][VPL][VEC], bv[MAXR];
 #pragma unroll
     for (int j = 0; j < MAXR; ++j) {
       const int r = j * SLOTS + slot;
@@ -663,6 +689,7 @@ __device__ bool attend_rows_wide(const Head<QT, CT>& h, int dh, int chunk, int t
           Vec<CT>::load(kp + r * dh + d0[u], kv[j][u]);
           Vec<CT>::load(vp + r * dh + d0[u], vv[j][u]);
         }
+      bv[j] = BIAS && r < rows ? bs[r] : 0.f;
     }
     const float* ks = QUANT ? h.ks + c0 : nullptr;
     const float* vs = QUANT ? h.vs + c0 : nullptr;
@@ -670,7 +697,7 @@ __device__ bool attend_rows_wide(const Head<QT, CT>& h, int dh, int chunk, int t
     for (int j = 0; j < MAXR; ++j) {
       if (j * SLOTS >= rows) break;  // the same in every thread
       const int r = j * SLOTS + slot;
-      take(kv[j], vv[j], ks, vs, r, r < rows);
+      take(kv[j], vv[j], ks, vs, bv[j], r, r < rows);
     }
   }
   for (int it = 0; STAGED && it < tiles && h.copy != DIRECT; ++it) {
@@ -678,11 +705,13 @@ __device__ bool attend_rows_wide(const Head<QT, CT>& h, int dh, int chunk, int t
     const int si = it % stages;
     const uint32_t phase = (it / stages) & 1;
     const Stage<CT> st = stage<CT>(dyn, tile, dhp, si);
+    const float* bs = BIAS ? h.bias + c0 + it * tile : nullptr;
     mbar_wait(bar + 2 * si, phase);
     mbar_wait(bar + 2 * si + 1, phase);
     // every lane of a warp runs the same trip count for the shuffles
     for (int base = 0; base < rows; base += SLOTS) {
       const int r = base + slot;
+      const float bv = BIAS && r < rows ? bs[r] : 0.f;
       float kv[VPL][VEC], vv[VPL][VEC];
 #pragma unroll
       for (int u = 0; u < VPL; ++u)
@@ -690,7 +719,7 @@ __device__ bool attend_rows_wide(const Head<QT, CT>& h, int dh, int chunk, int t
           Vec<CT>::load(st.k + r * dhp + d0[u], kv[u]);
           Vec<CT>::load(st.v + r * dhp + d0[u], vv[u]);
         }
-      take(kv, vv, st.ks, st.vs, r, r < rows);
+      take(kv, vv, st.ks, st.vs, bv, r, r < rows);
     }
     __syncthreads();  // the stage is free
     refill<false>(h, dyn, bar, dh, dhp, tile, stages, c0, c1, it, tiles);
@@ -790,7 +819,9 @@ __device__ void attend_t_minor(const Head<QT, CT>& h, int dh, int chunk, int til
       for (int g = 1; g < T_GROUPS; ++g) dot += part[g * tile + r];
       s[r] = dot;
     }
-    const float alpha = tile_softmax<QUANT>(s, st, rows, h.all_masked, m, l, red);
+    const float* bs = h.bias != nullptr ? h.bias + c0 + it * tile : nullptr;
+    const float alpha =
+        tile_softmax<QUANT>(s, st, rows, h.all_masked, bs, h.bias_ref, m, l, red);
 
     mbar_wait(bar + 2 * si + 1, phase);
     // P.V: thread (segment g, d row) sums its segment of the rows, 4 t at

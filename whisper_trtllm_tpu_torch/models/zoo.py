@@ -1,6 +1,7 @@
 """What the causal-LM zoo's models (``models/{gpt,opt,llama,gptj,
-gptneox}``) share: the stacked layer trees, the head split and merge, the tied fp32 vocab head,
-and the device and dtype of a generate call."""
+gptneox,bloom,chatglm6b}``) share: the stacked layer trees, the head split
+and merge, the tied fp32 vocab head, and the device and dtype of a
+generate call."""
 
 from __future__ import annotations
 

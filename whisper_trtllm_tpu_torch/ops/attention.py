@@ -171,11 +171,14 @@ def mha_decode_step(
 
     int8/fp8 caches come with ``k_scale``/``v_scale``: the scales fold into
     the scores and the weights, the softmax is fp32 whatever
-    ``fp32_softmax`` says, and no dequantized cache is formed. Every case
-    with an fp32 softmax goes to kernel K2; ``bias`` is a later slice and
-    raises."""
-    if bias is not None:
-        raise NotImplementedError("attention bias is not ported yet")
+    ``fp32_softmax`` says, and no dequantized cache is formed. ``bias``, an
+    additive score bias broadcastable to (B, H, 1, Tmax) (Bloom's ALiBi),
+    is added after the K scale and before the mask, as the JAX package adds
+    it on every branch; on the card K2 takes it in fp32 (another dtype
+    raises), taken relative to its value at each lane's last valid row: the
+    softmax is the same, and the sum is not rounded at ALiBi's magnitudes
+    (``decode_attention.relative_bias``). Every case with an fp32 softmax
+    goes to kernel K2."""
     if q.shape[1] == 0:
         return torch.empty_like(q)
     if not (isinstance(valid_len, torch.Tensor)
@@ -188,12 +191,13 @@ def mha_decode_step(
                          f"{tuple(valid_len.shape)}")
     if fp32_softmax or k_scale is not None:
         return decode_attn(q, cache_k, cache_v, valid_len, k_scale, v_scale,
-                           t_major)
+                           t_major, bias)
     if q.is_cuda:
         raise NotImplementedError(
             "decode attention on CUDA takes its softmax in fp32 only")
     return decode_attention_reference(q, cache_k, cache_v, valid_len,
-                                      fp32_softmax=False, t_major=t_major)
+                                      fp32_softmax=False, t_major=t_major,
+                                      bias=bias)
 
 
 # --------------------------------------------------------------------------

@@ -154,6 +154,25 @@ def softmax_fp32(scores: torch.Tensor, dtype=None) -> torch.Tensor:
     return out.to(dtype or scores.dtype)
 
 
+def alibi_bias(num_heads: int, seq_len: int, device=None) -> torch.Tensor:
+    """ALiBi's additive attention bias (1, H, 1, S) fp32 on ``device`` (the
+    CPU by default), broadcast over query positions: head h's slope times
+    the key position. The slopes are the JAX package's, computed on the
+    host: a geometric sequence from the largest power of two not above
+    ``num_heads``, and for the heads past it the interpolated extra slopes
+    (every other power of the next sequence)."""
+    closest = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3.0)))
+    slopes = [base ** (i + 1) for i in range(closest)]
+    if closest < num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3.0)))
+        slopes += [extra_base ** (2 * i + 1)
+                   for i in range(num_heads - closest)]
+    slopes_t = torch.tensor(slopes, dtype=torch.float32, device=device)
+    positions = torch.arange(seq_len, dtype=torch.float32, device=device)
+    return (slopes_t[:, None] * positions[None, :])[None, :, None, :]
+
+
 def gather_last_token_logits(x: torch.Tensor,
                              lengths: torch.Tensor) -> torch.Tensor:
     """Each row's last valid position of a right-padded batch: x (B, S,

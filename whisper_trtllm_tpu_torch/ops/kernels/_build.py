@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<digest>.so`` at the repository root (a
 directory ``.gitignore`` lists), for ``sm_90a``. The digest covers the
 source and the flags, so an edited source never loads a stale library.
-Shared headers (``csrc/*.cuh``) count in every source's digest.
+Shared headers (``csrc/*.cuh``) count in every source's digest, and a
+source another includes in the including one's.
 ``nvcc``'s report (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library as ``.log``.
 
@@ -27,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -60,6 +62,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # a source that includes another source (decode_attention_bias.cu)
+    # counts it too
+    src += b"".join((CSRC / inc.decode()).read_bytes() for inc in
+                    re.findall(rb'#include "([^"/]+\.cu)"', src))
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"

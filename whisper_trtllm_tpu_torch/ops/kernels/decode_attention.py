@@ -6,7 +6,8 @@ Counterpart of ``whisper_trtllm_tpu/ops/pallas/decode_attention.py::
 decode_mha``, extended to everything ``ops/attention.py::mha_decode_step``
 computes around it in the JAX package: int8 and fp8 (e4m3fn) caches with
 per-token fp32 scales folded into the scores and the weights, the T-minor
-``(B, H, dh, T)`` layout, and a per-lane ``(B,)`` ``valid_len``. The
+``(B, H, dh, T)`` layout, a per-lane ``(B,)`` ``valid_len`` and an
+fp32 additive score bias broadcastable to ``(B, H, 1, T)`` (ALiBi). The
 wrapper takes the plain version only for CPU tensors; for a CUDA tensor it
 launches the kernel or raises. A call with no (batch, head) pair to
 compute returns its empty output and launches nothing.
@@ -25,8 +26,8 @@ from whisper_trtllm_tpu_torch.ops.kernels import _build, _launches
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "decode_attn": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                    _I, _I, _I, _I, _I, _P],
+    "decode_attn": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -108,11 +109,14 @@ def decode_attention_reference(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     t_major: bool = False,
+    bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain single-token attention, ``mha_decode_step``'s formulas: q
     (B, H, 1, dh) pre-scaled; cache (B, H, T, dh), or (B, H, dh, T) when
-    ``t_major``; rows at or after ``valid_len`` (a scalar or one count per
-    lane) masked with -1e9. With scales (B, H, T, 1) the cache holds
+    ``t_major``; ``bias`` (broadcastable to (B, H, 1, T)) added to the fp32
+    scores after the K scale, relative to its value at each lane's last
+    valid row (``relative_bias``); rows at or after ``valid_len`` (a scalar
+    or one count per lane) masked with -1e9. With scales (B, H, T, 1) the cache holds
     int8/fp8 values: ``k_scale`` multiplies the fp32 scores, the softmax is
     fp32, and ``v_scale`` multiplies the weights, which are cast to q's
     dtype before P·V; no dequantized cache is formed."""
@@ -122,8 +126,10 @@ def decode_attention_reference(
     scores = torch.matmul(q.float(), kf if t_major else kf.transpose(-1, -2))
     if k_scale is not None:
         scores = scores * k_scale[..., 0][:, :, None, :]
-    t = scores.shape[-1]
     vl = torch.as_tensor(valid_len, device=q.device)
+    if bias is not None:
+        scores = scores + relative_bias(bias, vl, scores.shape)
+    t = scores.shape[-1]
     if vl.dim() == 1:
         vl = vl[:, None, None, None]
     scores = scores.masked_fill(torch.arange(t, device=q.device) >= vl,
@@ -140,8 +146,22 @@ def decode_attention_reference(
                         cache_v.transpose(-1, -2) if t_major else cache_v)
 
 
-def _check(q, k, v, valid_len, k_scale, v_scale, t_major):
-    tensors = [q, k, v, valid_len] + [s for s in (k_scale, v_scale)
+def relative_bias(bias: torch.Tensor, valid_len: torch.Tensor,
+                  shape) -> torch.Tensor:
+    """The fp32 bias to add to scores of ``shape`` (B, H, 1, T): ``bias``
+    less its value at each lane's last valid row. The softmax does not
+    see a constant a (lane, head), and the difference keeps ``scores +
+    bias`` from being rounded at ALiBi's magnitudes: at Bloom's 864 rows
+    its bias reaches ~600, where one fp32 step is 6e-5, and the sum so
+    rounded sat 3.5e-5 from exact arithmetic. K2 takes the bias so."""
+    b, h, _, t = shape
+    bias = bias.float().expand(b, h, 1, t)
+    last = (valid_len.long() - 1).clamp(0, t - 1).expand(b)
+    return bias - bias.gather(3, last.view(b, 1, 1, 1).expand(b, h, 1, 1))
+
+
+def _check(q, k, v, valid_len, k_scale, v_scale, t_major, bias=None):
+    tensors = [q, k, v, valid_len] + [s for s in (k_scale, v_scale, bias)
                                       if s is not None]
     if any(x.device != q.device for x in tensors):
         raise ValueError("decode_attn: q, the cache, its scales and "
@@ -196,17 +216,34 @@ def _check(q, k, v, valid_len, k_scale, v_scale, t_major):
             or valid_len.numel() not in (1, b)):
         raise TypeError("decode_attn: valid_len must be one int32 or one per "
                         "lane (B,) on q's device")
+    if bias is not None:
+        # no path makes another bias (ALiBi's is fp32 (1, H, 1, T)): the
+        # rest is ROADMAP Queue 2 item 2
+        if bias.dtype != torch.float32:
+            raise NotImplementedError(
+                f"decode_attn: the kernel takes a float32 bias, got "
+                f"{bias.dtype} (ROADMAP Queue 2 item 2)")
+        if (bias.dim() != 4 or bias.shape[2] != 1 or bias.shape[3] != t
+                or bias.shape[0] not in (1, b) or bias.shape[1] not in (1, h)):
+            raise NotImplementedError(
+                f"decode_attn: the bias must broadcast to (B, H, 1, T) = "
+                f"{(b, h, 1, t)} with T whole, got {tuple(bias.shape)} "
+                f"(ROADMAP Queue 2 item 2)")
 
 
 def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
                 valid_len: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
                 v_scale: Optional[torch.Tensor] = None,
-                t_major: bool = False) -> torch.Tensor:
+                t_major: bool = False,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, H, 1, dh) pre-scaled; cache (B, H, T, dh), or (B, H, dh, T)
     when ``t_major``, in q's dtype, or int8/fp8 with fp32 scales
     (B, H, T, 1) for each; ``valid_len`` an int32 tensor on the device,
     one count or one per lane, read by the kernel (no host sync). fp32
-    softmax. Returns (B, H, 1, dh) in q's dtype. Has no backward: on the
+    softmax. ``bias``, an fp32 tensor broadcastable to (B, H, 1, T), is
+    added to the scores after the K scale and before the mask (a bias of
+    another dtype or shape raises on the card). Returns (B, H, 1, dh) in
+    q's dtype. Has no backward: on the
     card it refuses inputs that require grad. Counts its kernel launches in
     ``decode_attn.launches``. Traced by ``torch.export`` on the card, it is
     the operator ``torch.ops.wtpu.decode_attn``."""
@@ -216,25 +253,35 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_reference(q, cache_k, cache_v, valid_len,
                                           k_scale=k_scale, v_scale=v_scale,
-                                          t_major=t_major)
+                                          t_major=t_major, bias=bias)
     if not isinstance(valid_len, torch.Tensor):
         raise TypeError("decode_attn: valid_len must be an int32 tensor on "
                         "q's device")
     if _build.tracing():
-        return _OP(q, cache_k, cache_v, valid_len, k_scale, v_scale, t_major)
-    return _launch(q, cache_k, cache_v, valid_len, k_scale, v_scale, t_major)
+        return _OP(q, cache_k, cache_v, valid_len, k_scale, v_scale, t_major,
+                   bias)
+    return _launch(q, cache_k, cache_v, valid_len, k_scale, v_scale, t_major,
+                   bias)
 
 
 def _launch(q, cache_k, cache_v, valid_len, k_scale, v_scale,
-            t_major: bool) -> torch.Tensor:
-    _check(q, cache_k, cache_v, valid_len, k_scale, v_scale, t_major)
+            t_major: bool, bias=None) -> torch.Tensor:
+    _check(q, cache_k, cache_v, valid_len, k_scale, v_scale, t_major, bias)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn: unsupported device {q.device}")
-    _build.refuse_grad("decode_attn", q, cache_k, cache_v, k_scale, v_scale)
+    _build.refuse_grad("decode_attn", q, cache_k, cache_v, k_scale, v_scale,
+                       bias)
     b, h, _, dh = q.shape
     if b * h == 0:
         return torch.empty_like(q)
-    lib = _build.load("decode_attention", _SIGNATURES)
+    if bias is not None:
+        # the kernel's operand: (B, H, 1, T), stride 0 where it broadcasts,
+        # rows contiguous
+        bias = (bias if bias.stride(3) == 1 else bias.contiguous()).expand(
+            b, h, 1, bias.shape[3])
+    # the kernels with a bias build apart (csrc/decode_attention_bias.cu)
+    lib = _build.load("decode_attention" if bias is None
+                      else "decode_attention_bias", _SIGNATURES)
     t = cache_k.shape[3] if t_major else cache_k.shape[2]
     splits, chunk, tile, stages = decode_plan(q, cache_k, t_major)
     out = torch.empty_like(q)
@@ -244,7 +291,9 @@ def _launch(q, cache_k, cache_v, valid_len, k_scale, v_scale,
             None if k_scale is None else k_scale.data_ptr(),
             None if v_scale is None else v_scale.data_ptr(),
             valid_len.data_ptr(), int(valid_len.dim() == 1),
-            out.data_ptr(), b, h, t, dh, _Q_DTYPES[q.dtype],
+            None if bias is None else bias.data_ptr(),
+            0 if bias is None else bias.stride(0),
+            0 if bias is None else bias.stride(1), out.data_ptr(), b, h, t, dh, _Q_DTYPES[q.dtype],
             _CACHE_DTYPES[cache_k.dtype], int(t_major), splits, chunk, tile,
             stages, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, "decode_attn")
@@ -254,8 +303,9 @@ def _launch(q, cache_k, cache_v, valid_len, k_scale, v_scale,
 
 _OP = _build.define_op(
     "decode_attn(Tensor q, Tensor cache_k, Tensor cache_v, Tensor valid_len, "
-    "Tensor? k_scale, Tensor? v_scale, bool t_major) -> Tensor",
+    "Tensor? k_scale, Tensor? v_scale, bool t_major, Tensor? bias=None) "
+    "-> Tensor",
     _launch, lambda q, cache_k, cache_v, valid_len, k_scale, v_scale,
-    t_major: torch.empty_like(q))
+    t_major, bias=None: torch.empty_like(q))
 
 decode_attn.launches = 0

@@ -306,6 +306,22 @@ def serve_checks(out: dict, device="cuda", workdir: str = "") -> None:
         b.run()
         out["batcher (1, 4)"] = [b.fetch(i) for i in ids]
 
+    # a sampled decode with the batch cut over a data axis: each row's noise
+    # keyed by its global lane, so every cut draws the one-device tokens;
+    # (2, 1) over ranks 0 and 1 only
+    sgen = GenerationConfig(max_new_tokens=8, temperature=1.5, top_k=20,
+                            seed=3)
+    out["sampled one device"] = WhisperSession(
+        p4, cfg4, sgen, device=device).transcribe_features(mel8[:4])
+    mesh21 = make_mesh(MeshConfig(2, 1), device=device, devices=range(2))
+    sampled = {"(4, 1)": meshes[(4, 1)], "(2, 2)": meshes[(2, 2)]}
+    if mesh21.get_coordinate() is not None:
+        sampled["(2, 1)"] = mesh21
+    for shape, mesh in sampled.items():
+        out[f"sampled {shape}"] = WhisperSession(
+            p4, cfg4, sgen, mesh=mesh, device=device).transcribe_features(
+            mel8[:4])
+
     # refusals
     with meshes[(2, 2)]:
         out["refuse batch 3 over data 2"] = _raises(

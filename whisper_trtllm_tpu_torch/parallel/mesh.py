@@ -87,6 +87,14 @@ def axis_group(mesh: DeviceMesh, axis: str):
     return mesh.get_group(axis)
 
 
+def batch_start(mesh: Optional[DeviceMesh], rows: int) -> int:
+    """The first global row of this rank's ``rows`` rows of a batch cut
+    over ``mesh``'s data axis (0 without a mesh or at one data rank)."""
+    if mesh is None or axis_size(mesh, "data") == 1:
+        return 0
+    return axis_rank(mesh, "data") * rows
+
+
 def split_batch(x, mesh: Optional[DeviceMesh]):
     """This rank's rows of the batch ``x`` (dim 0) over ``mesh``'s data
     axis (all of them without a mesh or at one data rank). A batch the
@@ -98,7 +106,7 @@ def split_batch(x, mesh: Optional[DeviceMesh]):
         raise ValueError(f"a batch of {x.shape[0]} does not divide over a "
                          f"data axis of {n} ranks")
     rows = x.shape[0] // n
-    start = axis_rank(mesh, "data") * rows
+    start = batch_start(mesh, rows)
     return x[start:start + rows]
 
 

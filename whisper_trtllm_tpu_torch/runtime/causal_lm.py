@@ -257,14 +257,16 @@ def generate_tokens(
 
 
 def _ragged_step(step, params, sc, s: GenState, words: Words,
-                 eos_token_id: int) -> None:
+                 eos_token_id: int, step_lens: bool = False) -> None:
     """The ragged loop's body, in place on ``s``: lane b decodes its token
     at ``pos[b]`` and writes the next at ``pos[b] + 1`` (clamped to the
-    buffer's last column)."""
+    buffer's last column). With ``step_lens`` the step also takes the
+    prompts' lengths, the state's (B,) tensor."""
     max_len = s.tokens.shape[1]
     pos = s.pos
     cur = s.tokens.gather(1, pos.long()[:, None])[:, 0]
-    logits, _, _ = step(params, cur, pos, s.cache_k, s.cache_v)
+    extra = (s.lens,) if step_lens else ()
+    logits, _, _ = step(params, cur, pos, s.cache_k, s.cache_v, *extra)
     nxt = _pick_token(sc, logits, s.tokens, pos, pos + 1 - s.lens,
                       eos_token_id, s.t, words)
     nxt = torch.where(s.finished, eos_token_id, nxt).to(torch.int32)
@@ -292,6 +294,7 @@ def generate_tokens_ragged(
     sampling_cfg: Optional[SamplingParams] = None,
     cache_dtype=torch.float32,
     key=None,
+    step_lens: bool = False,
 ) -> torch.Tensor:
     """Variable-length batched generation: right-padded ``prompt`` (B, P)
     with per-row ``prompt_lens`` (B,) → tokens (B, P + max_new_tokens); row
@@ -303,7 +306,11 @@ def generate_tokens_ragged(
     positions (B,) (per-lane cache writes and valid lengths). Right
     padding is safe under a causal mask: a pad position attends only
     backward, and each lane's generated K/V overwrite the pad rows in
-    order, the valid length masking everything past the lane's frontier."""
+    order, the valid length masking everything past the lane's frontier.
+    With ``step_lens`` the step is called as ``step(params, tok, pos, ck,
+    cv, lens)``, ``lens`` the prompts' lengths in the loop's state, which
+    a captured step reads on every replay (ChatGLM's per-lane positions
+    come from them)."""
     if max_new_tokens < 1:
         raise ValueError("generate_tokens_ragged needs max_new_tokens >= 1 "
                          "(the first-token write indexes column prompt_len)")
@@ -340,11 +347,12 @@ def generate_tokens_ragged(
         s.finished.copy_(finished)
         s.pos.copy_(lens)
         s.t.fill_(1)
-        return lambda: _ragged_step(step, params, sc, s, words, eos_token_id)
+        return lambda: _ragged_step(step, params, sc, s, words, eos_token_id,
+                                    step_lens)
 
     run_key = ("causal_lm_ragged", (prefill, step) if key is None else key,
                b, p, max_new_tokens, tuple(cache_shape), cache_dtype, dev,
-               eos_token_id, sampling_key(sc))
+               eos_token_id, sampling_key(sc), step_lens)
     entry = gen_rt.run_decode(run_key, {"decoder": params}, dev,
                               max_new_tokens - 1, make, lambda entry: None,
                               bind, lambda s: bool(s.finished.all()))

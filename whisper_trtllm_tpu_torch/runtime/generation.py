@@ -36,7 +36,9 @@ same branch at each host read: ``finished`` comes from the logits, which
 the step's last all-reduce made equal on every rank. ``transcribe_tokens``
 under a mesh with a data axis cuts the batch over it and gathers every
 rank's tokens and lengths, so each rank returns the whole batch's, as the
-JAX function returns a global array.
+JAX function returns a global array. A sampled decode draws each row's
+noise by its global lane (``lane_offset``, the rank's first row), so the
+cut batch draws what the whole batch draws on one device.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
 from whisper_trtllm_tpu_torch.ops.kernels import KERNELS, _launches
 from whisper_trtllm_tpu_torch.parallel import collectives, partition
 from whisper_trtllm_tpu_torch.parallel.mesh import (
-    axis_size,
+    batch_start,
     current_mesh,
     join_batch,
     split_batch,
@@ -247,10 +249,11 @@ def reset_state(s: GreedyState, cfg: WhisperConfig, rules: Rules) -> None:
 
 def greedy_step(params: dict, cfg: WhisperConfig, gen: GenerationConfig,
                 s: GreedyState, cross_kv: Tuple[torch.Tensor, ...],
-                rules: Rules, fused: bool) -> None:
+                rules: Rules, fused: bool, lane_offset: int = 0) -> None:
     """One step of ``_greedy_decode_impl``'s body, in place on ``s``:
     decode at ``pos``, the processors in the JAX order, the choice of the
-    next token, and the writes of ``tokens[:, pos + 1]``, ``finished``,
+    next token (a draw keyed by global lane ``lane_offset + i`` for row
+    i), and the writes of ``tokens[:, pos + 1]``, ``finished``,
     ``lengths`` and ``pos + 1``. Reads no device value on the host."""
     pos = s.pos
     pos1 = pos.long().reshape(1)
@@ -280,7 +283,8 @@ def greedy_step(params: dict, cfg: WhisperConfig, gen: GenerationConfig,
     nxt = sampling.sample_token(
         logits, temperature=gen.temperature, top_k=gen.top_k,
         top_p=gen.top_p, tokens=s.tokens, pos=pos,
-        repetition_penalty=gen.repetition_penalty, seed=gen.seed)
+        repetition_penalty=gen.repetition_penalty, seed=gen.seed,
+        lane_offset=lane_offset)
     forced = rules.forced_map.index_select(0, nxt1)
     nxt = torch.where(forced >= 0, forced, nxt)
     not_prompt = ~s.finished
@@ -530,7 +534,8 @@ def _load_cross(static, params, cfg, enc_states, gen) -> None:
 
 
 @torch.inference_mode()
-def _decode(params, cfg, enc_states, gen, max_len, prompt=None):
+def _decode(params, cfg, enc_states, gen, max_len, prompt=None,
+            lane_offset: int = 0):
     """The greedy decode through ``run_decode``: tokens and lengths."""
     check_greedy_config(gen)
     batch, dev, dtype = enc_states.shape[0], enc_states.device, \
@@ -554,10 +559,10 @@ def _decode(params, cfg, enc_states, gen, max_len, prompt=None):
         reset_state(s, cfg, rules)
         fused = wmodel.decode_step_plan(params, cfg, s.self_kv, cross_kv)
         return lambda: greedy_step(params, cfg, gen, s, cross_kv, rules,
-                                   fused)
+                                   fused, lane_offset)
 
     key = ("greedy", cfg, gen, batch, max_len, dtype, dev,
-           None if prompt is None else prompt.shape[1])
+           None if prompt is None else prompt.shape[1], lane_offset)
     s = run_decode(key, params, dev, max_len - 1, make, load, bind,
                    lambda s: bool(s.finished.all())).state
     return s.tokens.clone(), s.lengths.clone()
@@ -568,16 +573,20 @@ def greedy_decode(
     cfg: WhisperConfig,
     enc_states: torch.Tensor,
     gen: Optional[GenerationConfig] = None,
+    lane_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched greedy (or sampled) search: enc_states (B, 1500, d) →
     (tokens (B, max_len) int32, lengths (B,) int32), ``max_len =
     min(max_target_positions, max_new_tokens + 1)``. Float caches take
     ``enc_states``' dtype; ``gen.kv_cache_dtype`` "int8"/"fp8" quantizes
     both caches, ``gen.cross_kv_layout`` sets the cross cache's layout, and
-    every other non-beam field of ``gen`` applies as in the JAX loop."""
+    every other non-beam field of ``gen`` applies as in the JAX loop.
+    ``lane_offset`` is the global lane of row 0 (a data rank's first row,
+    ``parallel.mesh.batch_start``), by which a sampled draw is keyed."""
     gen = gen or GenerationConfig()
     max_len = min(cfg.max_target_positions, gen.max_new_tokens + 1)
-    return _decode(params, cfg, enc_states, gen, max_len)
+    return _decode(params, cfg, enc_states, gen, max_len,
+                   lane_offset=lane_offset)
 
 
 def greedy_decode_prompted(
@@ -646,22 +655,11 @@ def transcribe_tokens(
     if leaf.device.type != dev.type:
         raise ValueError(f"params lie on {leaf.device}, not on {dev}")
     mesh = current_mesh()
-    check_data_axis(gen or GenerationConfig(), mesh)
     if not isinstance(mel, torch.Tensor):
         mel = np.asarray(mel)
     mel = to_tensor(split_batch(mel, mesh), dev, leaf.dtype)
     enc = wmodel.encode(params, cfg, mel)
-    tokens, lengths = greedy_decode(params, cfg, enc, gen)
+    tokens, lengths = greedy_decode(params, cfg, enc, gen,
+                                    batch_start(mesh, mel.shape[0]))
     return join_batch(tokens, mesh), join_batch(lengths, mesh)
 
-
-def check_data_axis(gen: GenerationConfig, mesh) -> None:
-    """Refuse a sampled decode with the batch cut over a data axis: its
-    draw takes noise of the whole batch's shape, which a rank's rows would
-    not reproduce."""
-    sampled = (gen.temperature != 1.0 or gen.top_k > 0
-               or 0.0 < gen.top_p < 1.0)
-    if sampled and mesh is not None and axis_size(mesh, "data") > 1:
-        raise NotImplementedError(
-            "a sampled decode with the batch cut over a data axis is not "
-            "ported; sample on a mesh without a data axis")

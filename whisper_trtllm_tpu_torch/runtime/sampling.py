@@ -107,16 +107,20 @@ def _mix(x: torch.Tensor) -> torch.Tensor:
 
 
 def gumbel_noise(seed: int, pos, batch: int, vocab: int,
-                 device) -> torch.Tensor:
+                 device, lane_offset: int = 0) -> torch.Tensor:
     """(batch, vocab) fp32 standard Gumbel noise, a pure function of
     (seed, pos, lane, token): ``pos`` is an int or a 0-d integer tensor
-    (read on the device). 24 hashed bits make a uniform in (0, 1)."""
+    (read on the device); the rows are lanes ``lane_offset`` to
+    ``lane_offset + batch - 1`` of the whole batch (a data rank's rows start
+    at its first global row), so a batch cut over ranks draws what the
+    whole batch draws. 24 hashed bits make a uniform in (0, 1)."""
     device = torch.device(device)
     if isinstance(pos, torch.Tensor):
         pos = pos.to(device=device, dtype=torch.int64)
     else:
         pos = torch.tensor(int(pos), dtype=torch.int64, device=device)
-    lane = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+    lane = torch.arange(lane_offset, lane_offset + batch, dtype=torch.int64,
+                        device=device)[:, None]
     tok = torch.arange(vocab, dtype=torch.int64, device=device)[None]
     h = _mix(torch.full((), int(seed) & _MASK32, dtype=torch.int64,
                         device=device) ^ 0x3C6EF372)
@@ -137,13 +141,15 @@ def sample_token(
     repetition_penalty: float = 1.0,
     do_sample: bool = False,
     seed: int = 0,
+    lane_offset: int = 0,
 ) -> torch.Tensor:
     """(B, V) logits → (B,) int32 ids: penalties → temperature → top-k →
     top-p → categorical draw, with the JAX package's semantics: any
     non-neutral temperature, top-k or top-p draws; a repetition-penalty-
     only configuration stays (penalized) greedy; ``do_sample`` draws with
     every knob neutral. The draw is Gumbel-max over ``gumbel_noise(seed,
-    pos, ...)`` (``pos`` 0 when not given); ``torch.argmax`` returns the
+    pos, ...)`` (``pos`` 0 when not given), row i taking global lane
+    ``lane_offset + i``; ``torch.argmax`` returns the
     first index of a maximum, as ``jnp.argmax`` does."""
     if tokens is not None and repetition_penalty != 1.0:
         logits = apply_repetition_penalty(logits, tokens, pos,
@@ -155,7 +161,8 @@ def sample_token(
     logits = top_k_filter(logits, top_k)
     logits = top_p_filter(logits, top_p)
     b, v = logits.shape
-    noise = gumbel_noise(seed, 0 if pos is None else pos, b, v, logits.device)
+    noise = gumbel_noise(seed, 0 if pos is None else pos, b, v, logits.device,
+                         lane_offset)
     return torch.argmax(logits + noise, dim=-1).to(torch.int32)
 
 

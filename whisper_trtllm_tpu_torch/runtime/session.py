@@ -25,6 +25,7 @@ from whisper_trtllm_tpu_torch.config import (
 from whisper_trtllm_tpu_torch import quantization
 from whisper_trtllm_tpu_torch.models.whisper import model as wmodel
 from whisper_trtllm_tpu_torch.parallel.mesh import (
+    batch_start,
     check_mesh,
     join_batch,
     split_batch,
@@ -108,7 +109,6 @@ class WhisperSession:
             beam.check_early_stopping(self.generation)
         else:
             gen_rt.check_greedy_config(self.generation)
-            gen_rt.check_data_axis(self.generation, mesh)
         self._dtype = _COMPUTE_DTYPES[self.runtime.compute_dtype]
         self.params = self._prepare_params(params)
         self.frontend = LogMelSpectrogram(cfg.num_mel_bins, dtype=self._dtype,
@@ -155,7 +155,8 @@ class WhisperSession:
                 tokens, lengths = tokens[:, 0], lengths[:, 0]
             else:
                 tokens, lengths = gen_rt.greedy_decode(
-                    self.params, self.cfg, enc, self.generation)
+                    self.params, self.cfg, enc, self.generation,
+                    batch_start(self.mesh, mel.shape[0]))
             tokens = join_batch(tokens, self.mesh)
             lengths = join_batch(lengths, self.mesh)
         return tokens.cpu().numpy(), lengths.cpu().numpy()
@@ -219,19 +220,16 @@ class WhisperSession:
         self._run(self._rows(mel))
 
     def export_engine(self, path: str, batch: int = 1) -> int:
-        """Write the greedy transcribe pipeline at this batch size to one
-        engine file (``utils/engine.py``: two ``torch.export`` programs,
-        encode and the decode step) and return its size in bytes. The
+        """Write the transcribe pipeline at this batch size to one engine
+        file (``utils/engine.py``: ``torch.export`` programs of the encode
+        and the decode step, and with ``num_beams > 1`` the beam step and
+        the search's end, which returns the best hypothesis as
+        ``transcribe_features`` does) and return its size in bytes. The
         engine takes (params, mel), so any tree of this session's
         structure runs through it (``sess.params``, or a refit tree made
         by the same chain); ``utils.engine.load_engine`` reads it without
         the model code. On the card the programs call K1, K2, K5 and K6 as
-        ``torch.ops.wtpu.*``. Beam search (``num_beams > 1``) is not
-        exported."""
-        if self.generation.num_beams > 1:
-            raise NotImplementedError(
-                "export_engine exports the greedy pipeline; beam search "
-                "(num_beams > 1) is not exported")
+        ``torch.ops.wtpu.*``."""
         if self.mesh is not None:
             raise NotImplementedError(
                 "export_engine exports the one-device pipeline; a session "

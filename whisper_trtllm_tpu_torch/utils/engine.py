@@ -1,4 +1,4 @@
-"""Serialized engines: the greedy transcribe pipeline as two
+"""Serialized engines: the transcribe pipeline, greedy or beam search, as
 ``torch.export`` programs in one file (counterpart of
 ``whisper_trtllm_tpu/utils/engine.py``, which serializes one jitted
 pipeline with ``jax.export``).
@@ -7,16 +7,22 @@ An engine file is a zip holding
 
 - ``encode.pt2``: (params, mel) → (encoder states, the cross cache, the
   decode's first state), the cross cache built and quantized as the
-  session builds it;
+  session builds it (tiled K times for a beam search);
 - ``step.pt2``: (params, state, cross cache, rules) → the state's
-  ``finished``: one ``runtime/generation.py::greedy_step``, which updates
-  the state's tensors in place (tokens, pos, finished, lengths, the self
-  caches);
+  ``finished`` (greedy: one ``runtime/generation.py::greedy_step``) or
+  ``go`` (``num_beams > 1``: one ``runtime/beam.py::beam_step``), which
+  updates the state's tensors in place;
+- ``finalize.pt2`` (beam search only): the state's pools → the best
+  hypothesis's tokens and lengths (``beam.finalize``), which the
+  session's beam decode returns;
 - ``rules.pt``: the step's processor tables (suppress masks, the forced
   map, word tables);
-- ``meta.json``: batch, ``max_len``, dtypes, the finish-check period, the
-  warm-up steps before a capture and the ``kernel_tree_digest`` of the
-  sources it was exported from.
+- ``meta.json``: batch, ``max_len``, ``num_beams``, dtypes, the
+  finish-check period, the warm-up steps before a capture and the
+  ``kernel_tree_digest`` of the sources it was exported from.
+
+A format-1 file (greedy only, written before beam search was exported)
+loads and runs as a greedy engine.
 
 Weights are an argument of both programs, so one engine serves any tree
 of the same structure (the refit of a TensorRT engine). Loading and
@@ -27,7 +33,8 @@ operators, which launch what the session's wrappers launch; on the CPU
 the programs hold the plain versions they were traced through.
 
 ``Engine.__call__`` runs the loop itself, as ``generation._run`` does:
-the host reads ``finished`` once every ``finish_check_every`` steps. On
+the host reads ``finished`` (a beam search: ``go``) once every
+``finish_check_every`` steps. On
 the card it runs ``warmup_steps`` eager steps on a side stream, captures
 the step once as a CUDA graph against its own buffers, and replays it; a
 later call with the same weights only replays. A capture that fails
@@ -50,12 +57,16 @@ from torch.utils import _pytree as pytree
 # importing the kernels registers torch.ops.wtpu.*, which the programs call
 from whisper_trtllm_tpu_torch.ops.kernels import KERNELS, _launches
 
-FORMAT = 1
-_ENCODE, _STEP, _RULES, _META = ("encode.pt2", "step.pt2", "rules.pt",
-                                 "meta.json")
-# positions in the state tuple: tokens, pos, finished, lengths, then the
-# self caches
+FORMAT = 2
+READS = (1, 2)  # the formats load_engine reads
+_ENCODE, _STEP, _FINALIZE, _RULES, _META = (
+    "encode.pt2", "step.pt2", "finalize.pt2", "rules.pt", "meta.json")
+# positions in a greedy state tuple: tokens, pos, finished, lengths, then
+# the self caches
 TOKENS, FINISHED, LENGTHS = 0, 2, 3
+# a beam state's fields before its self caches (runtime/export.py::
+# BEAM_FIELDS), and the position of ``go`` among them
+BEAM_STATE_FIELDS, GO = 9, 8
 
 
 def canonical(params):
@@ -75,14 +86,17 @@ def _to_bytes(save, obj) -> bytes:
 
 def save_engine(path: str, encode: torch.export.ExportedProgram,
                 step: torch.export.ExportedProgram, rules: dict,
-                meta: dict) -> int:
+                meta: dict, finalize=None) -> int:
     """Write the exported ``encode`` (params, mel) and ``step`` (params,
-    state, cross cache, rules) programs, ``rules`` and ``meta`` to one
-    file. Returns the file's size in bytes."""
+    state, cross cache, rules) programs, the beam search's ``finalize``
+    (state fields) where given, ``rules`` and ``meta`` to one file.
+    Returns the file's size in bytes."""
     buf = io.BytesIO()
     with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as z:
         z.writestr(_ENCODE, _to_bytes(torch.export.save, encode))
         z.writestr(_STEP, _to_bytes(torch.export.save, step))
+        if finalize is not None:
+            z.writestr(_FINALIZE, _to_bytes(torch.export.save, finalize))
         z.writestr(_RULES, _to_bytes(
             torch.save, pytree.tree_map(lambda t: t.cpu(), rules)))
         z.writestr(_META, json.dumps(dict(meta, format=FORMAT), indent=1))
@@ -120,13 +134,20 @@ class _Captured:
 class Engine:
     """A loaded engine: ``engine(params, mel)`` → (tokens (B, max_len)
     int32, lengths (B,) int32) on the weights' device, as
-    ``WhisperSession.transcribe_features`` decodes them. ``captures``,
-    ``replays`` and ``eager_steps`` count what its loop did."""
+    ``WhisperSession.transcribe_features`` decodes them (a beam search's
+    best hypothesis). ``captures``, ``replays`` and ``eager_steps`` count
+    what its loop did."""
 
-    def __init__(self, encode, step, rules: dict, meta: dict):
-        self.meta = meta
+    def __init__(self, encode, step, rules: dict, meta: dict,
+                 finalize=None):
+        self.meta = dict(meta)
+        self.meta.setdefault("num_beams", 1)  # format 1: greedy
+        if (self.meta["num_beams"] > 1) != (finalize is not None):
+            raise ValueError("a beam engine has a finalize program and a "
+                             "greedy engine none")
         self._encode = encode.module()
         self._step = step.module()
+        self._finalize = None if finalize is None else finalize.module()
         self._rules = rules
         self._rules_on: dict = {}
         self._captured = None
@@ -144,13 +165,20 @@ class Engine:
                 lambda t: t.to(device), self._rules)
         return rules
 
+    def _stopped(self, state: tuple) -> bool:
+        """The host's read: every lane finished (greedy), or the beam
+        search's ``go`` False."""
+        if self.meta["num_beams"] > 1:
+            return not bool(state[GO])
+        return bool(state[FINISHED].all())
+
     def _run(self, step, state: tuple, limit: int, done: int = 0) -> None:
         """``generation._run``'s schedule: ``step()`` until ``limit``
-        steps ran, the host reading ``finished`` once every
+        steps ran, the host reading ``_stopped`` once every
         ``finish_check_every`` steps."""
         every = self.meta["finish_check_every"]
         while done < limit:
-            if done and bool(state[FINISHED].all()):
+            if done and self._stopped(state):
                 return
             n = min(every, limit - done)
             for _ in range(n):
@@ -222,6 +250,8 @@ class Engine:
                     self.eager_steps += 1
 
                 self._run(step, state, limit)
+            if self._finalize is not None:
+                return self._finalize(tuple(state[:BEAM_STATE_FIELDS]))
             return state[TOKENS].clone(), state[LENGTHS].clone()
 
 
@@ -229,10 +259,12 @@ def load_engine(path: str) -> Engine:
     """Read an engine file written by ``save_engine``."""
     with zipfile.ZipFile(path) as z:
         meta = json.loads(z.read(_META))
-        if meta.get("format") != FORMAT:
+        if meta.get("format") not in READS:
             raise ValueError(f"{path}: engine format {meta.get('format')}, "
-                             f"this reader takes {FORMAT}")
+                             f"this reader takes {READS}")
         encode = torch.export.load(io.BytesIO(z.read(_ENCODE)))
         step = torch.export.load(io.BytesIO(z.read(_STEP)))
+        finalize = (torch.export.load(io.BytesIO(z.read(_FINALIZE)))
+                    if _FINALIZE in z.namelist() else None)
         rules = torch.load(io.BytesIO(z.read(_RULES)), weights_only=True)
-    return Engine(encode, step, rules, meta)
+    return Engine(encode, step, rules, meta, finalize)
