@@ -11,7 +11,7 @@ bias+GELU K8 from its own ``csrc/`` and times them beside these on the
 same inputs, in turns (parent, this, this, parent), as ``parent_ms`` on
 their lines; without it nothing else is built.
 
-Seven phases (and phases 2b and 5b), each timed; any failure raises and the script exits non-zero:
+Seven phases (and phases 2b, 2c and 5b), each timed; any failure raises and the script exits non-zero:
 
 1. build — compiles every kernel of the main paths from ``csrc/`` with
    ``nvcc`` for sm_90a (one ``nvcc`` per source, all at once: eight
@@ -43,7 +43,10 @@ Seven phases (and phases 2b and 5b), each timed; any failure raises and the scri
    and 12288 over a prefill's rows (2 x 800) and a decode step's (2); K2
    with ALiBi's bias at bloom_560m's step, float fp32 and bf16, one count
    and one a lane, int8 T-minor and fp8, an all-zero bias bit-equal to
-   none, SDPA with the same float mask its library time), every
+   none, SDPA with the same float mask its library time); and phase 2c's:
+   K1 at SD-1.x's UNet attentions (B 2, H 8: self at S = T = 4096, 1024
+   and 256, cross at those S over T = 77 context rows, at head dims 40,
+   80 and 160) and BERT-large's (B 8, H 16, 512 positions); every
    input drawn on the card by a CUDA generator seeded from the check's
    own tag (``CardRng``), K3 held to its plain version's formula in
    float64 (the witness), and times the kernel, the plain
@@ -91,6 +94,33 @@ Seven phases (and phases 2b and 5b), each timed; any failure raises and the scri
    subprocesses (their tokens against the CPU's argmax). Each call's ms,
    its capture's and the
    prefill's, and a repeat's ms a step are printed;
+2c. zoo runtimes (right after 2b, on 2b's host trees and two more drawn
+   beside the kernels phase) — gpt_350m at full width and depth through
+   the in-flight batcher (``runtime/ifb_lm.py``) and the paged one
+   (``runtime/ifb_paged.py``, its pool at 16 tokens a block holding 160
+   blocks against the dense equivalent's 208): 4 lanes, prompts padded to
+   800 (every admit runs K1), 32 new tokens, 8 requests of 770..800
+   tokens in two waves of 4 (the paged batcher's fourth admit of a wave
+   waits on blocks, checked); each step captured once when the batcher is
+   built, then replays only; launches exact from the steps run and the
+   admits (a step K2 L, K5 2L + 1; an admit K1 L, K5 2L + 1), equal to the
+   profiler's over a traced drain of two more; the paged rows equal the
+   dense ones, every block back after ``run()``, each request its
+   batch-1 lockstep ``generate`` (or the CPU's argmax up to a near tie);
+   a replayed step's ms, paged against dense. Then ``paged_beam_search``
+   (``runtime/beam_paged.py``, K 4 from a block-aligned prompt of 800, 32
+   new, eager steps): tokens and lengths equal to the dense beam search's
+   on the card, scores within ``ZOO_BEAM_SCORE_TOLERANCE``, every block
+   released, launches exact. BERT-large whole (``models/bert``) at batch
+   8 x 512, fp32 and bf16, unmasked (K1 24, K5 49 a forward) and masked
+   (K1 0); row 0 in fp32, and a masked row, against the port's CPU forward
+   on that sequence within ``BERT_TOLERANCE``; ``bench_zoo bert_large`` as
+   a subprocess. The UNet at SD-1.x's widths and depth (``models/unet``)
+   at batch 2 over 64x64 latents and 77 context rows, fp32 and bf16: K1
+   32 and K5 48 a forward (two and three a Transformer2D block, counted
+   from the tree), a repeat call equal, the first sample in fp32 against
+   the port's CPU forward at batch 1 within ``UNET_TOLERANCE`` of max
+   |CPU|; the CPU's references run in a thread beside the card's calls;
 3. hardware check and example — runs ``python -m
    whisper_trtllm_tpu_torch.cli.gpu_check`` (every check of the port's
    counterpart of ``cli/tpu_check.py``, among them K7's
@@ -237,7 +267,10 @@ head counts under "local_heads"; K1's, K2's and K5's at the zoo's shapes
 under "zoo", and gpt_350m's lockstep call at prompt 800 as "zoo_launches",
 GPT-J's, GPT-NeoX's, Bloom's and ChatGLM's at theirs under
 "zoo_launches_gptj", "zoo_launches_gptneox", "zoo_launches_bloom" and
-"zoo_launches_chatglm6b"; K2's rows with a bias under "bias");
+"zoo_launches_chatglm6b"; phase 2c's as "zoo_launches_ifb" and
+"zoo_launches_ifb_paged" (each batcher's two waves), "zoo_launches_beam_paged",
+"zoo_launches_bert" (one unmasked fp32 forward) and "zoo_launches_unet"
+(one forward); K2's rows with a bias under "bias");
 the last is ``{"ok": true, "device":
 {...}}``. Without a CUDA
 card, or without the rest of the repository beside it, it exits non-zero
@@ -465,6 +498,18 @@ ZOO_FLASH_CASES = [("zoo gpt", 4, 16, 16, 800, 64, True),
 # batch 2, 800 positions: K1 past 128 and at a head width padded to 128
 ZOO_WIDE_FLASH_CASES = [("zoo gptj", 2, 16, 16, 800, 256, True),
                         ("zoo gptneox", 2, 64, 64, 800, 96, True)]
+# SD-1.x's UNet at batch 2 over 64x64 latents, 8 heads: the self attention
+# (S = T = H*W) and the cross attention over 77 context rows (S != T, T a
+# multiple of no tile) at head dims 40, 80 and 160 (320, 640 and 1280
+# channels); BERT-large's encoder at batch 8 over 512 positions. A case of
+# eight fields carries T after S
+UNET_FLASH_CASES = [("zoo unet self dh40", 2, 8, 8, 4096, 40, False),
+                    ("zoo unet self dh80", 2, 8, 8, 1024, 80, False),
+                    ("zoo unet self dh160", 2, 8, 8, 256, 160, False),
+                    ("zoo unet cross dh40", 2, 8, 8, 4096, 40, False, 77),
+                    ("zoo unet cross dh80", 2, 8, 8, 1024, 80, False, 77),
+                    ("zoo unet cross dh160", 2, 8, 8, 256, 160, False, 77),
+                    ("zoo bert_large", 8, 16, 16, 512, 64, False)]
 
 
 def check_flash(torch, rng, card, cases=FLASH_CASES, parent=None):
@@ -480,16 +525,18 @@ def check_flash(torch, rng, card, cases=FLASH_CASES, parent=None):
     )
 
     headline = None
-    for name, b, h, hkv, s, dh, causal in cases:
+    for case in cases:
+        name, b, h, hkv, s, dh, causal = case[:7]
+        t = case[7] if len(case) > 7 else s
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
             item = torch.tensor([], dtype=dtype).element_size()
-            set_bytes = (2 * b * h * s * dh + 2 * b * hkv * s * dh) * item
+            set_bytes = (2 * b * h * s * dh + 2 * b * hkv * t * dh) * item
             sets = []
             for _ in range(n_sets(set_bytes)):
                 q = rng.standard_normal((b, h, s, dh), dtype="float32") / math.sqrt(dh)
-                k = rng.standard_normal((b, hkv, s, dh), dtype="float32")
-                v = rng.standard_normal((b, hkv, s, dh), dtype="float32")
+                k = rng.standard_normal((b, hkv, t, dh), dtype="float32")
+                v = rng.standard_normal((b, hkv, t, dh), dtype="float32")
                 sets.append(tuple(card_tensor(torch, x, dtype)
                                   for x in (q, k, v)))
             q, k, v = sets[0]
@@ -510,12 +557,13 @@ def check_flash(torch, rng, card, cases=FLASH_CASES, parent=None):
             lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
                 q, k, v, scale=1.0, is_causal=causal, enable_gqa=hkv != h),
                 sets, iters)
-            pairs = s * (s + 1) / 2 if causal else s * s
+            pairs = s * (s + 1) / 2 if causal else s * t
             flops = 4.0 * b * h * pairs * dh
-            nbytes = (2 * b * h * s * dh + 2 * b * hkv * s * dh) * item
+            nbytes = set_bytes
             b_ms, b_by = bound(nbytes, flops, dn, FLASH_PEAK_FLOPS)
+            lengths = f"S=T={s}" if s == t else f"S={s} T={t}"
             print(f"kernel flash_fwd {name} {dn} B={b} H={h} Hkv={hkv} "
-                  f"S=T={s} dh={dh} causal={causal}: max_abs_err={err:.3e} "
+                  f"{lengths} dh={dh} causal={causal}: max_abs_err={err:.3e} "
                   f"(tol {TOLERANCE[dn]}) ms={ms:.4f} {parent_note(p_ms)}"
                   f"plain_ms={plain:.4f} library_ms={lib:.4f} "
                   f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
@@ -4624,7 +4672,8 @@ def zoo_weights() -> dict:
     layers (1.47 G, 1.07 G of them its two vocab tables). Each model draws from its own generator in a thread of
     its own (numpy releases the GIL while it fills an array): drawn one
     after another, the 4.3 G values outlasted the kernels phase by ~40 s
-    (NVIDIA H100 80GB HBM3 host, 700 W)."""
+    (NVIDIA H100 80GB HBM3 host, 700 W). Phase 2c's trees too: bert_large
+    whole (0.34 G) and the UNet at SD-1.x's widths and depth (0.86 G)."""
     import dataclasses
 
     from whisper_trtllm_tpu_torch.benchmarks.allowed_configs import (
@@ -4634,8 +4683,13 @@ def zoo_weights() -> dict:
     def draw(name):
         if name == "bloom_560m":  # no registry entry, as in the JAX package
             return draw_bloom(name)
+        if name == "unet":
+            from whisper_trtllm_tpu_torch.models import unet
+
+            cfg = unet.UNetConfig()
+            return {name: (cfg, unet.init_params(cfg, seed=0, device="cpu"))}
         _, cfg, init, _, _ = build_model(name)
-        if name != "gpt_350m":
+        if name not in ("gpt_350m", "bert_large"):
             cfg = dataclasses.replace(cfg, n_layer=2)
         trees = {name: (cfg, init(cfg, seed=0, device="cpu"))}
         if name == "llama_7b":
@@ -4649,7 +4703,8 @@ def zoo_weights() -> dict:
         cfg = bloom.BloomConfig()
         return {name: (cfg, bloom.init_params(cfg, seed=0, device="cpu"))}
 
-    names = ("gpt_350m", "opt_350m", "llama_7b") + ZOO_WIDE + ZOO_ALIBI
+    names = ("gpt_350m", "opt_350m", "llama_7b") + ZOO_WIDE + ZOO_ALIBI + (
+        "bert_large", "unet")
     out = {}
     with ThreadPoolExecutor(len(names)) as pool:
         for trees in pool.map(draw, names):
@@ -5326,6 +5381,426 @@ def zoo(torch, np, card, trees) -> dict:
     return {"": counts, **wide_counts, **alibi_counts}
 
 
+# --------------------------------------------------------------------------
+# phase 2c: the causal LMs' in-flight and paged runtimes, BERT, the UNet
+# --------------------------------------------------------------------------
+
+IFB_LANES, IFB_PROMPT, IFB_NEW, IFB_SEGMENT = 4, 800, 32, 16
+# 8 requests of 770..800 tokens in two waves of 4 (the second reuses the
+# lanes the first leaves)
+IFB_LENGTHS = (800, 770, 790, 780, 795, 775, 800, 785)
+# the paged pool at 16 tokens a block: 160 blocks against the dense
+# equivalent's 4 x ceil(832 / 16) = 208, so the fourth request of a wave
+# waits on blocks (an admit takes ceil(801 / 16) = 51)
+IFB_TPB, IFB_BLOCKS = 16, 160
+IFB_TRACED = (800, 790)
+PAGED_BEAM_K, PAGED_BEAM_PROMPT, PAGED_BEAM_NEW = 4, 800, 32
+PAGED_BEAM_BLOCKS = 80
+BERT_BATCH, BERT_LEN = 8, 512
+# BERT-large's row 0 on the card against the port's CPU forward: fp32 sums
+# over up to 4096 terms in another order through 24 post-LN layers, K1's
+# products as 3xTF32 (~2^-22 an operand), on LayerNorm outputs of unit scale
+BERT_TOLERANCE = 1e-3
+UNET_BATCH, UNET_HW, UNET_CTX = 2, 64, 77
+# the UNet's first sample on the card against the port's CPU forward at
+# batch 1, relative to max |CPU|: fp32 sums in another order over ~70
+# layers of convolutions and products (cuDNN's algorithms, not the CPU's)
+UNET_TOLERANCE = 1e-3
+
+
+def lm_batcher_launches(cfg, steps: int, admits: int) -> dict:
+    """A batcher's launches: a step K2 L and K5 2L + 1; an admit's prefill
+    (its prompt padded to 800 positions) K1 L and K5 2L + 1."""
+    n = cfg.n_layer
+    return {"flash_fwd": n * admits, "decode_attn": n * steps,
+            "layer_norm": (2 * n + 1) * (steps + admits)}
+
+
+def zoo_runtimes(torch, np, card, trees) -> dict:
+    """Phase 2c: gpt_350m's dense and paged in-flight batchers and paged
+    beams, BERT-large and the UNet at SD-1.x's widths and depth on the
+    card; returns the launches of each path's first run under "_ifb",
+    "_ifb_paged", "_beam_paged", "_bert" and "_unet"."""
+    from whisper_trtllm_tpu_torch.models import bert, gpt, unet
+    from whisper_trtllm_tpu_torch.models.gpt import model as gm
+    from whisper_trtllm_tpu_torch.ops.kernels import (
+        KERNELS,
+        reset_launch_counts,
+    )
+    from whisper_trtllm_tpu_torch.runtime import beam_paged
+    from whisper_trtllm_tpu_torch.runtime import generation as gen_rt
+    from whisper_trtllm_tpu_torch.runtime.ifb_lm import (
+        CausalLMInflightBatcher,
+    )
+    from whisper_trtllm_tpu_torch.runtime.ifb_paged import (
+        PagedCausalLMInflightBatcher,
+    )
+    from whisper_trtllm_tpu_torch.utils.checkpoint import params_from_numpy
+
+    rng = np.random.default_rng(SEED + 23)
+    counts = {}
+
+    def launches():
+        torch.cuda.synchronize()
+        return {k: f.launches for k, f in KERNELS.items()}
+
+    def expect(tag, got, want):
+        full = {k: 0 for k in KERNELS}
+        full.update(want)
+        if got != full:
+            fail(f"{tag}: launches {got}, expected {full}")
+
+    # ---- gpt_350m: the dense and the paged batcher ------------------------
+    cfg, host = trees["gpt_350m"]
+    params = params_from_numpy(host, DEVICE)
+    prompts = [rng.integers(3, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in IFB_LENGTHS]
+    common = dict(cache_heads=cfg.n_head, head_dim=cfg.head_dim,
+                  n_layer=cfg.n_layer, eos_token_id=cfg.eos_token_id,
+                  num_lanes=IFB_LANES, max_prompt_len=IFB_PROMPT,
+                  max_new_tokens=IFB_NEW, segment_steps=IFB_SEGMENT,
+                  device=DEVICE)
+
+    def build(paged):
+        if paged:
+            return PagedCausalLMInflightBatcher(
+                params, cfg,
+                prefill=lambda p, t, l, pk, pv, tb: gm._prefill_paged(
+                    p, cfg, t, l, pk, pv, tb),
+                step=lambda p, tok, pos, pk, pv, tb: gm._step_paged(
+                    p, cfg, tok, pos, pk, pv, tb),
+                num_blocks=IFB_BLOCKS, tokens_per_block=IFB_TPB, **common)
+        return CausalLMInflightBatcher(
+            params, cfg,
+            prefill=lambda p, t, l, ck, cv: gm._prefill_ragged(
+                p, cfg, t, l, ck, cv),
+            step=lambda p, tok, pos, ck, cv: gm._step(p, cfg, tok, pos, ck,
+                                                      cv), **common)
+
+    def drain(b, wave):
+        rids = [b.submit(p) for p in wave]
+        b.run()
+        return [b.fetch(r) for r in rids]
+
+    rows, step_ms = {}, {}
+    for kind in ("dense", "paged"):
+        paged = kind == "paged"
+        torch.cuda.synchronize()
+        gen_rt.reset_loop_counts()
+        t0 = time.perf_counter()
+        b = build(paged)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = []
+        for wave in (prompts[:IFB_LANES], prompts[IFB_LANES:]):
+            if paged:
+                # the first admission pass: the pool holds three prompts
+                rids = [b.submit(p) for p in wave]
+                b._retire_and_admit()
+                held = sum(r is not None for r in b._lane_req)
+                if held == IFB_LANES or not b._queue:
+                    fail(f"ifb paged: {held} lanes admitted at once, "
+                         f"{len(b._queue)} waiting: admission never waited "
+                         f"on blocks")
+                b.run()
+                got += [b.fetch(r) for r in rids]
+            else:
+                got += drain(b, wave)
+        torch.cuda.synchronize()
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        want = lm_batcher_launches(cfg, b.steps_run, len(prompts))
+        expect(f"ifb {kind}", launches(), want)
+        counts["_ifb_paged" if paged else "_ifb"] = want
+        loop = gen_rt.LOOP
+        if (loop.captures, loop.eager_steps, loop.replays) != (
+                1, gen_rt.WARMUP_STEPS, b.steps_run):
+            fail(f"ifb {kind}: {loop.captures} captures, {loop.eager_steps} "
+                 f"eager steps, {loop.replays} replays for {b.steps_run} "
+                 f"steps run")
+        if paged and b.free_blocks() != IFB_BLOCKS:
+            fail(f"ifb paged: {b.free_blocks()} of {IFB_BLOCKS} blocks free "
+                 f"after run()")
+        # a replay's device ms (every lane idle does the same work as live
+        # ones: the step is the same graph)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(20):
+            b._graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        step_ms[kind] = start.elapsed_time(end) / 20
+        gen_rt.LOOP.replays -= 20
+        # the profiler's count over a traced drain of two more requests
+        wave_steps, box = b.steps_run, {}
+
+        def traced_drain(b=b):
+            before = b.steps_run
+            drain(b, [prompts[0][:n] for n in IFB_TRACED])
+            box["steps"] = b.steps_run - before
+        _, traced, counted = traced_run(torch, traced_drain, ENGINE_SYMBOLS)
+        if {k: traced[k] for k in ZOO_KERNELS} != {k: counted[k]
+                                                   for k in ZOO_KERNELS}:
+            fail(f"ifb {kind} traced: profiler {traced} != counters "
+                 f"{counted}")
+        want_t = lm_batcher_launches(cfg, box["steps"], len(IFB_TRACED))
+        if {k: counted[k] for k in ZOO_KERNELS} != {
+                k: want_t[k] for k in ZOO_KERNELS}:
+            fail(f"ifb {kind} traced: counters {counted}, expected {want_t}")
+        rows[kind] = got
+        print(f"zoo runtimes: gpt_350m {kind} batcher, {IFB_LANES} lanes, "
+              f"{len(prompts)} requests of {min(IFB_LENGTHS)}..."
+              f"{max(IFB_LENGTHS)} tokens in two waves, {IFB_NEW} new: "
+              f"{wave_steps} steps, build "
+              f"(capture) {build_ms:.2f} ms, drains {drain_ms:.2f} ms, "
+              f"{step_ms[kind]:.4f} ms a replayed step; launches {want} "
+              f"exact, one capture, replays only; a traced drain's "
+              f"{counted} equal the profiler's [{card}]")
+        del b
+    print(f"zoo runtimes: a paged step {step_ms['paged']:.4f} ms against the "
+          f"dense batcher's {step_ms['dense']:.4f} ms "
+          f"({step_ms['paged'] / step_ms['dense']:.3f}x) [{card}]")
+    for i, (d, p) in enumerate(zip(rows["dense"], rows["paged"])):
+        if not np.array_equal(d, p):
+            fail(f"ifb: request {i} paged {p[len(prompts[i]):].tolist()} != "
+                 f"dense {d[len(prompts[i]):].tolist()}")
+
+    # each request against its own lockstep run at batch 1 (a near tie on
+    # the CPU, where they part, is printed and ends that request)
+    cpu_fwd = []
+    for i, prompt in enumerate(prompts):
+        lane = gpt.generate(params, cfg, prompt[None], IFB_NEW,
+                            device=DEVICE).cpu().numpy()[0]
+        row = rows["dense"][i]
+        n = min(row.size, lane.size)
+        if np.array_equal(row[:n], lane[:n]):
+            continue
+        at = int(np.nonzero(row[:n] != lane[:n])[0][0])
+        cpu_fwd.append((i, at, lane[:at]))
+    for i, at, seq in cpu_fwd:
+        logits = gpt.forward(host, cfg, seq[None])[0]
+        top2 = torch.topk(logits[at - 1].float(), 2).values
+        gap = (top2[0] - top2[1]).item()
+        if gap >= ZOO_GAP * logits[at - 1].abs().max().item():
+            fail(f"ifb: request {i} parts from its lockstep run at position "
+                 f"{at} (CPU top-two gap {gap:.3e})")
+        print(f"zoo runtimes: request {i} parts from its lockstep run at a "
+              f"near tie, position {at} (CPU top-two gap {gap:.3e})")
+    print(f"zoo runtimes: the paged batcher's rows equal the dense one's; "
+          f"{len(prompts) - len(cpu_fwd)} of {len(prompts)} requests equal "
+          f"their lockstep run at batch 1 whole")
+
+    # ---- gpt_350m: paged beams against the dense beam search ---------------
+    bprompt = rng.integers(3, cfg.vocab_size, (PAGED_BEAM_PROMPT,)).astype(
+        np.int32)
+    mgrs = []
+    init = beam_paged.PagedKVCache.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        mgrs.append(self)
+
+    beam_paged.PagedKVCache.__init__ = spy
+    tpb = IFB_TPB
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, scores, lens = beam_paged.paged_beam_search(
+            lambda p, t, l, pk, pv, tb: gm._prefill_paged(
+                p, cfg, t, l, pk, pv, tb),
+            lambda p, tok, pos, pk, pv, tb: gm._step_paged(
+                p, cfg, tok, pos, pk, pv, tb),
+            params, bprompt,
+            pool_shape=(cfg.n_layer, PAGED_BEAM_BLOCKS, tpb, cfg.n_head,
+                        cfg.head_dim),
+            tokens_per_block=tpb,
+            max_blocks_per_seq=math.ceil(
+                (PAGED_BEAM_PROMPT + PAGED_BEAM_NEW) / tpb),
+            max_new_tokens=PAGED_BEAM_NEW, eos_token_id=cfg.eos_token_id,
+            num_beams=PAGED_BEAM_K, device=DEVICE)
+        beam_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        beam_paged.PagedKVCache.__init__ = init
+    got = launches()
+    steps = got["decode_attn"] // cfg.n_layer
+    want = {"flash_fwd": cfg.n_layer, "decode_attn": cfg.n_layer * steps,
+            "layer_norm": (2 * cfg.n_layer + 1) * (1 + steps)}
+    expect("paged beams", got, want)
+    counts["_beam_paged"] = want
+    (mgr,) = mgrs
+    if mgr.ledger.free != PAGED_BEAM_BLOCKS or len(mgr):
+        fail(f"paged beams: {mgr.ledger.free} of {PAGED_BEAM_BLOCKS} blocks "
+             f"free after the search")
+    dtoks, dscores, dlens = (x.cpu().numpy()[0] for x in gpt.generate_beam(
+        params, cfg, bprompt[None], PAGED_BEAM_NEW, PAGED_BEAM_K,
+        device=DEVICE))
+    diff = float(np.abs(scores - dscores).max())
+    if not (np.array_equal(toks, dtoks) and np.array_equal(lens, dlens)
+            and diff <= ZOO_BEAM_SCORE_TOLERANCE):
+        fail(f"paged beams: tokens {toks[:, PAGED_BEAM_PROMPT:].tolist()} "
+             f"lengths {lens.tolist()} scores {scores.tolist()} against the "
+             f"dense search's {dtoks[:, PAGED_BEAM_PROMPT:].tolist()} "
+             f"{dlens.tolist()} {dscores.tolist()}")
+    print(f"zoo runtimes: gpt_350m paged beams K {PAGED_BEAM_K} from "
+          f"{PAGED_BEAM_PROMPT} (tpb {tpb}, {PAGED_BEAM_BLOCKS} blocks), "
+          f"{PAGED_BEAM_NEW} new, eager steps: {steps} steps "
+          f"{beam_ms:.2f} ms; tokens and lengths equal the dense beam "
+          f"search's, scores within {diff:.3e}; every block released; "
+          f"launches {want} exact [{card}]")
+    del params
+
+    # ---- BERT-large and the UNet: the card's runs; the CPU's references
+    # in a thread beside them (no trace from here on) ------------------------
+    bcfg, bhost = trees["bert_large"]
+    btok = rng.integers(0, bcfg.vocab_size, (BERT_BATCH, BERT_LEN)).astype(
+        np.int32)
+    bmask = np.ones((BERT_BATCH, BERT_LEN), np.int32)
+    for i in range(1, BERT_BATCH):
+        bmask[i, BERT_LEN - 37 * i:] = 0
+    ucfg, uhost = trees["unet"]
+    sample = rng.standard_normal((UNET_BATCH, UNET_HW, UNET_HW,
+                                  ucfg.in_channels)).astype(np.float32)
+    ts = np.asarray([10.0, 500.0], np.float32)[:UNET_BATCH]
+    ctx = rng.standard_normal((UNET_BATCH, UNET_CTX,
+                               ucfg.cross_attention_dim)).astype(np.float32)
+
+    def cpu_refs():
+        t0 = time.perf_counter()
+        out = {"bert": bert.forward(bhost, bcfg, btok[:1])[0][0],
+               "bert masked": bert.forward(bhost, bcfg, btok[1:2],
+                                           bmask[1:2])[0][0]}
+        out["bert_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["unet"] = unet.forward(uhost, ucfg, sample[:1], ts[:1],
+                                   ctx[:1])[0]
+        out["unet_s"] = time.perf_counter() - t0
+        return out
+
+    cpu = ThreadPoolExecutor(1)
+    ref = cpu.submit(cpu_refs)
+
+    bert_counts = {"flash_fwd": bcfg.n_layer,
+                   "layer_norm": 2 * bcfg.n_layer + 1}
+    bert_out = {}
+    for dn, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        bparams = params_from_numpy(bhost, DEVICE, dtype)
+        for masked in (False, True):
+            m = bmask if masked else None
+            reset_launch_counts()
+            (seq, pooled), ms, _, _ = timed(
+                torch, lambda: bert.forward(bparams, bcfg, btok, m), reps=3)
+            want = {"flash_fwd": 0 if masked else 3 * bcfg.n_layer,
+                    "layer_norm": 3 * (2 * bcfg.n_layer + 1)}
+            expect(f"bert_large {dn} masked={masked}", launches(), want)
+            if not (torch.isfinite(seq).all() and torch.isfinite(pooled).all()
+                    and seq.shape == (BERT_BATCH, BERT_LEN, bcfg.d_model)):
+                fail(f"bert_large {dn} masked={masked}: output "
+                     f"{tuple(seq.shape)} not finite")
+            bert_out[dn, masked] = seq.float().cpu()
+            print(f"zoo runtimes: bert_large {dn} B {BERT_BATCH} x "
+                  f"{BERT_LEN} masked={masked}: {ms:.3f} ms a forward, "
+                  f"{BERT_BATCH * BERT_LEN / ms * 1e3:.0f} tokens/s; "
+                  f"launches a forward {dict((k, v // 3) for k, v in want.items())} "
+                  f"exact [{card}]")
+        del bparams
+    counts["_bert"] = bert_counts
+    for masked in (False, True):
+        d = (bert_out["bfloat16", masked] - bert_out["float32", masked]
+             ).abs().max().item()
+        print(f"zoo runtimes: bert_large bf16 masked={masked} within {d:.3e} "
+              f"of fp32 (printed, not gated)")
+
+    uparams = params_from_numpy(uhost, DEVICE)
+    # a Transformer2D block: K1 for its self and its cross attention, K5
+    # for its three LayerNorms (SD-1.x: 16 blocks, K1 32, K5 48)
+    blocks = sum(len(blk["attns"]) for blk in uhost["down"] + [uhost["mid"]]
+                 + uhost["up"])
+    unet_counts = {"flash_fwd": 2 * blocks, "layer_norm": 3 * blocks}
+    reset_launch_counts()
+    out, ms, lo, hi = timed(
+        torch, lambda: unet.forward(uparams, ucfg, sample, ts, ctx), reps=3)
+    expect("unet fp32", launches(), {k: 3 * v for k, v in
+                                     unet_counts.items()})
+    again = unet.forward(uparams, ucfg, sample, ts, ctx)
+    if not torch.equal(again, out):
+        fail("unet fp32: a repeat call gave other outputs")
+    if not (torch.isfinite(out).all() and out.shape == (
+            UNET_BATCH, UNET_HW, UNET_HW, ucfg.out_channels)):
+        fail(f"unet fp32: output {tuple(out.shape)} not finite")
+    counts["_unet"] = unet_counts
+    print(f"zoo runtimes: unet (SD-1.x widths and depth) fp32 B "
+          f"{UNET_BATCH} {UNET_HW}x{UNET_HW} over {UNET_CTX} context rows: "
+          f"{ms:.3f} ms a forward ({lo:.3f}..{hi:.3f}); launches a forward "
+          f"{unet_counts} exact ({blocks} Transformer2D blocks); a repeat "
+          f"call equal [{card}]")
+    del uparams
+    u16 = params_from_numpy(uhost, DEVICE, torch.bfloat16)
+    reset_launch_counts()
+    out16, ms, _, _ = timed(
+        torch, lambda: unet.forward(u16, ucfg, sample, ts, ctx), reps=3)
+    expect("unet bf16", launches(), {k: 3 * v for k, v in
+                                     unet_counts.items()})
+    if not torch.isfinite(out16).all():
+        fail("unet bf16: output not finite")
+    d16 = ((out16.float() - out).abs().max() / out.abs().max()).item()
+    print(f"zoo runtimes: unet bf16: {ms:.3f} ms a forward, within "
+          f"{d16:.3e} of fp32 relative to max |fp32| (printed, not gated) "
+          f"[{card}]")
+    del u16
+
+    # ---- bench_zoo bert_large as a subprocess, while the CPU finishes ------
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    child = subprocess.Popen(
+        [sys.executable, "-m", "whisper_trtllm_tpu_torch.benchmarks."
+         "benchmark", "--model", "bert_large", "--batch", str(BERT_BATCH),
+         "--in-len", str(BERT_LEN), "--iters", "3"], cwd=ROOT, env=env,
+        text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    t_wait = time.perf_counter()
+    refs = ref.result()
+    cpu.shutdown()
+    try:
+        stdout, stderr = child.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        stdout, stderr = child.communicate()
+    if child.returncode != 0:
+        fail(f"bench_zoo bert_large exited {child.returncode}:\n"
+             f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    row = json.loads(stdout.strip().splitlines()[-1])
+    if not (row["tokens_encoded_per_s"] > 0 and row["sequences_per_s"] > 0
+            and row["launches"].get("flash_fwd") == 3 * bcfg.n_layer
+            and row["launches"].get("layer_norm") == 3 * (
+                2 * bcfg.n_layer + 1)):
+        fail(f"bench_zoo bert_large: {row}")
+    print(f"zoo runtimes: waited {time.perf_counter() - t_wait:.2f} s for "
+          f"the CPU's references (BERT {refs['bert_s']:.1f} s, UNet "
+          f"{refs['unet_s']:.1f} s) and bench_zoo")
+    print(f"zoo runtimes bench_zoo bert_large: {json.dumps(row)}")
+    for tag, got, want in (
+            ("bert_large row 0", bert_out["float32", False][0], refs["bert"]),
+            ("bert_large masked row 1", bert_out["float32", True][1][
+                :int(bmask[1].sum())], refs["bert masked"][
+                    :int(bmask[1].sum())])):
+        err = (got - want).abs().max().item()
+        if not math.isfinite(err) or err > BERT_TOLERANCE:
+            fail(f"{tag}: max |card - CPU| = {err:.3e} > {BERT_TOLERANCE}")
+        print(f"zoo runtimes: {tag} fp32 within {err:.3e} of the CPU's "
+              f"(limit {BERT_TOLERANCE})")
+    want = refs["unet"]
+    err = ((out[0].cpu() - want).abs().max() / want.abs().max()).item()
+    if not math.isfinite(err) or err > UNET_TOLERANCE:
+        fail(f"unet: the first sample's max |card - CPU| / max |CPU| = "
+             f"{err:.3e} > {UNET_TOLERANCE}")
+    print(f"zoo runtimes: unet's first sample fp32 within {err:.3e} of the "
+          f"CPU's at batch 1, relative to max |CPU| {want.abs().max():.3f} "
+          f"(limit {UNET_TOLERANCE})")
+    return counts
+
+
 def main() -> None:
     import argparse
 
@@ -5431,6 +5906,10 @@ def main() -> None:
     decode["bias"] = check_decode_bias(torch, rng("zoo decode bias"), card)
     norm["zoo"] = check_layer_norm(torch, rng("zoo layer norm"), card,
                                    floor_ms, cases=ZOO_NORM_CASES)
+    # phase 2c's: K1 at the UNet's self and cross attentions (S != T, head
+    # dims 40, 80, 160) and BERT-large's encoder
+    flash["zoo"].update(check_flash(torch, rng("unet flash"), card,
+                                    UNET_FLASH_CASES))
     phase_s["kernels"] = time.perf_counter() - t0
     # the zoo, its weights drawn on the host beside the kernels phase
     t0 = time.perf_counter()
@@ -5438,8 +5917,11 @@ def main() -> None:
     zoo_pool.shutdown()
     del zoo_trees
     zoo_counts = zoo(torch, np, card, trees)
-    del trees
     phase_s["zoo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zoo_counts.update(zoo_runtimes(torch, np, card, trees))
+    del trees
+    phase_s["zoo runtimes"] = time.perf_counter() - t0
     # each kernel's launches from a path that runs it: configuration B, the
     # serving precision, for K1, K2, K3 and K5; E, the float-weight path,
     # for K6; one training step for K4; the hardware check's
@@ -5549,7 +6031,10 @@ def main() -> None:
         # gpt_350m's lockstep call at prompt 800 (K1, K2, K5), GPT-J's and
         # GPT-NeoX's at batch 2, bloom_560m's (K2 with its bias, K5) and
         # ChatGLM-6B's (K2, K5)
-        for tag in ("", "_gptj", "_gptneox", "_bloom", "_chatglm6b"):
+        # and phase 2c's: the batchers' first drains, the paged beams,
+        # BERT-large's forward and the UNet's
+        for tag in ("", "_gptj", "_gptneox", "_bloom", "_chatglm6b", "_ifb",
+                    "_ifb_paged", "_beam_paged", "_bert", "_unet"):
             if counts["zoo"][tag].get(r["name"]):
                 r["zoo_launches" + tag] = counts["zoo"][tag][r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -5568,6 +6053,11 @@ def main() -> None:
                                               "zoo_launches_gptneox",
                                               "zoo_launches_bloom",
                                               "zoo_launches_chatglm6b",
+                                              "zoo_launches_ifb",
+                                              "zoo_launches_ifb_paged",
+                                              "zoo_launches_beam_paged",
+                                              "zoo_launches_bert",
+                                              "zoo_launches_unet",
                                               "bfloat16",
                                               "serving", "batcher", "decode",
                                               "encoder_mlp", "floor_ms",

@@ -330,8 +330,8 @@ def test_entry_points_exit_nonzero_without_a_card(main, monkeypatch, capsys,
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(name="bert_base"), "item 11"),
-    (dict(name="bert_large"), "item 11"),
+    (dict(name="bert_base", quant="sq"), "item 11"),
+    (dict(name="bert_large", quant="sq"), "item 11"),
     (dict(name="gpt_350m", quant="sq"), "item 11"),
 ])
 def test_unported_inputs_raise_naming_their_roadmap_item(kwargs, item):

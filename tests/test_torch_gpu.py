@@ -10,7 +10,10 @@ for the speculative round, with ``decode_chunk`` against the CPU and
 at the head counts a rank holds under tensor parallelism, their calls
 with no heads (nothing launched), and ``torch.distributed`` over NCCL at a
 world of one (the session, the train step and the sharded checkpoint over
-a 1×1 mesh equal to one device).
+a 1×1 mesh equal to one device); K1 at the UNet's and BERT's shapes (S !=
+T, head dims 40, 80, 160), the causal-LM batchers' captured steps against
+the same steps run eagerly (dense and paged), and a paged replay reading
+its static table buffer.
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is False. The file imports no JAX, so it runs
@@ -2700,3 +2703,116 @@ def test_gptj_at_heads_of_256_on_the_card_equals_the_cpu(cuda):
             assert gap < 1e-4 * logits[lane, p - 1].abs().max().item(), (
                 lane, p, gap)
             break
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("s,t,dh", [
+    (4096, 77, 40), (1024, 77, 80), (256, 77, 160), (64, 77, 160),
+    (1024, 1024, 80), (256, 256, 160)])
+def test_flash_kernel_at_the_unet_attentions_matches_plain(cuda, dtype, tol,
+                                                           s, t, dh):
+    """K1 bidirectional at SD-1.x's attentions, 8 heads at batch 2: the
+    cross attention's S queries over T = 77 context rows (S != T, T a
+    multiple of no tile) and the self attention, at head dims 40, 80 and
+    160, which the kernel pads to 64, 128 and 256."""
+    rng = np.random.default_rng(s + t + dh)
+    q = _normal(rng, (2, 8, s, dh), dh ** -0.5, cuda, dtype)
+    k = _normal(rng, (2, 8, t, dh), 1.0, cuda, dtype)
+    v = _normal(rng, (2, 8, t, dh), 1.0, cuda, dtype)
+    out = flash_fwd(q, k, v)
+    ref = attention_reference(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _lm_batcher(paged: bool, cuda, eager: bool = False, num_blocks=40):
+    """A 2-layer GPT (4 heads of 64) in a dense or paged batcher of 3 lanes
+    on the card; ``eager``: its segments run the step eagerly."""
+    from whisper_trtllm_tpu_torch.models.gpt import model as gm
+    from whisper_trtllm_tpu_torch.runtime.ifb_lm import (
+        CausalLMInflightBatcher,
+    )
+    from whisper_trtllm_tpu_torch.runtime.ifb_paged import (
+        PagedCausalLMInflightBatcher,
+    )
+
+    _, cfg, params = _zoo_model("gpt")
+    common = dict(cache_heads=cfg.n_head, head_dim=cfg.head_dim,
+                  n_layer=cfg.n_layer, eos_token_id=cfg.eos_token_id,
+                  num_lanes=3, max_prompt_len=20, max_new_tokens=16,
+                  segment_steps=6, device=cuda)
+    if paged:
+        b = PagedCausalLMInflightBatcher(
+            params, cfg,
+            prefill=lambda p, t, l, pk, pv, tb: gm._prefill_paged(
+                p, cfg, t, l, pk, pv, tb),
+            step=lambda p, tok, pos, pk, pv, tb: gm._step_paged(
+                p, cfg, tok, pos, pk, pv, tb),
+            num_blocks=num_blocks, tokens_per_block=8, **common)
+    else:
+        b = CausalLMInflightBatcher(
+            params, cfg,
+            prefill=lambda p, t, l, ck, cv: gm._prefill_ragged(
+                p, cfg, t, l, ck, cv),
+            step=lambda p, tok, pos, ck, cv: gm._step(p, cfg, tok, pos, ck,
+                                                      cv), **common)
+    if eager:
+        b._graph = None
+    return b
+
+
+def _lm_lane_tensors(b):
+    return list(b.state) + ([b.tables] if hasattr(b, "tables") else [])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_captured_lm_batcher_step_equals_the_eager_steps(cuda, paged):
+    """The causal-LM batchers' captured step, replayed segment by segment,
+    gives the rows and the lanes' final state (tokens, positions, prompt
+    lengths, flags, caches or pools, tables) of the same step run eagerly
+    on the card, bit for bit, over 5 requests through 3 lanes."""
+    prompts = [np.random.default_rng(n).integers(8, 512, (n,)).astype(
+        np.int32) for n in (20, 7, 13, 3, 18)]
+    rows = []
+    for eager in (False, True):
+        b = _lm_batcher(paged, cuda, eager)
+        generation.reset_loop_counts()
+        rids = [b.submit(p) for p in prompts]
+        b.run()
+        rows.append(([b.fetch(r) for r in rids], _lm_lane_tensors(b)))
+        if eager:
+            assert generation.LOOP.replays == 0
+        else:
+            assert generation.LOOP.replays == b.steps_run > 0
+        if paged:
+            assert b.free_blocks() == 40
+    for r, w in zip(rows[0][0], rows[1][0]):
+        np.testing.assert_array_equal(r, w)
+    for a, w in zip(rows[0][1], rows[1][1]):
+        assert torch.equal(a, w)
+
+
+def test_a_paged_replay_reads_the_table_buffer_it_is_given(cuda):
+    """Every lane idle at position 0 writes its slot 0 through its table
+    row at each replay: after the static table buffer changes, the next
+    replay writes into the new block; a -1 row writes nothing."""
+    b = _lm_batcher(True, cuda)
+    pool = b.state.pool_k
+    with torch.inference_mode():  # the batcher's buffers are inference tensors
+        b.tables.fill_(-1)
+        b.tables[0, 0] = 3
+    b._graph.replay()
+    torch.cuda.synchronize()
+    written = pool[:, 3, 0].clone()
+    assert written.abs().sum().item() > 0
+    others = torch.ones(pool.shape[1], dtype=torch.bool, device=cuda)
+    others[3] = False
+    assert pool[:, others].abs().sum().item() == 0
+    assert pool[:, 3, 1:].abs().sum().item() == 0
+    with torch.inference_mode():
+        b.tables[0, 0] = 5
+    b._graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(pool[:, 5, 0], written)  # the same lane's row
+    assert torch.equal(pool[:, 3, 0], written)
+    others[5] = False
+    assert pool[:, others].abs().sum().item() == 0

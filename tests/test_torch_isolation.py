@@ -97,7 +97,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "models.gptj", "models.gptj.model", "models.gptneox",
                  "models.gptneox.model", "runtime.causal_lm", "runtime.beam_lm",
                  "benchmarks.allowed_configs", "benchmarks.stft_witness",
-                 "cli.run_zoo"):
+                 "cli.run_zoo", "runtime.ifb_lm", "runtime.ifb_paged",
+                 "runtime.beam_paged", "models.bert", "models.bert.model",
+                 "models.unet", "models.unet.model"):
         assert f"whisper_trtllm_tpu_torch.{name}" in _port_modules()
 
 
@@ -256,6 +258,49 @@ def test_zoo_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
     for fn in (dryrun.serve_checks, dryrun.train_checks,
                dryrun.dryrun_checks):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_zoo_runtimes_and_encoders_default_to_the_card(no_cuda):
+    """The batchers, the paged beam search, BERT's and the UNet's
+    ``init_params`` and converters raise without ``device=`` when there is
+    no card; with ``device="cpu"`` they run."""
+    from whisper_trtllm_tpu_torch.models import bert, gpt, unet
+    from whisper_trtllm_tpu_torch.models.gpt import model as gm
+    from whisper_trtllm_tpu_torch.runtime.beam_paged import paged_beam_search
+    from whisper_trtllm_tpu_torch.runtime.ifb_lm import (
+        CausalLMInflightBatcher,
+    )
+    from whisper_trtllm_tpu_torch.runtime.ifb_paged import (
+        PagedCausalLMInflightBatcher,
+    )
+
+    cfg = gpt.GPTConfig.testing()
+    params = gpt.init_params(cfg, device="cpu")
+    common = dict(cache_heads=cfg.n_head, head_dim=cfg.head_dim,
+                  n_layer=cfg.n_layer, eos_token_id=cfg.eos_token_id)
+    paged = dict(prefill=lambda *a: gm._prefill_paged(a[0], cfg, *a[1:]),
+                 step=lambda *a: gm._step_paged(a[0], cfg, *a[1:]))
+    for call in (
+            lambda: CausalLMInflightBatcher(
+                params, cfg, prefill=None, step=None, **common),
+            lambda: PagedCausalLMInflightBatcher(
+                params, cfg, num_blocks=4, **paged, **common),
+            lambda: paged_beam_search(
+                paged["prefill"], paged["step"], params, [3, 4, 5, 6],
+                pool_shape=(2, 8, 4, 4, 8), tokens_per_block=4,
+                max_blocks_per_seq=4, max_new_tokens=2, eos_token_id=2,
+                num_beams=2),
+            lambda: bert.init_params(bert.BertConfig.testing()),
+            lambda: unet.init_params(unet.UNetConfig.testing()),
+            lambda: unet.convert_diffusers_unet({}, unet.UNetConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    b = PagedCausalLMInflightBatcher(params, cfg, num_blocks=8, **paged,
+                                     **common, max_prompt_len=4,
+                                     max_new_tokens=4, device="cpu")
+    rid = b.submit([3, 4])
+    b.run()
+    assert b.fetch(rid) is not None and b.free_blocks() == 8
 
 
 def test_transcribe_tokens_refuses_params_on_another_device():

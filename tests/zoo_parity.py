@@ -147,12 +147,17 @@ class Family:
         return np.abs(got - jax_out).max(), np.abs(got - hf_out).max()
 
 
-def assert_trees_equal(got: dict, want: dict, path: str = "") -> None:
+def assert_trees_equal(got, want, path: str = "") -> None:
     """The port's tensor tree equals the JAX package's numpy tree, keys,
-    shapes and values bit for bit."""
+    list lengths, shapes and values bit for bit."""
+    if isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_trees_equal(g, w, f"{path}/{i}")
+        return
     assert set(got) == set(want), path
     for k, v in want.items():
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             assert_trees_equal(got[k], v, f"{path}/{k}")
         else:
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(v),

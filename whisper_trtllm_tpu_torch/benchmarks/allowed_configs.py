@@ -3,12 +3,12 @@
 JAX registry with its architecture and its per-run limits (max batch,
 input and output lengths).
 
-``build_model`` builds the families the port has: gpt, opt, llama, gptj,
-gptneox and chatglm6b (every name of theirs, ``gpt_175b``'s width of 12288
-and ``opt_66b``'s 9216 within K5's limit of 16384, GPT-J's head dim of 256
-within K1's and K2's), and bloom, which has no entry here, as in the JAX
-registry. The one family left (bert) raises ``NotImplementedError`` naming
-ROADMAP Queue 1 item 11: its model is not ported yet.
+``build_model`` builds every family of the registry: gpt, opt, llama,
+gptj, gptneox, chatglm6b and bert (every name of theirs, ``gpt_175b``'s
+width of 12288 and ``opt_66b``'s 9216 within K5's limit of 16384, GPT-J's
+head dim of 256 within K1's and K2's), and bloom, which has no entry here,
+as in the JAX registry. BERT is encoder-only: its ``generate`` is None, as
+in the JAX registry.
 
 ``fits_one_v5e`` is the JAX registry's field (whether bf16 weights fit a
 16 GB TPU v5e), kept so the two registries read alike; the H100 here has
@@ -20,7 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 PORTED_FAMILIES = ("gpt", "opt", "llama", "gptj", "gptneox", "bloom",
-                   "chatglm6b")
+                   "chatglm6b", "bert")
 
 
 @dataclass(frozen=True)
@@ -122,7 +122,8 @@ ALLOWED_CONFIGS: dict[str, BenchConfig] = {
 
 _CFG_CLS = {"gpt": "GPTConfig", "opt": "OPTConfig", "llama": "LlamaConfig",
             "gptj": "GPTJConfig", "gptneox": "GPTNeoXConfig",
-            "bloom": "BloomConfig", "chatglm6b": "ChatGLM6BConfig"}
+            "bloom": "BloomConfig", "chatglm6b": "ChatGLM6BConfig",
+            "bert": "BertConfig"}
 
 
 def family_module(fam: str):
@@ -142,8 +143,10 @@ def config_class(fam: str):
 
 
 def build_model(name: str):
-    """name → (family, config, init_params, generate, forward)."""
+    """name → (family, config, init_params, generate or None for the
+    encoder-only BERT, forward)."""
     entry = ALLOWED_CONFIGS[name]
     mod = family_module(entry.family)
     cfg = config_class(entry.family)(**entry.model_kwargs)
-    return entry.family, cfg, mod.init_params, mod.generate, mod.forward
+    return (entry.family, cfg, mod.init_params, getattr(mod, "generate", None),
+            mod.forward)

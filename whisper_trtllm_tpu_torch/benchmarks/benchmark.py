@@ -26,9 +26,12 @@ A zoo name (``allowed_configs.py``) runs ``bench_zoo``: the family's
 ``generate`` over random prompts of ``--in-len`` tokens with EOS
 disabled, tokens/s over ``batch * gen_tokens``, with ``--quant int8``
 the weight-only int8 tree (``chatglm_6b`` through GLM's own ``generate``,
-its [gMASK] at the prompt's second-to-last position). Not ported yet, and
-refused with ``NotImplementedError`` naming ROADMAP Queue 1 item 11: the
-bert family and ``--quant sq`` (SmoothQuant for GPT).
+its [gMASK] at the prompt's second-to-last position); a BERT name
+(``bert_base``, ``bert_large``, ``bert_tiny``) runs the encoder's
+``forward`` over the same prompts, its row the JAX row's
+``tokens_encoded_per_s`` over ``batch * in_len`` and ``sequences_per_s``.
+Not ported yet, and refused with ``NotImplementedError`` naming ROADMAP
+Queue 1 item 11.6: ``--quant sq`` (SmoothQuant for GPT).
 Without a card it exits non-zero and prints no row.
 """
 
@@ -165,20 +168,21 @@ def bench_config(model: str, batch: int, dtype: str, gen_tokens: int,
 def bench_zoo(name: str, batch: int, in_len: int, out_len: int, dtype: str,
               iters: int, quant: str | None = None, device=None) -> dict:
     """One row of a named zoo configuration: ``iters`` timed ``generate``
-    calls after one warm-up call (which builds the kernels and captures
-    the step), each between two syncs of ``device`` (the card by default).
-    Batch, input and output lengths are cut to the entry's limits; EOS is
-    disabled, so every call runs ``out_len`` steps. Weights from
+    calls (BERT's: ``forward`` calls) after one warm-up call (which builds
+    the kernels and captures the step), each between two syncs of
+    ``device`` (the card by default). Batch, input and output lengths are
+    cut to the entry's limits; EOS is disabled, so every call runs
+    ``out_len`` steps. Weights from
     ``init_params(seed=0)`` on the host, ``--quant int8`` through the
     port's ``weight_only_quantize``, cast to ``dtype``."""
     from whisper_trtllm_tpu_torch.quantization import weight_only_quantize
 
     entry = ALLOWED_CONFIGS[name]
-    fam, cfg, init_params_fn, generate, _ = build_model(name)
+    fam, cfg, init_params_fn, generate, forward = build_model(name)
     if quant == "sq":
         raise NotImplementedError(
             "--quant sq needs smooth_quantize_gpt, not ported yet (ROADMAP "
-            "Queue 1 item 11)")
+            "Queue 1 item 11.6)")
     if quant not in (None, "int8"):
         raise ValueError(f"--quant is int8 or sq, got {quant!r}")
     dev = resolve_device(device)
@@ -193,12 +197,18 @@ def bench_zoo(name: str, batch: int, in_len: int, out_len: int, dtype: str,
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(
         3, cfg.vocab_size, (batch, in_len)).astype(np.int32)).to(dev)
-    # EOS disabled for a stable measurement (random weights)
-    cfg = dataclasses.replace(cfg, eos_token_id=-1)
+    if fam == "bert":
+        def run():
+            return forward(params, cfg, tokens)[0]
+        work_tokens = batch * in_len
+    else:
+        # EOS disabled for a stable measurement (random weights)
+        cfg = dataclasses.replace(cfg, eos_token_id=-1)
 
-    def run():
-        return generate(params, cfg, tokens, max_new_tokens=out_len,
-                        device=dev)
+        def run():
+            return generate(params, cfg, tokens, max_new_tokens=out_len,
+                            device=dev)
+        work_tokens = batch * out_len
 
     run()  # warm-up: builds the kernels, captures the step
     sync(dev)
@@ -207,7 +217,7 @@ def bench_zoo(name: str, batch: int, in_len: int, out_len: int, dtype: str,
     _, lats = timed_calls(run, dev, iters, warmup=0)
     peak_gib = mon.stop()
     med_s = float(np.median(lats)) / 1e3
-    return {
+    row = {
         "peak_mem_gib": peak_gib,
         "model": name,
         "family": fam,
@@ -219,13 +229,17 @@ def bench_zoo(name: str, batch: int, in_len: int, out_len: int, dtype: str,
         "latency_ms_p50": float(np.percentile(lats, 50)),
         "latency_ms_p95": float(np.percentile(lats, 95)),
         "latency_ms_p99": float(np.percentile(lats, 99)),
-        "tokens_per_s": batch * out_len / med_s,
+        "tokens_per_s" if fam != "bert" else "tokens_encoded_per_s":
+            work_tokens / med_s,
         "backend": dev.type,
         "device": card_info() if dev.type == "cuda" else None,
         "iters": iters,
         "launches": {k: f.launches for k, f in KERNELS.items()
                      if f.launches},
     }
+    if fam == "bert":
+        row["sequences_per_s"] = batch / med_s
+    return row
 
 
 def main(argv=None) -> int:

@@ -78,6 +78,8 @@ def main(argv=None):
         mod = family_module(fam)
         cfg = None if args.hf_model else config_class(fam).testing()
         init_params, generate = mod.init_params, mod.generate
+    if generate is None:
+        raise SystemExit(f"{fam} has no generate() (encoder-only)")
 
     tokenizer = None
     if args.hf_model:

@@ -10,7 +10,11 @@ On the card the prefill's causal attention runs K1 from 768 positions on
 K5 (2L + 1 a pass: ``ln_1`` and ``ln_2`` a layer, ``ln_f``), every step's
 attention K2 (one a layer); the products and the tied vocab head are torch
 matmuls, as the JAX package runs them in XLA. The paged pair
-(``_prefill_paged``, ``_step_paged``) waits for the paged batchers.
+(``_prefill_paged``, ``_step_paged``) runs the same layers against pools
+(L, num_blocks, tpb, H, dh) addressed by block tables: the paged batcher
+(``runtime/ifb_paged.py``) and the paged beam search
+(``runtime/beam_paged.py``) drive it, K2 attending each lane's blocks
+gathered into a window (``ops/attention.py::paged_mha_decode_step``).
 """
 
 from __future__ import annotations
@@ -41,6 +45,9 @@ from whisper_trtllm_tpu_torch.models.zoo import (
 from whisper_trtllm_tpu_torch.ops.attention import (
     mha,
     mha_decode_step,
+    paged_mha_decode_step,
+    paged_prefill_update,
+    paged_update_kv_cache,
     update_kv_cache,
 )
 from whisper_trtllm_tpu_torch.ops.functional import (
@@ -212,6 +219,49 @@ def _prefill_ragged(params, cfg: GPTConfig, tokens, lens, cache_k, cache_v):
                                           cache_v)
     return (_vocab_logits(params, gather_last_token_logits(x, lens)),
             cache_k, cache_v)
+
+
+def _prefill_paged(params, cfg: GPTConfig, tokens, lens, pool_k, pool_v,
+                   block_tables):
+    """Context phase against a paged KV cache: ``_prefill_ragged``'s graph,
+    with each layer's K/V written through the block tables (B, M) into its
+    pools (``pool_k[i]``, (num_blocks, tpb, H, dh)) in place; one table
+    serves every layer. Positions at or past ``lens`` are dropped."""
+    s = tokens.shape[1]
+    x = embedding(params["wte"], tokens)
+    x = x + params["wpe"][:s][None]
+    for i in range(cfg.n_layer):
+        lp = layer(params["layers"], i)
+        a, k, v = _attention(lp, x, cfg, causal=True)
+        paged_prefill_update(pool_k[i], pool_v[i], k, v, block_tables, lens)
+        x = x + a
+        x = x + _mlp(lp, x, cfg)
+    x = layer_norm(params["ln_f"], x, cfg.layer_norm_eps)
+    return (_vocab_logits(params, gather_last_token_logits(x, lens)),
+            pool_k, pool_v)
+
+
+def _step_paged(params, cfg: GPTConfig, tok, pos, pool_k, pool_v,
+                block_tables):
+    """Generation phase against the paged cache: ``_step``'s layers with
+    the write and the attention through the block tables (B, M); ``pos``
+    is per lane (B,). A lane whose table entry is -1 writes nothing."""
+    h, dh = cfg.n_head, cfg.head_dim
+    x = embedding(params["wte"], tok[:, None])
+    x = x + position_rows(params["wpe"], pos)
+    for i in range(cfg.n_layer):
+        lp = layer(params["layers"], i)
+        hid = layer_norm(lp["ln_1"], x, cfg.layer_norm_eps)
+        q, k, v = dense(lp["attn_qkv"], hid).split(cfg.d_model, dim=-1)
+        q = split_heads(q, h, dh) * dh ** -0.5
+        paged_update_kv_cache(pool_k[i], pool_v[i], split_heads(k, h, dh),
+                              split_heads(v, h, dh), block_tables, pos)
+        a = paged_mha_decode_step(q, pool_k[i], pool_v[i], block_tables,
+                                  pos + 1)
+        x = x + dense(lp["attn_out"], merge_heads(a))
+        x = x + _mlp(lp, x, cfg)
+    x = layer_norm(params["ln_f"], x, cfg.layer_norm_eps)
+    return _vocab_logits(params, x[:, 0]), pool_k, pool_v
 
 
 def _cache_shape(cfg: GPTConfig, b: int, max_len: int) -> tuple:

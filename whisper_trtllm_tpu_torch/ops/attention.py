@@ -225,15 +225,19 @@ def _write_rows(pool: torch.Tensor, flat: torch.Tensor, valid: torch.Tensor,
     as a ``mode="drop"`` scatter drops out-of-range entries. A dropped
     entry rewrites the first valid entry's row with that entry's value (row
     0 with its own value when none is valid), so a row written twice gets
-    one value either way, and nothing is read on the host."""
+    one value either way, and nothing is read on the host: the first valid
+    entry is selected by a device index (a 0-d index tensor would be read
+    on the host, which a CUDA graph capture refuses)."""
     rows = pool.view(-1, *pool.shape[2:])
     values = values.to(pool.dtype)
     if pool.dtype == torch.float8_e4m3fn:
         rows, values = rows.view(torch.uint8), values.view(torch.uint8)
-    first = valid.int().argmax()
+    first = valid.int().argmax().view(1)
     any_valid = valid.any()
-    row = torch.where(any_valid, flat[first], torch.zeros_like(flat[0]))
-    value = torch.where(any_valid, values[first], rows[0])
+    row = torch.where(any_valid, flat.index_select(0, first)[0],
+                      torch.zeros_like(flat[0]))
+    value = torch.where(any_valid, values.index_select(0, first)[0],
+                        rows[0])
     rows.index_copy_(0, torch.where(valid, flat, row),
                      torch.where(valid.view(-1, 1, 1), values, value))
 

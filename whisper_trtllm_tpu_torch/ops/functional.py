@@ -242,3 +242,55 @@ def conv1d(params: dict, x: torch.Tensor, stride: int = 1,
     if params.get("bias") is not None:
         y = y + params["bias"].to(y.dtype)
     return y
+
+
+# --------------------------------------------------------------------------
+# the UNet's spatial ops, channels-last (B, H, W, C) as in the JAX package,
+# which computes them in XLA (no Pallas kernel): here torch's convolution
+# and tensor ops, on either device
+# --------------------------------------------------------------------------
+
+def group_norm(params: dict, x: torch.Tensor, num_groups: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over (B, *spatial, C) activations: statistics per (batch,
+    group) across the group's channels and every spatial position, in
+    fp32 whatever the compute dtype; ``bias`` optional."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(b, -1, num_groups, c // num_groups)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = y * params["scale"].float()
+    if "bias" in params:
+        y = y + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def conv2d(params: dict, x: torch.Tensor, stride: int = 1,
+           padding: int = 0) -> torch.Tensor:
+    """2-D convolution over channels-last input (B, H, W, C_in) with kernel
+    (KH, KW, C_in, C_out): ``F.conv2d`` on the channels-first views, the
+    output (B, H', W', C_out) channels-last; the bias added after, in the
+    output's dtype. On the card an fp32 caller sets
+    ``utils/device.py::set_fp32_precision`` first (cuDNN runs fp32
+    convolutions in TF32 by default)."""
+    w = params["kernel"].to(x.dtype).permute(3, 2, 0, 1)   # (Cout, Cin, KH, KW)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
+                 padding=padding).permute(0, 2, 3, 1)
+    if params.get("bias") is not None:
+        y = y + params["bias"].to(y.dtype)
+    return y
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x spatial upsampling of (B, H, W, C)."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2, stride-2 average pool of (B, H, W, C): the window's sum over 4."""
+    b, h, w, c = x.shape
+    # a "VALID" window: an odd last row or column is dropped
+    x = x[:, : h - h % 2, : w - w % 2]
+    s = x.reshape(b, h // 2, 2, w // 2, 2, c).sum(dim=(2, 4))
+    return s / 4.0

@@ -99,9 +99,13 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
 
     ``dtype`` casts floating leaves wider than one byte, like
     ``models.whisper.model.cast_params``; int8 kernels and tables stay int8.
+    A list is a node of the tree, as in a JAX pytree (the UNet's blocks),
+    never a leaf.
     """
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_numpy(v, device, dtype) for v in tree]
     if isinstance(tree, torch.Tensor):
         t = tree
     else:
